@@ -8,21 +8,32 @@ CUDA toolkit (an H100: the kernels are built for sm_90a). Phases, each
 printed as one line, any failure exits non-zero:
 
 1. device  — the card's name, the device count, and what ``nvidia-smi``
-   reports as its name and power limit;
-2. build   — ``nvcc`` builds every kernel of the serving path from
-   ``seghiero_torch/csrc`` (seconds, and ``-Xptxas -v``'s registers and
-   spills per kernel);
+   reports as its name, power limit and maximum SM clock;
+2. build   — ``nvcc`` builds every kernel from ``seghiero_torch/csrc``
+   (seconds, and ``-Xptxas -v``'s registers and spills per kernel);
 3. kernels — each kernel against its plain PyTorch version at the shapes
-   serving gives it (TF32 off; bit-exact), then timed with CUDA events
-   against the plain version, the PyTorch library call computing the same
-   function, and the least time the card could take;
+   its path gives it (TF32 off; the tolerance stated beside each check),
+   then timed with CUDA events against the plain version, the PyTorch
+   library call computing the same function (for the fused loss, which
+   has none, the port's unfused loss path), and the least time the card
+   could take;
 4. serve   — ``configs/example-serving-hopper.yaml`` at full width with
    weights made from a fixed seed: the port's ``ServingModel`` +
    ``make_server`` answer two bursts of concurrent 512×512 requests on a
    local port; each response must equal the predictor called directly on
    the same batch, the library-op predictor (both backends ``xla``) must
    agree on ≥99.5% of pixels per level, and each kernel's launch counter
-   must show the serving run went through it.
+   must show the serving run went through it;
+5. train   — ``configs/example-train-hopper.yaml`` (ResNet-50, 512², batch
+   8, bf16) with weights made from the seed: the kernel path against the
+   library path (``depthwise_backend: xla``, ``pallas_fused_loss: false``)
+   on one batch (loss, per-parameter gradient cosine); both paths' device
+   step time; then ``Trainer.fit()`` — one epoch of SGD steps, each with
+   exactly 2/2/2/1/1 launches of the depthwise forward, input gradient,
+   weight gradient, fused loss forward and backward, a finite loss, and on
+   step 1 a finite gradient for every parameter — the evaluation pass and
+   a checkpoint, restored into a fresh ``Trainer`` whose eval loss must be
+   the same bits.
 
 Then one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` name/power
 line, and as the last line ``{"ok": true, "device": {...}}``.
@@ -46,6 +57,10 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12  # f32 outside the tensor cores, H100 SXM data sheet
+H100_SMS = 132
+# special-function unit (MUFU) results per clock per SM on Hopper: ex2,
+# lg2, rcp; each expf, logf, log1pf and f32 division counted as one
+MUFU_PER_CLOCK_PER_SM = 16
 AGREE_MIN = 0.995  # kernel path vs library-op path, pixels per level (bf16)
 SEED = 0
 N_REQUESTS = 16  # per burst
@@ -72,9 +87,14 @@ def time_ms(fn, iters: int = 30, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def bound(nbytes: int, flops: int):
+def bound(nbytes: int, flops: int, mufu: int = 0, sm_mhz: float = 0.0):
+    """(least ms, "bytes" | "operations"): bytes over HBM bandwidth, f32
+    flops over the non-tensor f32 rate, and MUFU operations over
+    132 SMs × 16 per clock at ``sm_mhz``, whichever is longest."""
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = flops / H100_F32_FLOPS * 1e3
+    if mufu:
+        t_ops = max(t_ops, mufu / (H100_SMS * MUFU_PER_CLOCK_PER_SM * sm_mhz * 1e6) * 1e3)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -87,9 +107,13 @@ def phase_device():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
-    say("device", name=name, count=count, nvidia_smi=smi, torch=torch.__version__,
-        cuda=torch.version.cuda)
-    return name, count, smi
+    sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.split()[0])
+    say("device", name=name, count=count, nvidia_smi=smi, max_sm_clock_mhz=sm_mhz,
+        torch=torch.__version__, cuda=torch.version.cuda)
+    return name, count, smi, sm_mhz
 
 
 def phase_build():
@@ -108,6 +132,20 @@ def phase_build():
         print(f"[build] ptxas {line}", flush=True)
 
 
+def _sum_entries(entries):
+    """One kernel-line entry from per-shape entries: times and bounds add
+    up, the error is the largest."""
+    out = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+           "max_abs_err": 0.0, "shapes": []}
+    for e in entries:
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            out[key] += e[key]
+        out["max_abs_err"] = max(out["max_abs_err"], e["max_abs_err"])
+        out["shapes"].append(e["shape"])
+        out["bound_by"] = e["bound_by"]
+    return out
+
+
 def phase_kernels(seed: int):
     import torch
     import torch.nn.functional as F
@@ -122,8 +160,7 @@ def phase_kernels(seed: int):
     results = {}
 
     # depthwise 3×3 at the two sep-bottleneck shapes of one serving batch
-    dw = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-          "max_abs_err": 0.0, "shapes": []}
+    dw = []
     for shape in ((8, 128, 128, 560), (8, 128, 128, 512)):
         C = shape[-1]
         x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
@@ -144,16 +181,11 @@ def phase_kernels(seed: int):
         }
         nbytes = x.nbytes + k9.nbytes + got.nbytes
         b_ms, b_by = bound(nbytes, 2 * 9 * x.numel())
-        say("kernels", kernel="depthwise3x3", shape=list(shape), dtype="bfloat16",
-            max_abs_err=err, library_max_abs_diff=lib_err, bytes=nbytes,
-            bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / t["ms"], **t)
-        for key in ("ms", "plain_ms", "library_ms"):
-            dw[key] += t[key]
-        dw["bound_ms"] += b_ms
-        dw["max_abs_err"] = max(dw["max_abs_err"], err)
-        dw["shapes"].append(list(shape))
-        dw["bound_by"] = b_by
-    results["depthwise3x3"] = dw
+        e = dict(t, shape=list(shape), max_abs_err=err, bound_ms=b_ms, bound_by=b_by)
+        say("kernels", kernel="depthwise3x3", dtype="bfloat16", library_max_abs_diff=lib_err,
+            bytes=nbytes, share_of_bound=b_ms / t["ms"], **e)
+        dw.append(e)
+    results["depthwise3x3"] = _sum_entries(dw)
 
     # fused 4× upsample + per-level argmax at the serving decode shape
     B, C, h, w = 8, 13, 128, 128
@@ -185,6 +217,189 @@ def phase_kernels(seed: int):
         bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / t["ms"], **t)
     results["upsample_argmax"] = dict(t, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
                                       shapes=[[B, C, h, w]])
+    return results
+
+
+def phase_train_kernels(seed: int, sm_mhz: float):
+    """The training path's kernels at the shapes config 2 gives them: the
+    depthwise input and weight gradients at the two sep-bottleneck shapes
+    (bf16), and the fused upsample + hierarchy-BCE + CE forward and
+    backward on ``[8, 13, 128, 128]`` logits with the synthetic dataset's
+    512² label maps."""
+    import torch
+    import torch.nn.functional as F
+
+    from seghiero_torch.config import load_config
+    from seghiero_torch.data.dataset import build_dataset
+    from seghiero_torch.losses.fast import _ce_cmajor, hiera_bce_two_level_cmajor
+    from seghiero_torch.losses.hiera import prepare_targets_two_level
+    from seghiero_torch.ops import hiera2_fused as fused
+    from seghiero_torch.ops.depthwise import (
+        depthwise3x3_dgrad,
+        depthwise3x3_plain,
+        depthwise3x3_wgrad,
+        depthwise3x3_wgrad_plain,
+    )
+    from seghiero_torch.ops.resize import resize_bilinear
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    dgrad, wgrad = [], []
+    for shape in ((8, 128, 128, 560), (8, 128, 128, 512)):
+        C = shape[-1]
+        x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        g = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        k9 = (torch.randn((9, C), generator=gen, device=dev) * 0.3).to(torch.bfloat16)
+        x_cl, g_cl = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)  # channels_last views
+        w = k9.t().reshape(C, 1, 3, 3).contiguous()
+
+        # #1b: the forward kernel with reversed taps; stated tolerance:
+        # bit-exact (the same kernel and f32 order as the plain version)
+        dx = depthwise3x3_dgrad(g, k9)
+        err = (dx.float() - depthwise3x3_plain(g, k9.flip(0)).float()).abs().max().item()
+        torch.cuda.synchronize()
+        if err != 0.0:
+            raise AssertionError(f"depthwise3x3_dgrad {shape}: max |kernel − plain| = {err}")
+
+        def lib_dgrad():
+            return torch.nn.grad.conv2d_input(x_cl.shape, w, g_cl, padding=1, groups=C)
+
+        lib_err = (lib_dgrad().permute(0, 2, 3, 1).float() - dx.float()).abs().max().item()
+        t = {"ms": time_ms(lambda: depthwise3x3_dgrad(g, k9)),
+             "plain_ms": time_ms(lambda: depthwise3x3_plain(g, k9.flip(0)), iters=5),
+             "library_ms": time_ms(lib_dgrad)}
+        nbytes = g.nbytes + k9.nbytes + dx.nbytes
+        b_ms, b_by = bound(nbytes, 18 * g.numel())
+        e = dict(t, shape=list(shape), max_abs_err=err, bound_ms=b_ms, bound_by=b_by)
+        say("kernels", kernel="depthwise3x3_dgrad", dtype="bfloat16", bytes=nbytes,
+            library_max_abs_diff=lib_err, share_of_bound=b_ms / t["ms"], **e)
+        dgrad.append(e)
+
+        # #2: stated tolerance |Δ| ≤ 1e-5 · Σ|x·g| per entry (f32 sums of
+        # 131,072 products in another order than torch.sum's)
+        dk = depthwise3x3_wgrad(x, g)
+        want = depthwise3x3_wgrad_plain(x, g)
+        mag = depthwise3x3_wgrad_plain(x.float().abs(), g.float().abs())
+        diff = (dk - want).abs()
+        torch.cuda.synchronize()
+        if not bool((diff <= 1e-5 * mag).all()):
+            raise AssertionError(f"depthwise3x3_wgrad {shape}: max |Δ|/Σ|x·g| = "
+                                 f"{(diff / mag).max().item()} > 1e-5")
+        if not torch.equal(dk, depthwise3x3_wgrad(x, g)):
+            raise AssertionError("depthwise3x3_wgrad: two runs differ")
+
+        def lib_wgrad():
+            return torch.nn.grad.conv2d_weight(x_cl, (C, 1, 3, 3), g_cl, padding=1, groups=C)
+
+        lib_err = (lib_wgrad().float().reshape(C, 9).t() - dk).abs().max().item()
+        t = {"ms": time_ms(lambda: depthwise3x3_wgrad(x, g)),
+             "plain_ms": time_ms(lambda: depthwise3x3_wgrad_plain(x, g), iters=5),
+             "library_ms": time_ms(lib_wgrad)}
+        nbytes = x.nbytes + g.nbytes + dk.nbytes
+        b_ms, b_by = bound(nbytes, 18 * x.numel())
+        e = dict(t, shape=list(shape), max_abs_err=diff.max().item(), bound_ms=b_ms,
+                 bound_by=b_by)
+        say("kernels", kernel="depthwise3x3_wgrad", dtype="bfloat16", bytes=nbytes,
+            max_rel_err_of_sum_abs=(diff / mag).max().item(), library_max_abs_diff=lib_err,
+            share_of_bound=b_ms / t["ms"], **e)
+        wgrad.append(e)
+        del x, g, x_cl, g_cl, dx, dk, want, mag, diff
+    results = {"depthwise3x3_dgrad": _sum_entries(dgrad),
+               "depthwise3x3_wgrad": _sum_entries(wgrad)}
+
+    # fused loss at config 2: low-res logits [8, 13, 128, 128] f32 and the
+    # training split's first 8 label maps (512², ~2 % ignore)
+    cfg = load_config(str(ROOT / "configs" / "example-train-hopper.yaml"))
+    hier = cfg.hierarchy
+    ds = build_dataset(cfg, "train", seed=cfg.training.seed)
+    labels = torch.from_numpy(np.stack([ds[i]["fine"] for i in range(8)])).to(dev)
+    tf, tc = prepare_targets_two_level(labels, hier)
+    tf, tc = tf.to(torch.int32).contiguous(), tc.to(torch.int32).contiguous()
+    B, C, h, w = 8, hier.total_classes, 128, 128
+    lo = torch.randn((B, C, h, w), generator=gen, device=dev) * 3
+    nf, nc = hier.n_fine, hier.n_coarse
+
+    # #4: stated tolerance 1e-5 relative per sum (f32 sums of 2.1 M terms
+    # in another order; the counts exact)
+    got = fused.fused_hiera2_sums_kernel(lo, tf, tc, hier)
+    want = fused.fused_hiera2_sums_plain(lo, tf, tc, hier)
+    err = (got - want).abs()
+    torch.cuda.synchronize()
+    if not bool((err <= 1e-5 * want.abs()).all()) or not torch.equal(got[2:4], want[2:4]):
+        raise AssertionError(f"hiera2_fused_fwd: sums {got.tolist()} vs plain {want.tolist()}")
+    nvf, nvc = int(want[2].item()), int(want[3].item())
+    # #5 with the cotangents the loss assembly passes (losses/fast.py);
+    # stated tolerance rtol 2e-4, atol 1e-7 (tests/test_pallas_fused.py)
+    total = labels.numel()
+    gsum = torch.tensor([5.0 / (max(nvf, 1) * nf), 5.0 / (max(nvc, 1) * nc), 0.0, 0.0,
+                         1.0 / total, 1.0 / total], device=dev)
+    dlo = fused.fused_hiera2_grad_kernel(lo, tf, tc, hier, gsum)
+    dwant = fused.fused_hiera2_grad_plain(lo, tf, tc, hier, gsum)
+    derr = (dlo - dwant).abs()
+    torch.cuda.synchronize()
+    if not bool((derr <= 1e-7 + 2e-4 * dwant.abs()).all()):
+        raise AssertionError(f"hiera2_fused_bwd: max |Δ| {derr.max().item()} beyond "
+                             "rtol 2e-4, atol 1e-7")
+
+    def unfused(x):  # the port's own path without the kernels
+        lf = resize_bilinear(x, (4 * h, 4 * w))
+        return (hiera_bce_two_level_cmajor(lf, tf, tc, hier)
+                + _ce_cmajor(lf[:, :nf], tf, hier.ignore_index)
+                + _ce_cmajor(lf[:, nf:], tc, hier.ignore_index))
+
+    lo_req = lo.detach().clone().requires_grad_()
+
+    def unfused_fwd_bwd():
+        lo_req.grad = None
+        unfused(lo_req).backward()
+
+    def fused_fwd_bwd():  # the loss assembly of losses/fast.py over the kernels
+        lo_req.grad = None
+        s_f, s_c, nv_f, nv_c, ce_f, ce_c = fused.fused_hiera2_loss_sums(lo_req, tf, tc, hier)
+        loss = 5.0 * (s_f / (torch.clamp(nv_f, min=1.0) * nf)
+                      + s_c / (torch.clamp(nv_c, min=1.0) * nc))
+        (loss + ce_f / total + ce_c / total).backward()
+
+    with torch.no_grad():
+        unfused_loss = unfused(lo).item()
+    g_l = got.tolist()
+    fused_loss = (5.0 * (g_l[0] / (max(nvf, 1) * nf) + g_l[1] / (max(nvc, 1) * nc))
+                  + (g_l[4] + g_l[5]) / total)
+    with torch.no_grad():
+        unfused_fwd_ms = time_ms(lambda: unfused(lo), iters=10)
+    unfused_both_ms = time_ms(unfused_fwd_bwd, iters=10)
+    fused_both_ms = time_ms(fused_fwd_bwd, iters=10)
+    # least work: each input byte read and each output byte written once;
+    # per valid pixel the transcendentals the kernels evaluate (forward
+    # 5·n+1 per level of n classes: 4 per BCE term, n exp + 1 log for CE;
+    # backward 9·n: 7 per BCE derivative, an exp and a division per softmax
+    # entry) and the 4-tap blend (9 flop per channel)
+    px = total
+    fwd_mufu = nvf * (5 * nf + 1) + nvc * (5 * nc + 1)
+    bwd_mufu = nvf * 9 * nf + nvc * 9 * nc
+    entries = {}
+    for name, fn, plain, mufu, nbytes, e, extra in (
+        ("hiera2_fused_fwd", lambda: fused.fused_hiera2_sums_kernel(lo, tf, tc, hier),
+         lambda: fused.fused_hiera2_sums_plain(lo, tf, tc, hier), fwd_mufu,
+         lo.nbytes + tf.nbytes + tc.nbytes + got.nbytes, err.max().item(),
+         {"unfused_ms": unfused_fwd_ms, "unfused_what": "F.interpolate + hierarchy BCE + "
+          "2 CE, forward", "loss": fused_loss, "unfused_loss": unfused_loss}),
+        ("hiera2_fused_bwd", lambda: fused.fused_hiera2_grad_kernel(lo, tf, tc, hier, gsum),
+         lambda: fused.fused_hiera2_grad_plain(lo, tf, tc, hier, gsum), bwd_mufu,
+         lo.nbytes + tf.nbytes + tc.nbytes + dlo.nbytes, derr.max().item(),
+         {"unfused_ms": unfused_both_ms, "unfused_what": "the same, forward + backward",
+          "fused_fwd_bwd_ms": fused_both_ms}),
+    ):
+        t = {"ms": time_ms(fn), "plain_ms": time_ms(plain, iters=3)}
+        b_ms, b_by = bound(nbytes, 9 * C * px, mufu, sm_mhz)
+        entries[name] = dict(t, library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                             max_abs_err=e, shapes=[[B, C, h, w]], **extra)
+        say("kernels", kernel=name, shape=[B, C, h, w], dtype="float32", bytes=nbytes,
+            mufu_ops=mufu, sm_clock_mhz=sm_mhz, valid_pixels=[nvf, nvc],
+            share_of_bound=b_ms / t["ms"], **entries[name])
+    results.update(entries)
     return results
 
 
@@ -404,35 +619,281 @@ def phase_serve(seed: int, n_requests: int, device_line: str, profile_dir):
         predict_b8_ms=batch_ms, predict_b8_library_ms=batch_ms_xla,
         setup_s=round(setup_s, 2), healthz=health, card=device_line)
     if profile_dir:
-        profile(predictor, images[:8], Path(profile_dir))
+        profile(lambda: predictor.predict_masks(images[:8]), 3, "serve_b8", Path(profile_dir))
     return launches
 
 
-def profile(predictor, images, out_dir: Path) -> None:
-    """torch.profiler over a few batch-8 predictions: device time by kernel."""
+def profile(fn, n_calls: int, stem: str, out_dir: Path) -> None:
+    """torch.profiler over ``n_calls`` calls of ``fn`` after one warm-up
+    call: device time by kernel, and the device's busy share of the wall
+    time (the profiler's own overhead included)."""
     import torch
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     out_dir.mkdir(parents=True, exist_ok=True)
-    for _ in range(2):
-        predictor.predict_masks(images)
+    fn()
     torch.cuda.synchronize()
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            predictor.predict_masks(images)
+        t0 = time.perf_counter()
+        for _ in range(n_calls):
+            fn()
         torch.cuda.synchronize()
-    table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
-    (out_dir / "serve_b8_profile.txt").write_text(table)
-    prof.export_chrome_trace(str(out_dir / "serve_b8_trace.json"))
-    print("[profile] " + "\n[profile] ".join(table.splitlines()[:25]), flush=True)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=60)
+    (out_dir / f"{stem}_profile.txt").write_text(table)
+    prof.export_chrome_trace(str(out_dir / f"{stem}_trace.json"))
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.device_time_total for e in device) / 1e3
+    say("profile", what=stem, calls=n_calls, wall_ms=wall_ms, device_busy_ms=busy_ms,
+        device_events=len(device), idle_share=1.0 - busy_ms / wall_ms)
+    print("[profile] " + "\n[profile] ".join(table.splitlines()[:45]), flush=True)
+
+
+# ---------------------------------------------------------------------------
+# The train phase's tolerances, kernel path against library path on one
+# batch with the same weights. The two paths run the same cuDNN backbone
+# and differ in the head's two 3×3 depthwise convolutions (f32 sums in
+# another order before the bf16 rounding, forward and both gradients) and
+# in the loss (the fused kernels' f32 order; an l_f == l_coarse tie goes
+# wholly to the fine channel where autograd splits it in half). A logit
+# moves by about one bf16 ulp (2^-8) where a rounding flips; the loss is a
+# mean over 2.1 M pixels, so it moves far less than one ulp:
+LOSS_RTOL = 1e-3
+# each gradient entry carries such one-ulp differences back through up to
+# 50 bf16 layers; uncorrelated perturbations of ≤ 0.4 % keep each
+# parameter's gradient direction well within 1 %:
+GRAD_COS_MIN = 0.99
+# the triplet ramp is exactly 0 in f32 for the first steps of a run; the
+# comparison pass evaluates the loss mid-schedule so that the projection
+# head's gradient is live on both paths
+TRIPLET_LIVE_STEP = 40_000
+# the kernel launches of one train step: depthwise forward, input gradient
+# and weight gradient (the head's two sep-bottleneck convolutions), fused
+# loss forward and backward
+STEP_LAUNCHES = {"depthwise3x3": 2, "depthwise3x3_dgrad": 2, "depthwise3x3_wgrad": 2,
+                 "hiera2_fused_fwd": 1, "hiera2_fused_bwd": 1}
+
+
+def _counters():
+    from seghiero_torch.ops import depthwise, hiera2_fused
+
+    return {"depthwise3x3": (depthwise, "launches"),
+            "depthwise3x3_dgrad": (depthwise, "dgrad_launches"),
+            "depthwise3x3_wgrad": (depthwise, "wgrad_launches"),
+            "hiera2_fused_fwd": (hiera2_fused, "fwd_launches"),
+            "hiera2_fused_bwd": (hiera2_fused, "bwd_launches"),
+            "backward_copies": (depthwise, "backward_copies")}
+
+
+def read_counts():
+    return {k: getattr(mod, attr) for k, (mod, attr) in _counters().items()}
+
+
+def zero_counts():
+    for mod, attr in _counters().values():
+        setattr(mod, attr, 0)
+
+
+def _grads(model, composite, cfg, batch):
+    """Loss and f32 gradients of one train-mode pass (no update)."""
+    from seghiero_torch.train.steps import forward_losses
+
+    model.train()
+    model.zero_grad(set_to_none=True)
+    loss, _, _, _ = forward_losses(model, composite, cfg, batch, TRIPLET_LIVE_STEP)
+    loss.backward()
+    return loss.item(), {n: p.grad for n, p in model.named_parameters()}
+
+
+def _step_times(model, composite, optimizer, cfg, batch, n_steps: int = 8):
+    """Device ms of each of ``n_steps`` ``train_step`` calls on one batch
+    already on the card, from CUDA events around each call."""
+    import torch
+
+    from seghiero_torch.train.steps import train_step
+
+    events = []
+    for i in range(n_steps):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        train_step(model, composite, optimizer, cfg, batch, i)
+        ev[1].record()
+        events.append(ev)
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in events]
+
+
+def _median_3_to_8(ms):
+    return float(np.median(ms[2:8]))
+
+
+def phase_train(seed: int, device_line: str, profile_dir):
+    import copy
+    import shutil
+
+    import torch
+
+    from seghiero_torch.config import load_config
+    from seghiero_torch.models.convert import load_reference_checkpoint
+    from seghiero_torch.models.segmenter import build_model
+    from seghiero_torch.train import loop
+    from seghiero_torch.train.optim import make_optimizer
+    from seghiero_torch.train.steps import make_composite_loss, train_step
+    from seghiero_torch.train.trainer import Trainer
+
+    cfg = load_config(str(ROOT / "configs" / "example-train-hopper.yaml"))
+    m, t = cfg.model, cfg.training
+    if ((m.depth, m.dtype, m.depthwise_backend, t.pallas_fused_loss, t.batch_size,
+         tuple(cfg.transform.resize)) != (50, "bfloat16", "pallas", True, 8, (512, 512))):
+        raise AssertionError("the train config must be config 2 with both kernel paths on")
+    ckpt_dir = ROOT / "checkpoints" / "chip-smoke-train"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    cfg = dataclasses.replace(cfg, output=dataclasses.replace(
+        cfg.output, checkpoint_dir=str(ckpt_dir)))
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, device="cuda")
+    weights = made_up_checkpoint(cfg, seed)
+    load_reference_checkpoint(trainer.model, weights)
+    setup_s = time.perf_counter() - t0
+
+    # -- kernel path against library path: same weights, same batch
+    cfg_lib = dataclasses.replace(
+        cfg, model=dataclasses.replace(m, depthwise_backend="xla"),
+        training=dataclasses.replace(t, pallas_fused_loss=False))
+    lib_model = load_reference_checkpoint(build_model(cfg_lib), weights).to(
+        "cuda", memory_format=torch.channels_last)
+    lib_composite = make_composite_loss(cfg_lib)
+    ker_model = copy.deepcopy(trainer.model)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in
+             trainer.train_loader.make_batch(np.arange(t.batch_size)).items()}
+    zero_counts()
+    loss_k, grads_k = _grads(ker_model, trainer.composite, cfg, batch)
+    counts = read_counts()
+    if any(counts[k] != n for k, n in STEP_LAUNCHES.items()):
+        raise AssertionError(f"comparison pass launches {counts}, want {STEP_LAUNCHES}")
+    loss_l, grads_l = _grads(lib_model, lib_composite, cfg_lib, batch)
+    bad = [n for n, g in grads_k.items()
+           if g is None or not bool(torch.isfinite(g).all()) or not bool(g.abs().max() > 0)]
+    if bad:
+        raise AssertionError(f"kernel path: no finite non-zero gradient for {bad}")
+    cos = {n: float(torch.nn.functional.cosine_similarity(
+        grads_k[n].flatten().double(), grads_l[n].flatten().double(), dim=0))
+        for n in grads_k}
+    worst = sorted(cos.items(), key=lambda kv: kv[1])[:5]
+    loss_rel = abs(loss_k - loss_l) / abs(loss_l)
+    say("train", check="kernel path vs library path, one batch, same weights",
+        loss_kernel=loss_k, loss_library=loss_l, loss_rel_diff=loss_rel, loss_rtol=LOSS_RTOL,
+        grad_cos_min=worst[0][1], grad_cos_floor=GRAD_COS_MIN, worst_params=worst,
+        params=len(cos), setup_s=round(setup_s, 2))
+    if loss_rel > LOSS_RTOL or worst[0][1] < GRAD_COS_MIN:
+        raise AssertionError("kernel path and library path disagree beyond the tolerances")
+    del grads_k, grads_l
+
+    # -- device step time of both paths on the batch already on the card,
+    # in the order kernel, library, library, kernel
+    paths = {"kernel": (ker_model, trainer.composite, cfg),
+             "library": (lib_model, lib_composite, cfg_lib)}
+    opts = {p: make_optimizer(c.training, mdl.parameters()) for p, (mdl, _, c) in paths.items()}
+    times = {p: {"step_ms_median_3_8": [], "peak_mb_above_resident": 0.0} for p in paths}
+    for path in ("kernel", "library", "library", "kernel"):
+        model, composite, c = paths[path]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ms = _step_times(model, composite, opts[path], c, batch)
+        times[path]["step_ms_median_3_8"].append(_median_3_to_8(ms))
+        times[path]["peak_mb_above_resident"] = max(
+            times[path]["peak_mb_above_resident"],
+            (torch.cuda.max_memory_allocated() - base) / 2**20)
+    if profile_dir:
+        model, composite, c = paths["kernel"]
+        profile(lambda: train_step(model, composite, opts["kernel"], c, batch, 0), 1,
+                "train_step", Path(profile_dir))
+    del ker_model, lib_model, paths, opts
+    torch.cuda.empty_cache()
+
+    # -- the main path: Trainer.fit() — every step through the kernels
+    per_step, losses, events, grad_report = [], [], [], {}
+    real_step = loop.train_step
+
+    def checked_step(model, composite, optimizer, cfg_, batch_, step, epoch=0, scheduler=None):
+        before = read_counts()
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = real_step(model, composite, optimizer, cfg_, batch_, step, epoch, scheduler)
+        ev[1].record()
+        after = read_counts()
+        per_step.append({k: after[k] - before[k] for k in after})
+        events.append(ev)
+        losses.append(out["loss"])
+        if len(per_step) == 1:  # step 1: every gradient finite; non-zero
+            # except the projection head's, which the triplet ramp (0 at
+            # step 0) multiplies by 0
+            grad_report["non_finite"] = [
+                n for n, p in model.named_parameters()
+                if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+            grad_report["zero"] = [n for n, p in model.named_parameters()
+                                   if p.grad is not None and not bool(p.grad.abs().max() > 0)]
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    loop.train_step = checked_step
+    try:
+        t_fit = time.perf_counter()
+        history = trainer.fit()
+        fit_s = time.perf_counter() - t_fit
+    finally:
+        loop.train_step = real_step
+    fit_counts = read_counts()
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    n_steps = len(per_step)
+    if n_steps != len(trainer.train_loader) or n_steps < 8:
+        raise AssertionError(f"{n_steps} train steps ran")
+    for i, c in enumerate(per_step):
+        if any(c[k] != n for k, n in STEP_LAUNCHES.items()):
+            raise AssertionError(f"step {i + 1} launches {c}, want {STEP_LAUNCHES}")
+    if grad_report["non_finite"] or any(
+            not n.startswith("aspp_head.proj_head.") for n in grad_report["zero"]):
+        raise AssertionError(f"step 1 gradients: {grad_report}")
+    step_losses = [float(x) for x in losses]
+    if not all(np.isfinite(step_losses)):
+        raise AssertionError(f"non-finite step loss: {step_losses}")
+    fit_ms = [a.elapsed_time(b) for a, b in events]
+    rec = history[-1]
+    if not (np.isfinite(rec["val_loss"]) and 0.0 <= rec["val_fine_miou"] <= 1.0):
+        raise AssertionError(f"evaluation: {rec}")
+
+    # -- checkpoint round trip: a fresh Trainer resumes, same eval loss bits
+    fresh = Trainer(cfg, device="cuda", verbose=False, resume=True)
+    if fresh.step != trainer.step or fresh.start_epoch != 1:
+        raise AssertionError(f"resumed at step {fresh.step}, epoch {fresh.start_epoch}")
+    val_again = fresh.evaluate()["loss"]
+    if val_again != rec["val_loss"]:
+        raise AssertionError(f"eval loss after restore {val_again!r} != {rec['val_loss']!r}")
+    del fresh
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    say("train", steps=n_steps, launches_per_step=per_step[0], launches_total=fit_counts,
+        backward_copies_per_step=per_step[0]["backward_copies"],
+        step_losses=step_losses, zero_grad_params_step1=grad_report["zero"],
+        val=rec, eval_loss_after_restore=val_again,
+        device_step_ms_kernel=times["kernel"]["step_ms_median_3_8"],
+        device_step_ms_library=times["library"]["step_ms_median_3_8"],
+        peak_mb_above_resident={k: v["peak_mb_above_resident"] for k, v in times.items()},
+        fit_step_ms=fit_ms, fit_step_ms_median_3_8=_median_3_to_8(fit_ms),
+        fit_images_per_s=rec["train_images_per_sec"], fit_train_seconds=rec["train_seconds"],
+        fit_s=round(fit_s, 2), fit_max_memory_allocated_mb=peak_mb, card=device_line)
+    return fit_counts
 
 
 # ---------------------------------------------------------------------------
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--profile", type=str, default=None,
-                   help="also write a torch.profiler table and trace of batch-8 "
-                   "predictions into this directory")
+                   help="also write torch.profiler tables and traces of batch-8 "
+                   "predictions and of one train step into this directory")
     args = p.parse_args(argv)
 
     import torch
@@ -444,27 +905,40 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT))
     import seghiero_torch  # noqa: F401  (fails outside a checkout of the repo)
 
-    name, count, smi = phase_device()
+    name, count, smi, sm_mhz = phase_device()
     phase_build()
     kernels = phase_kernels(SEED)
-    launches = phase_serve(SEED, N_REQUESTS, smi, args.profile)
+    kernels.update(phase_train_kernels(SEED, sm_mhz))
+    serve = phase_serve(SEED, N_REQUESTS, smi, args.profile)
+    train = phase_train(SEED, smi, args.profile)
     sources = {
         "depthwise3x3": ("seghiero_torch/csrc/depthwise3x3.cu",
                          "seghiero_tpu/ops/pallas/depthwise.py:221"),
+        "depthwise3x3_dgrad": ("seghiero_torch/csrc/depthwise3x3.cu",
+                               "seghiero_tpu/ops/pallas/depthwise.py:292"),
+        "depthwise3x3_wgrad": ("seghiero_torch/csrc/depthwise3x3_wgrad.cu",
+                               "seghiero_tpu/ops/pallas/depthwise.py:245"),
+        "hiera2_fused_fwd": ("seghiero_torch/csrc/hiera2_fused.cu",
+                             "seghiero_tpu/ops/pallas/hiera2_fused.py:322"),
+        "hiera2_fused_bwd": ("seghiero_torch/csrc/hiera2_fused.cu",
+                             "seghiero_tpu/ops/pallas/hiera2_fused.py:348"),
         "upsample_argmax": ("seghiero_torch/csrc/upsample_argmax.cu",
                             "seghiero_tpu/ops/pallas/upsample_argmax.py:153"),
     }
     line = []
     for kname, (src, replaces) in sources.items():
         k = kernels[kname]
-        if launches[kname] <= 0:
-            raise AssertionError(f"{kname} was not launched on the serving path")
+        by_path = {p: c[kname] for p, c in (("serve", serve), ("train", train)) if kname in c}
+        if sum(by_path.values()) <= 0:
+            raise AssertionError(f"{kname} was not launched on its path")
         line.append({
             "name": kname, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[kname], "max_abs_err": k["max_abs_err"],
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
             "shapes": k["shapes"],
+            **{x: k[x] for x in ("unfused_ms", "unfused_what") if x in k},
         })
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)

@@ -18,8 +18,7 @@
 // pixel), x fastest, so the int32 mask stores are coalesced. Half-pixel 4× upsampling with an edge clamp
 // puts output row y in phase py = y & 3 of low-res row i = y >> 2: its two
 // taps are rows i−1+ro and i+ro, clamped to [0, h−1], blended with the
-// weights (a, b) of the phase table below (the `_PHASE` of
-// seghiero_tpu/ops/pallas/hiera2_fused.py:63-68); columns likewise. A
+// weights (a, b) of `upsample4_phase` in common.cuh; columns likewise. A
 // thread reads its 4 taps per channel straight from the C-major logits
 // (neighbouring threads share taps, which L1 serves), blends each channel
 // of a level's slice in f32 and keeps the first strict maximum, so ties go
@@ -47,16 +46,6 @@ struct Levels {
   int* out[kMaxLevels];
 };
 
-// phase → (row offset of the low tap, weight of the low tap, weight of the high tap)
-__device__ __forceinline__ void phase(int p, int& ro, float& a, float& b) {
-  switch (p) {
-    case 0: ro = 0; a = 0.375f; b = 0.625f; break;
-    case 1: ro = 0; a = 0.125f; b = 0.875f; break;
-    case 2: ro = 1; a = 0.875f; b = 0.125f; break;
-    default: ro = 1; a = 0.625f; b = 0.375f; break;
-  }
-}
-
 template <typename T>
 __global__ void __launch_bounds__(256) upsample_argmax_kernel(
     const T* __restrict__ logits, int B, int C, int h, int w, Levels lv) {
@@ -70,8 +59,8 @@ __global__ void __launch_bounds__(256) upsample_argmax_kernel(
 
   int ro, co;
   float ay, by, ax, bx;
-  phase(y & 3, ro, ay, by);
-  phase(x & 3, co, ax, bx);
+  upsample4_phase(y & 3, ro, ay, by);
+  upsample4_phase(x & 3, co, ax, bx);
   const int r0 = min(max((y >> 2) + ro - 1, 0), h - 1);
   const int r1 = min(max((y >> 2) + ro, 0), h - 1);
   const int c0 = min(max((x >> 2) + co - 1, 0), w - 1);

@@ -1,0 +1,177 @@
+"""The 2-level composite loss in C-major layout (the port of
+``seghiero_tpu/losses/fast.py``: ``_pick_channel``,
+``_masked_level_bce_pick``, ``_ce_cmajor``, ``_bucket_max_cmajor``,
+``hiera_bce_two_level_cmajor``, ``FastHieraTripletLoss`` with
+``hiera_variant: bce``, ``aux_ce_fast``).
+
+The port takes its model's outputs as they come: logits ``[B, C, h, w]``
+and embedding ``[B, D, h', w']`` (NCHW, any memory format). The logits
+are made C-major contiguous once at low resolution — the JAX package's
+transpose. All loss math runs in f32 (``training.hiera_precision`` has
+no effect here: it sets a TPU storage dtype).
+
+With ``use_kernel`` (``training.pallas_fused_loss: true``) the upsample,
+hierarchy BCE and both CE terms go through the fused kernels
+(``ops/hiera2_fused.py``), which take labels 4× the logits' size (on the
+card another ratio raises; on the CPU it takes the unfused path, as JAX
+does); otherwise through ``F.interpolate`` and the
+PyTorch ops below (autograd splits ``min``/``max`` ties in half, as JAX
+does on its unfused path).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from seghiero_torch.hierarchy import Hierarchy
+from seghiero_torch.losses.hiera import (
+    _log_one_minus_sig_eps,
+    _log_sig_eps,
+    prepare_targets_two_level,
+)
+from seghiero_torch.losses.tree_triplet import (
+    tree_triplet_loss_range,
+    triplet_readiness,
+    triplet_schedule_factor,
+)
+from seghiero_torch.ops.hiera2_fused import SCALE, fused_hiera2_loss_sums
+from seghiero_torch.ops.resize import resize_bilinear
+
+
+def _pick_channel(x: torch.Tensor, t_safe: torch.Tensor) -> torch.Tensor:
+    """``x[b, t[b,h,w], h, w]``; ``t_safe`` in ``[0, x.shape[1])``."""
+    return x.gather(1, t_safe.unsqueeze(1).long()).squeeze(1)
+
+
+def _masked_level_bce_pick(pos_at_lbl, neg_l, targets, n: int, ignore_index: int,
+                           eps: float = 1e-8) -> torch.Tensor:
+    """Σ_valid(−log σ(pos)[lbl] − Σ_{c≠lbl} log(1−σ(neg_c))) / (n_valid · n),
+    with the positive already picked at the label channel."""
+    valid = targets != ignore_index
+    safe = torch.where(valid, targets, 0)
+    nv = torch.clamp(valid.sum().to(torch.float32), min=1.0)
+    neg_l = neg_l.to(torch.float32)
+    neg_sum = _log_one_minus_sig_eps(neg_l, eps).sum(1)
+    neg_lbl = _log_one_minus_sig_eps(_pick_channel(neg_l, safe), eps)
+    pos_lbl = _log_sig_eps(pos_at_lbl.to(torch.float32), eps)
+    per_px = pos_lbl + neg_sum - neg_lbl
+    return torch.where(valid, -per_px, 0.0).sum() / (nv * n)
+
+
+def _ce_cmajor(logits, targets, ignore_index: int, divide_by: str = "all") -> torch.Tensor:
+    """Softmax CE on ``[B, C, H, W]`` logits as ``logsumexp − logit[label]``.
+    ``divide_by="all"`` divides by the number of label pixels,
+    ``"valid"`` by ``max(n_valid, 1)`` (finite on an all-ignored batch)."""
+    logits = logits.to(torch.float32)
+    valid = targets != ignore_index
+    safe = torch.where(valid, targets, 0)
+    pick = _pick_channel(logits, safe) - torch.logsumexp(logits, 1)
+    total = torch.where(valid, -pick, 0.0).sum()
+    if divide_by == "all":
+        return total / targets.numel()
+    return total / torch.clamp(valid.sum().to(torch.float32), min=1.0)
+
+
+def _bucket_max_cmajor(child_l, buckets: Sequence[Sequence[int]], own_l) -> torch.Tensor:
+    """Per coarse bucket: max over its fine children and its own channel
+    (``amax`` and ``maximum`` split ties evenly in the backward, as JAX)."""
+    sizes = [len(ids) for ids in buckets]
+    flat = [c for ids in buckets for c in ids]
+    if sizes and min(sizes) == max(sizes) > 0 and flat == list(range(len(flat))) \
+            and child_l.shape[1] == len(flat):
+        B, C, H, W = child_l.shape
+        g = torch.amax(child_l.reshape(B, len(buckets), sizes[0], H, W), dim=2)
+        return torch.maximum(g, own_l)
+    cols = []
+    for i, ids in enumerate(buckets):
+        o = own_l[:, i]
+        cols.append(torch.maximum(torch.amax(child_l[:, list(ids)], dim=1), o) if ids else o)
+    return torch.stack(cols, dim=1)
+
+
+def hiera_bce_two_level_cmajor(lf, t_fine, t_coarse, h: Hierarchy, eps: float = 1e-8):
+    """2-level hierarchy BCE, ``5·(fine + coarse)``, on ``[B, C, H, W]``
+    logits; the min-composed positive is evaluated at the label channel
+    only."""
+    nf, nc = h.n_fine, h.n_coarse
+    la, lb = lf[:, :nf], lf[:, nf : nf + nc]
+    mcmb = _bucket_max_cmajor(la, h.fine_by_coarse, lb)
+    sf = torch.where(t_fine != h.ignore_index, t_fine, 0)
+    sc = torch.where(t_coarse != h.ignore_index, t_coarse, 0)
+    lb_lbl = _pick_channel(lb, sc)
+    pos_f = torch.minimum(_pick_channel(la, sf), lb_lbl)
+    loss_f = _masked_level_bce_pick(pos_f, la, t_fine, nf, h.ignore_index, eps)
+    loss_c = _masked_level_bce_pick(lb_lbl, mcmb, t_coarse, nc, h.ignore_index, eps)
+    return 5.0 * (loss_f + loss_c)
+
+
+def _not_yet_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not yet ported to seghiero_torch (ROADMAP queue 1)")
+
+
+class FastHieraTripletLoss:
+    """``loss_weight · (5·hieraBCE + CE_fine + CE_coarse
+    + ready · schedule(step) · triplet)`` from low-res logits.
+
+    Called as ``(step, embedding, cls_score_before, cls_score, label)``
+    like the JAX class: ``embedding`` ``[B, D, h', w']``, ``cls_score``
+    ``[B, C, h, w]`` (``cls_score_before`` unused, as in the reference),
+    ``label`` int ``[B, H, W]``. The triplet term stays in the graph
+    behind the readiness ``where`` — a Python branch would leave the
+    projection head without a gradient, and SGD would then skip its weight
+    decay and momentum where the JAX step applies them."""
+
+    def __init__(self, hierarchy: Hierarchy, loss_weight: float = 1.0,
+                 schedule_total_steps: int = 80_000, use_kernel: bool = False,
+                 hiera_variant: str = "bce", ohem=None, selection: str = "auto"):
+        if hiera_variant != "bce":
+            raise _not_yet_ported(f"training.hiera_variant: {hiera_variant}")
+        if ohem is not None:
+            raise _not_yet_ported("OHEM (training.ohem_thresh)")
+        self.h = hierarchy
+        self.loss_weight = loss_weight
+        self.schedule_total_steps = schedule_total_steps
+        self.use_kernel = use_kernel
+        self.selection = selection
+
+    def __call__(self, step, embedding, cls_score_before, cls_score, label):
+        h = self.h
+        out_hw = tuple(label.shape[1:3])
+        lo = cls_score.to(torch.float32).contiguous()  # C-major, low-res
+        t_fine, t_coarse = prepare_targets_two_level(label, h)
+        fused = self.use_kernel and out_hw == (SCALE * lo.shape[2], SCALE * lo.shape[3])
+        if self.use_kernel and not fused and lo.device.type != "cpu":
+            # the CPU keeps JAX's gate (fused_hiera2_available); on the card
+            # the kernels are asked for, so another ratio is an error
+            raise ValueError(
+                f"training.pallas_fused_loss needs labels {SCALE}x the logits' size, got "
+                f"labels {out_hw} for logits {tuple(lo.shape[2:])}; set it to false")
+        if fused:
+            s_f, s_c, nvf, nvc, ce_f, ce_c = fused_hiera2_loss_sums(
+                lo, t_fine.to(torch.int32).contiguous(),
+                t_coarse.to(torch.int32).contiguous(), h)
+            total = label.numel()
+            loss = 5.0 * (s_f / (torch.clamp(nvf, min=1.0) * h.n_fine)
+                          + s_c / (torch.clamp(nvc, min=1.0) * h.n_coarse))
+            loss = loss + ce_f / total + ce_c / total
+        else:
+            lf = resize_bilinear(lo, out_hw)
+            loss = hiera_bce_two_level_cmajor(lf, t_fine, t_coarse, h)
+            loss = loss + _ce_cmajor(lf[:, : h.n_fine], t_fine, h.ignore_index)
+            loss = loss + _ce_cmajor(lf[:, h.n_fine : h.n_fine + h.n_coarse], t_coarse,
+                                     h.ignore_index)
+        emb = embedding.to(torch.float32).permute(0, 2, 3, 1)  # NHWC, the JAX layout
+        t, c = tree_triplet_loss_range(emb, label, h, selection=self.selection)
+        factor = triplet_schedule_factor(step, self.schedule_total_steps, device=lo.device)
+        ready = triplet_readiness(c)
+        return (loss + torch.where(ready, factor * t, 0.0)) * self.loss_weight
+
+
+def aux_ce_fast(aux_logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = 255):
+    """Aux CE: the aux logits ``[B, n_fine, h, w]`` bilinearly upsampled to
+    the label size, CE averaged over valid pixels."""
+    lo = aux_logits.to(torch.float32).contiguous()
+    lf = resize_bilinear(lo, tuple(labels.shape[1:3]))
+    return _ce_cmajor(lf, labels, ignore_index, divide_by="valid")

@@ -34,8 +34,27 @@ def conv(cin: int, cout: int, kernel: int, stride: int = 1, dilation: int = 1) -
     )
 
 
-def batch_norm(channels: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose running variance follows flax: updated with
+    the BIASED batch variance (torch uses the unbiased one). Train mode
+    keeps cuDNN's fused kernel and corrects afterwards, in place:
+    torch left ``rv = (1−m)·rv_old + m·var·n/(n−1)``; the flax update is
+    ``rv·(1 − 1/n) + rv_old·(1−m)/n`` with ``n`` = elements per channel."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not (self.training and self.track_running_stats and self.momentum is not None):
+            return super().forward(x)
+        rv_old = self.running_var.clone()
+        out = super().forward(x)
+        n = x.numel() // x.shape[1]
+        # through .data: the BN backward holds running_var and checks its
+        # version counter, though training-mode gradients never read it
+        self.running_var.data.mul_(1.0 - 1.0 / n).add_(rv_old, alpha=(1.0 - self.momentum) / n)
+        return out
+
+
+def batch_norm(channels: int) -> BatchNorm2d:
+    return BatchNorm2d(channels, eps=1e-5, momentum=0.1)
 
 
 class BasicBlock(nn.Module):

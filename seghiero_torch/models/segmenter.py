@@ -80,6 +80,24 @@ def _build_sep_aspp_contrast(cfg: SegHieroConfig, widths) -> nn.Module:
     )
 
 
+def seeded_init_(model: nn.Module, seed: int) -> nn.Module:
+    """Initialize like the JAX package's flax modules, from ``seed``:
+    conv kernels lecun-normal (a normal truncated at ±2σ, rescaled so the
+    standard deviation is 1/√fan_in), conv biases 0, BatchNorm scale 1 and
+    shift 0. (The draws differ from JAX's: tests carry weights across.)"""
+    gen = torch.Generator().manual_seed(int(seed))
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, nn.Conv2d):
+                std = (1.0 / mod.weight[0].numel()) ** 0.5 / 0.87962566103423978
+                nn.init.trunc_normal_(mod.weight, 0.0, std, -2 * std, 2 * std, generator=gen)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+            elif isinstance(mod, nn.BatchNorm2d):
+                mod.reset_parameters()
+    return model
+
+
 def build_model(cfg: SegHieroConfig) -> HieroSegmenter:
     """f32 model on the CPU from a validated config. The aux head is always
     built, so reference checkpoints load strictly; serving never runs it."""

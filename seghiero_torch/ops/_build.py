@@ -51,6 +51,12 @@ SIGNATURES = {
     # logits, B, C, h, w, dtype, n_levels, lo0, hi0, lo1, hi1, lo2, hi2,
     # out0, out1, out2, device, stream
     "seghiero_upsample_argmax": [_P] + [_I] * 12 + [_P, _P, _P, _I, _P],
+    # x, g, partial, dk, B, H, W, C, dtype, vec, P, device, stream
+    "seghiero_dw3x3_wgrad": [_P] * 4 + [_I] * 8 + [_P],
+    # lo, t_fine, t_coarse, f2c, partial, sums, B, C, h, w, nf, nc, device, stream
+    "seghiero_hiera2_fwd": [_P] * 6 + [_I] * 7 + [_P],
+    # lo, t_fine, t_coarse, f2c, gsum, dlo, B, C, h, w, nf, nc, device, stream
+    "seghiero_hiera2_bwd": [_P] * 6 + [_I] * 7 + [_P],
 }
 
 _lock = threading.Lock()

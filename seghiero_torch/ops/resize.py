@@ -1,4 +1,5 @@
-"""Bilinear resize (counterpart of ``seghiero_tpu/ops/resize.py``)."""
+"""Spatial resizing (counterpart of ``seghiero_tpu/ops/resize.py``):
+bilinear for logits, nearest for label maps."""
 
 from __future__ import annotations
 
@@ -17,3 +18,20 @@ def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     return F.interpolate(
         x, size=tuple(size), mode="bilinear", align_corners=False, antialias=False
     )
+
+
+def half_size(hw: Tuple[int, int]) -> Tuple[int, int]:
+    """Output size of torch ``interpolate(scale_factor=0.5)`` (floor)."""
+    return (hw[0] // 2, hw[1] // 2)
+
+
+def downsample_labels_nearest(labels: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """Nearest-neighbor resize of integer label maps ``[B, H, W]`` →
+    ``[B, h, w]``: source index ``floor(dst · in / out)``, as torch
+    ``F.interpolate(mode="nearest")`` picks it — an index gather, so the
+    int labels never round-trip through floats."""
+    H, W = labels.shape[-2:]
+    h, w = size
+    ys = (torch.arange(h, device=labels.device) * H) // h
+    xs = (torch.arange(w, device=labels.device) * W) // w
+    return labels[..., ys[:, None], xs[None, :]]

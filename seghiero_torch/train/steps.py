@@ -1,0 +1,118 @@
+"""Train and eval steps, the composite-loss dispatch and the shared forward
+(the port of ``seghiero_tpu/train/steps.py:48-304,374-408``).
+
+The JAX package compiles one program per step; here the step runs eagerly:
+forward under bf16 autocast over f32 parameters (``model.dtype:
+bfloat16``; f32 runs without autocast), the loss in f32 outside autocast,
+backward, SGD update. The triplet schedule follows the global optimizer
+step (``training.triplet_schedule_unit: epoch`` uses the epoch index).
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Dict
+
+import torch
+from torch import nn
+
+from seghiero_torch.config import SegHieroConfig
+from seghiero_torch.data.pipeline import normalize_images
+from seghiero_torch.losses.fast import FastHieraTripletLoss, aux_ce_fast
+from seghiero_torch.ops.resize import resize_bilinear
+from seghiero_torch.train.metrics import confusion_matrix, pixel_accuracy_counts
+
+
+def _not_yet_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not yet ported to seghiero_torch (ROADMAP queue 1)")
+
+
+def make_composite_loss(cfg: SegHieroConfig) -> FastHieraTripletLoss:
+    """The 2-level fast-path composite; every other choice raises."""
+    h, t = cfg.hierarchy, cfg.training
+    if h.has_super:
+        raise _not_yet_ported("the 3-level loss (RMI + group triplet)")
+    if not t.fast_losses:
+        raise _not_yet_ported("training.fast_losses: false (the NHWC parity losses)")
+    if t.extra_losses:
+        raise _not_yet_ported("training.extra_losses (dice, lovasz)")
+    ohem = (t.ohem_thresh, t.ohem_min_kept * t.batch_size) if t.ohem_thresh is not None else None
+    return FastHieraTripletLoss(
+        h, loss_weight=t.fine_weight, use_kernel=t.pallas_fused_loss,
+        hiera_variant=t.hiera_variant, ohem=ohem, selection=t.triplet_selection,
+    )
+
+
+def check_step_options(cfg: SegHieroConfig) -> None:
+    """Raise for step options the port does not have yet."""
+    if cfg.transform.device_hflip and cfg.transform.hflip_prob > 0:
+        raise _not_yet_ported("transform.device_hflip (on-device random flips)")
+    if cfg.model.dtype not in ("bfloat16", "float32"):
+        raise ValueError(f"model.dtype must be bfloat16 or float32, got {cfg.model.dtype}")
+
+
+def autocast_for(cfg: SegHieroConfig, device: torch.device):
+    """bf16 autocast for ``model.dtype: bfloat16``; nothing for f32."""
+    if cfg.model.dtype == "bfloat16":
+        return torch.autocast(device_type=device.type, dtype=torch.bfloat16)
+    return contextlib.nullcontext()
+
+
+def forward_losses(model: nn.Module, composite, cfg: SegHieroConfig,
+                   batch: Dict[str, torch.Tensor], sched_step):
+    """Forward + loss assembly shared by train and eval (the model's mode
+    is the caller's). Returns ``(loss, main_loss, aux_loss, logits)`` with
+    the low-res logits ``[B, C, H/4, W/4]`` f32."""
+    images = normalize_images(batch["image"], cfg.transform.normalize_mean,
+                              cfg.transform.normalize_std)
+    fine = batch["fine"].to(torch.int32)
+    with autocast_for(cfg, images.device):
+        # NHWC viewed as NCHW is the channels_last layout cuDNN wants
+        out = model(images.permute(0, 3, 1, 2))
+    logits = out["logits"]
+    main = composite(sched_step, out["embedding"], logits, logits, fine)
+    aux = aux_ce_fast(out["aux_logits"], fine, cfg.hierarchy.ignore_index)
+    return main + cfg.training.aux_weight * aux, main, aux, logits
+
+
+def train_step(model: nn.Module, composite, optimizer: torch.optim.Optimizer,
+               cfg: SegHieroConfig, batch: Dict[str, torch.Tensor], step: int,
+               epoch: int = 0, scheduler=None) -> Dict[str, torch.Tensor]:
+    """One SGD update. ``step`` is the global optimizer step before this
+    update. Every parameter gets a gradient — a zero one where the graph
+    gives none — so weight decay and momentum apply to all, as in the JAX
+    step. Returns the step's losses as device scalars (no host sync)."""
+    model.train()
+    sched_step = step if cfg.training.triplet_schedule_unit == "step" else epoch
+    optimizer.zero_grad(set_to_none=True)
+    loss, main, aux, _ = forward_losses(model, composite, cfg, batch, sched_step)
+    loss.backward()
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+    optimizer.step()
+    if scheduler is not None:
+        scheduler.step()
+    return {"loss": loss.detach(), "main_loss": main.detach(), "aux_loss": aux.detach()}
+
+
+@torch.no_grad()
+def eval_step(model: nn.Module, composite, cfg: SegHieroConfig,
+              batch: Dict[str, torch.Tensor], step: int) -> Dict:
+    """Loss, and per level the pixel-accuracy counts and confusion matrix
+    of the argmax of the bilinearly upsampled logits (device tensors)."""
+    model.eval()
+    h = cfg.hierarchy
+    loss, _, _, logits = forward_losses(model, composite, cfg, batch, step)
+    H, W = batch["fine"].shape[1:3]
+    up = resize_bilinear(logits.to(torch.float32).contiguous(), (H, W))
+    labels = {"fine": batch["fine"], "coarse": batch.get("coarse")}
+    stats = {}
+    for lvl, (lo, hi) in zip(labels, h.level_slices):
+        pred = up[:, lo:hi].argmax(dim=1)
+        target = labels[lvl].to(pred.dtype)
+        correct, valid = pixel_accuracy_counts(pred, target, h.ignore_index)
+        stats[lvl] = {"correct": correct, "valid": valid,
+                      "cm": confusion_matrix(pred, target, hi - lo, h.ignore_index)}
+    return {"loss": loss, "levels": stats}

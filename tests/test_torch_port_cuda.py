@@ -7,11 +7,25 @@ without it; there, skip the JAX-pinning conftest:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_port_cuda.py
 """
 
+import numpy as np
 import pytest
 import torch
 
+from seghiero_torch.hierarchy import Hierarchy
+from seghiero_torch.losses.fast import FastHieraTripletLoss
+from seghiero_torch.losses.hiera import prepare_targets_two_level
+from seghiero_torch.models.heads import DepthwiseConv
 from seghiero_torch.ops import depthwise as port_dw
+from seghiero_torch.ops import hiera2_fused as port_fused
 from seghiero_torch.ops import upsample_argmax as port_ua
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
 
 
 @pytest.mark.gpu
@@ -19,10 +33,7 @@ def test_cuda_kernels_equal_plain_versions():
     """Card-only: each CUDA kernel against its plain version, bit for bit,
     at odd sizes (vector-width fallbacks, partial blocks) and one serving
     shape; a non-contiguous input raises instead of being copied."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
+    dev = _card()
     gen = torch.Generator(device=dev).manual_seed(0)
     for dtype in (torch.float32, torch.bfloat16):
         for shape in ((2, 13, 11, 3), (1, 9, 20, 130), (3, 17, 5, 6), (2, 128, 128, 560)):
@@ -45,3 +56,114 @@ def test_cuda_kernels_equal_plain_versions():
         port_dw.depthwise3x3(x.transpose(1, 2), torch.randn((9, 4), device=dev))
     with pytest.raises(ValueError, match="refusing to copy"):
         port_ua.upsample_argmax(torch.randn((1, 3, 4, 4), device=dev).transpose(2, 3), [(0, 3)])
+
+
+@pytest.mark.gpu
+def test_depthwise_gradient_kernels_equal_plain_versions():
+    """Card-only: the input gradient (#1b, bit for bit: the forward kernel
+    with reversed taps) and the weight gradient (#2, within 1e-5·Σ|x·g| per
+    entry: another summation order) at odd sizes — C not a multiple of 8,
+    H and W not multiples of the kernel's 32-column segments."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in ((2, 13, 11, 3), (1, 9, 37, 130), (3, 17, 5, 6), (2, 33, 70, 77)):
+            x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+            g = torch.randn(shape, generator=gen, device=dev).to(dtype)
+            k9 = torch.randn((9, shape[-1]), generator=gen, device=dev).to(dtype)
+            before = (port_dw.dgrad_launches, port_dw.wgrad_launches)
+            dx = port_dw.depthwise3x3_dgrad(g, k9)
+            dk = port_dw.depthwise3x3_wgrad(x, g)
+            assert (port_dw.dgrad_launches, port_dw.wgrad_launches) == (before[0] + 1,
+                                                                        before[1] + 1)
+            assert torch.equal(dx, port_dw.depthwise3x3_plain(g, k9.flip(0))), (dtype, shape)
+            want = port_dw.depthwise3x3_wgrad_plain(x, g)
+            mag = port_dw.depthwise3x3_wgrad_plain(x.float().abs(), g.float().abs())
+            assert dk.dtype == torch.float32 and dk.shape == want.shape
+            assert ((dk - want).abs() <= 1e-5 * mag + 1e-30).all(), (dtype, shape)
+            assert torch.equal(dk, port_dw.depthwise3x3_wgrad(x, g))  # deterministic
+
+
+@pytest.mark.gpu
+def test_depthwise_weight_gets_a_gradient_on_the_card():
+    """Card-only: the autograd Function carries the gradient through the
+    kernels (the ctypes launch alone has no grad_fn)."""
+    dev = _card()
+    conv = DepthwiseConv(12, 3, 1, use_kernel=True).to(dev, memory_format=torch.channels_last)
+    x = torch.randn(2, 12, 9, 10, device=dev).to(memory_format=torch.channels_last)
+    x.requires_grad_()
+    ref = DepthwiseConv(12, 3, 1, use_kernel=False).to(dev)
+    ref.load_state_dict(conv.state_dict())
+    before = (port_dw.launches, port_dw.dgrad_launches, port_dw.wgrad_launches)
+    y = conv(x)
+    y.square().sum().backward()
+    after = (port_dw.launches, port_dw.dgrad_launches, port_dw.wgrad_launches)
+    assert after == tuple(b + 1 for b in before)
+    assert conv.weight.grad is not None and conv.weight.grad.abs().sum() > 0
+    x2 = x.detach().clone().requires_grad_()
+    ref(x2).square().sum().backward()
+    torch.testing.assert_close(conv.weight.grad, ref.weight.grad, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(x.grad, x2.grad, rtol=1e-5, atol=1e-5)
+
+
+CLASSES = {"coarse_to_fine_map": [[0, 3], [4, 6], [7], [8]],
+           "fine_names": {i: f"f{i}" for i in range(9)}}
+
+
+@pytest.mark.gpu
+def test_fused_loss_kernels_equal_plain_versions():
+    """Card-only: the fused forward (#4: six sums within 1e-5 relative) and
+    backward (#5: d lo within rtol 2e-4, atol 1e-7) against their plain
+    versions at odd sizes (h, w not multiples of 8 or of the block),
+    with ignore pixels, saturated logits and planted ties."""
+    dev = _card()
+    h = Hierarchy.from_class_config(CLASSES)
+    rng = np.random.default_rng(0)
+    for B, hh, ww in ((2, 5, 7), (1, 9, 70), (3, 16, 33)):
+        lo = (rng.standard_normal((B, 13, hh, ww)) * 3).astype(np.float32)
+        lo = np.where(rng.random(lo.shape) < 0.03, np.sign(lo) * 40.0, lo).astype(np.float32)
+        f2c = np.asarray(h.fine_to_coarse)
+        for f in range(9):
+            lo[:, f, ::2] = lo[:, 9 + f2c[f], ::2]
+        labels = rng.integers(0, 9, (B, 4 * hh, 4 * ww)).astype(np.int32)
+        labels[:, :3, :5] = 255
+        lo_t = torch.from_numpy(lo).to(dev)
+        tf, tc = prepare_targets_two_level(torch.from_numpy(labels).to(dev), h)
+        tf, tc = tf.contiguous(), tc.contiguous()
+        before = (port_fused.fwd_launches, port_fused.bwd_launches)
+        got = port_fused.fused_hiera2_sums_kernel(lo_t, tf, tc, h)
+        want = port_fused.fused_hiera2_sums_plain(lo_t, tf, tc, h)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+        # the cotangents the loss assembly passes (losses/fast.py), so the
+        # gradient has the scale the tolerance was set for
+        nvf, nvc, n = float(want[2]), float(want[3]), labels.size
+        g = torch.tensor([5 / (max(nvf, 1) * 9), 5 / (max(nvc, 1) * 4), 0.0, 0.0, 1 / n, 1 / n],
+                         device=dev)
+        dgot = port_fused.fused_hiera2_grad_kernel(lo_t, tf, tc, h, g)
+        dwant = port_fused.fused_hiera2_grad_plain(lo_t, tf, tc, h, g)
+        torch.testing.assert_close(dgot, dwant, rtol=2e-4, atol=1e-7)
+        assert (port_fused.fwd_launches, port_fused.bwd_launches) == (before[0] + 1,
+                                                                      before[1] + 1)
+        assert torch.equal(got, port_fused.fused_hiera2_sums_kernel(lo_t, tf, tc, h))
+        # unit cotangents: each d lo entry adds up to 64 weighted per-pixel
+        # gradients of order 1 in another order than the plain version, so
+        # the absolute tolerance is 64 f32 roundings at 1 (64 · 2^-24 ≈ 4e-6)
+        g1 = torch.ones(6, device=dev)
+        torch.testing.assert_close(port_fused.fused_hiera2_grad_kernel(lo_t, tf, tc, h, g1),
+                                   port_fused.fused_hiera2_grad_plain(lo_t, tf, tc, h, g1),
+                                   rtol=2e-4, atol=4e-6)
+    with pytest.raises(ValueError, match="refusing to copy"):
+        port_fused.fused_hiera2_sums_kernel(lo_t.transpose(2, 3), tf, tc, h)
+    # class counts above the kernels' compile-time bounds raise
+    big = Hierarchy.from_class_config({"coarse_to_fine_map": [[0, 16], [17]],
+                                       "fine_names": {i: f"f{i}" for i in range(18)}})
+    t_big = torch.zeros((1, 16, 16), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="at most 16 fine"):
+        port_fused.fused_hiera2_sums_kernel(torch.zeros((1, 20, 4, 4), device=dev), t_big,
+                                            t_big, big)
+    # the loss asked for the kernels on the card raises for labels that are
+    # not 4x the logits, instead of taking the library path
+    labels8 = torch.zeros((lo_t.shape[0], 8 * lo_t.shape[2], 8 * lo_t.shape[3]),
+                          dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError, match="pallas_fused_loss"):
+        FastHieraTripletLoss(h, use_kernel=True)(0, None, None, lo_t, labels8)
