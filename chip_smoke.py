@@ -12,11 +12,12 @@ printed as one line, any failure exits non-zero:
 2. build   — ``nvcc`` builds every kernel from ``seghiero_torch/csrc``
    (seconds, and ``-Xptxas -v``'s registers and spills per kernel);
 3. kernels — each kernel against its plain PyTorch version at the shapes
-   its path gives it (TF32 off; the tolerance stated beside each check),
+   its path gives it (TF32 off; the tolerance stated beside each check;
+   the Gram kernels also run twice for the same bits),
    then timed with CUDA events against the plain version, the PyTorch
-   library call computing the same function (for the fused loss, which
-   has none, the port's unfused loss path), and the least time the card
-   could take;
+   library call computing the same function (for the fused loss and the
+   RMI Gram kernels, which have none, the port's library-op path of the
+   same loss term), and the least time the card could take;
 4. serve   — ``configs/example-serving-hopper.yaml`` at full width with
    weights made from a fixed seed: the port's ``ServingModel`` +
    ``make_server`` answer two bursts of concurrent 512×512 requests on a
@@ -33,7 +34,13 @@ printed as one line, any failure exits non-zero:
    weight gradient, fused loss forward and backward, a finite loss, and on
    step 1 a finite gradient for every parameter — the evaluation pass and
    a checkpoint, restored into a fresh ``Trainer`` whose eval loss must be
-   the same bits.
+   the same bits;
+6. train3  — ``configs/example-train-3level-hopper.yaml`` (BASELINE config
+   3: ResNet-50, 3-level hierarchy of 15 classes, 512², batch 4, bf16), the
+   same checks against the library path (``depthwise_backend: xla``,
+   ``rmi_backend: xla``), each ``fit`` step with exactly 2/2/2 depthwise
+   launches and 1/1/1 of the RMI Gram kernels, the evaluation's fine,
+   coarse and super mIoU, and the checkpoint round trip.
 
 Then one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` name/power
 line, and as the last line ``{"ok": true, "device": {...}}``.
@@ -400,7 +407,133 @@ def phase_train_kernels(seed: int, sm_mhz: float):
             mufu_ops=mufu, sm_clock_mhz=sm_mhz, valid_pixels=[nvf, nvc],
             share_of_bound=b_ms / t["ms"], **entries[name])
     results.update(entries)
+    del lo, dlo, dwant, lo_req
+    torch.cuda.empty_cache()
+    results.update(rmi_kernel_checks(seed))
     return results
+
+
+# the RMI term's two paths (kernels against the materialized op), at config
+# 3's shapes: the value within JAX's kernel-vs-core tolerance
+# (tests/test_rmi_gram_pallas.py: rtol 2e-4); the gradient, whose entries
+# are ~1e-7 at 512² (below that test's atol), by its direction
+RMI_VALUE_RTOL = 2e-4
+RMI_GRAD_COS_MIN = 0.999
+
+
+def rmi_kernel_checks(seed: int):
+    """Kernels #6–#8 at config 3's shapes: 60 maps (batch 4 × 15 classes)
+    of 512², a one-hot of random labels and sigmoids of random logits
+    + 1e-6; W is the regression solved from the kernel's G18 and P the
+    backward's, for the RMI term's cotangent 1/(4·9) per half-logdet."""
+    import torch
+    import torch.nn.functional as F
+
+    from seghiero_torch.losses.rmi import rmi_lower_bound_cmajor
+    from seghiero_torch.ops import rmi_gram as rg
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    B, C, H, W = 4, 15, 512, 512
+    BC, n = B * C, (H - 2) * (W - 2)
+    labels = torch.randint(0, C, (B, H, W), generator=gen, device=dev)
+    oh_map = F.one_hot(labels, C).permute(0, 3, 1, 2).to(torch.float32).contiguous()
+    pr_map = torch.sigmoid(2 * torch.randn((B, C, H, W), generator=gen, device=dev)) + 1e-6
+    la, pr = oh_map.reshape(BC, H, W), pr_map.reshape(BC, H, W)
+
+    la64, pr64 = la.double(), pr.double()
+
+    def check(name, got, plain, plain64, mag, again):
+        """The kernel against its plain version in f64 (a sum of 260,100 f32
+        products in cuBLAS's order carries ~1e-4 relative error of its own;
+        the kernel's order, ≤ 32 terms per thread, a shuffle tree and 64
+        block partials, ~1e-5 at worst): stated tolerance |Δ| ≤ 1e-5 · mag
+        per entry; the f32 plain version's own deviation is reported; two
+        runs give the same bits."""
+        diff = (got.double() - plain64).abs()
+        torch.cuda.synchronize()
+        if not bool((diff <= 1e-5 * mag).all()):
+            raise AssertionError(f"{name}: max |Δ|/mag = {(diff / mag).max().item()} > 1e-5")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name}: two runs differ")
+        plain_dev = ((plain.double() - plain64).abs() / mag.clamp_min(1e-300)).max().item()
+        return (diff.max().item(), (diff / mag.clamp_min(1e-300)).max().item(), plain_dev,
+                (got - plain).abs().max().item())
+
+    # #6: la, pr ≥ 0, so Σ|z_i·z_j| is the Gram itself
+    g18 = rg.gram18(la, pr)
+    want = rg.gram18_plain(la64, pr64)
+    err6 = check("rmi_gram18", g18, rg.gram18_plain(la, pr), want, want, rg.gram18(la, pr))
+    # #7: |y| ≤ z_la + |W|ᵀ·z_pr per pixel
+    w = rg._solve_w(g18, n)
+    a = rg.residual_gram(la, pr, w)
+    yb = rg._views(la64) + w.double().abs().mT @ rg._views(pr64)
+    err7 = check("rmi_residual_gram", a, rg.residual_gram_plain(la, pr, w),
+                 rg.residual_gram_plain(la64, pr64, w.double()), yb @ yb.mT,
+                 rg.residual_gram(la, pr, w))
+    del yb, want
+    # #8: Σ|P|·|z| per pixel
+    p = rg.backward_p(g18, w, a, torch.full((BC,), 1.0 / (B * 9), device=dev), n)
+    dpr = rg.grad_maps(la, pr, p)
+    err8 = check("rmi_grad_maps", dpr, rg.grad_maps_plain(la, pr, p),
+                 rg.grad_maps_plain(la64, pr64, p.double()),
+                 rg.grad_maps_plain(la64, pr64, p.double().abs()), rg.grad_maps(la, pr, p))
+    del la64, pr64
+    torch.cuda.empty_cache()
+
+    # the RMI term on both paths: value, gradient, and time
+    pr_req = pr_map.clone().requires_grad_()
+
+    def term(backend):  # forward + backward, no host sync
+        pr_req.grad = None
+        v = rmi_lower_bound_cmajor(oh_map, pr_req, backend=backend)
+        v.backward()
+        return v
+
+    (v_k, g_k), (v_x, g_x) = ((term(b).item(), pr_req.grad.clone()) for b in ("pallas", "xla"))
+    cos = torch.nn.functional.cosine_similarity(g_k.flatten().double(), g_x.flatten().double(),
+                                                dim=0).item()
+    say("kernels", check="RMI term, kernel path vs materialized op", value_kernel=v_k,
+        value_library=v_x, value_rel_diff=abs(v_k - v_x) / abs(v_x), value_rtol=RMI_VALUE_RTOL,
+        grad_cos=cos, grad_cos_floor=RMI_GRAD_COS_MIN)
+    if abs(v_k - v_x) > RMI_VALUE_RTOL * abs(v_x) or cos < RMI_GRAD_COS_MIN:
+        raise AssertionError("RMI kernel path and materialized op disagree")
+    del g_k, g_x
+
+    def forward(backend):
+        with torch.no_grad():
+            rmi_lower_bound_cmajor(oh_map, pr_map, backend=backend)
+
+    fwd = {b: time_ms(lambda: forward(b), iters=10) for b in ("pallas", "xla")}
+    both = {b: time_ms(lambda: term(b), iters=10) for b in ("pallas", "xla")}
+    pixels = BC * n
+    out = {}
+    for name, fn, plain, nbytes, flops, err, extra in (
+        ("rmi_gram18", lambda: rg.gram18(la, pr), lambda: rg.gram18_plain(la, pr),
+         la.nbytes + pr.nbytes + g18.nbytes, 2 * 171 * pixels, err6,
+         {"unfused_ms": fwd["xla"], "kernel_path_ms": fwd["pallas"],
+          "unfused_what": "RMI term forward, rmi_backend: xla (materialized views) against "
+          "pallas (kernel_path_ms)"}),
+        ("rmi_residual_gram", lambda: rg.residual_gram(la, pr, w),
+         lambda: rg.residual_gram_plain(la, pr, w),
+         la.nbytes + pr.nbytes + w.nbytes + a.nbytes, (2 * 81 + 9 + 2 * 45) * pixels, err7,
+         {"unfused_ms": fwd["xla"], "kernel_path_ms": fwd["pallas"],
+          "unfused_what": "the same forward"}),
+        ("rmi_grad_maps", lambda: rg.grad_maps(la, pr, p), lambda: rg.grad_maps_plain(la, pr, p),
+         la.nbytes + pr.nbytes + p.nbytes + dpr.nbytes, (2 * 162 + 9) * pixels, err8,
+         {"unfused_ms": both["xla"], "kernel_path_ms": both["pallas"],
+          "unfused_what": "RMI term forward + backward, xla against pallas (kernel_path_ms)"}),
+    ):
+        t = {"ms": time_ms(fn), "plain_ms": time_ms(plain, iters=3)}
+        b_ms, b_by = bound(nbytes, flops)
+        out[name] = dict(t, library_ms=None, bound_ms=b_ms, bound_by=b_by, max_abs_err=err[0],
+                         shapes=[[BC, H, W]], **extra)
+        say("kernels", kernel=name, shape=[BC, H, W], dtype="float32", bytes=nbytes, flops=flops,
+            max_rel_err_of_mag=err[1], plain_f32_max_rel_err_of_mag=err[2],
+            max_abs_diff_vs_plain_f32=err[3], share_of_bound=b_ms / t["ms"], **out[name])
+    del pr_req, oh_map, pr_map, la, pr, g18, a, dpr
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -623,6 +756,47 @@ def phase_serve(seed: int, n_requests: int, device_line: str, profile_dir):
     return launches
 
 
+def sync_audit(fn, what: str) -> int:
+    """Host synchronizations in one call of ``fn`` (after one warm-up call),
+    from PyTorch's sync debug mode: how many, and the Python lines that
+    asked for them."""
+    import collections
+    import warnings
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    where = collections.Counter(
+        f"{'/'.join(Path(w.filename).parts[-2:])}:{w.lineno}" for w in syncs)
+    say("sync", what=what, host_syncs=len(syncs), where=dict(where.most_common(12)))
+    return len(syncs)
+
+
+# device kernels by kind, matched in this order on the lower-cased kernel
+# name (the first match wins)
+KERNEL_KINDS = (
+    ("port kernels", ("seghiero::",)),
+    ("batch norm", ("batch_norm",)),
+    ("convolution", ("conv", "cudnn", "xmma", "implicit_gemm", "dgrad", "wgrad")),
+    ("upsample", ("upsample",)),
+    ("matmul", ("gemm", "cutlass", "cublas")),
+    ("solver", ("potrf", "getrf", "getrs", "trsm", "trsv", "magma", "cusolver", "lu_")),
+    ("relu", ("threshold", "clamp")),
+    ("reduction", ("reduce", "softmax", "logsumexp")),
+    ("copy and fill", ("copy", "memcpy", "memset", "fill", "cat")),
+    ("elementwise", ("elementwise", "where", "index")),
+)
+
+
 def profile(fn, n_calls: int, stem: str, out_dir: Path) -> None:
     """torch.profiler over ``n_calls`` calls of ``fn`` after one warm-up
     call: device time by kernel, and the device's busy share of the wall
@@ -644,8 +818,14 @@ def profile(fn, n_calls: int, stem: str, out_dir: Path) -> None:
     prof.export_chrome_trace(str(out_dir / f"{stem}_trace.json"))
     device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.device_time_total for e in device) / 1e3
+    by_kind = {}
+    for e in device:
+        kind = next((k for k, pats in KERNEL_KINDS if any(p in e.name.lower() for p in pats)),
+                    "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + e.device_time_total / 1e3 / n_calls
     say("profile", what=stem, calls=n_calls, wall_ms=wall_ms, device_busy_ms=busy_ms,
-        device_events=len(device), idle_share=1.0 - busy_ms / wall_ms)
+        device_events=len(device), idle_share=1.0 - busy_ms / wall_ms,
+        device_ms_per_call_by_kind=dict(sorted(by_kind.items(), key=lambda kv: -kv[1])))
     print("[profile] " + "\n[profile] ".join(table.splitlines()[:45]), flush=True)
 
 
@@ -667,21 +847,45 @@ GRAD_COS_MIN = 0.99
 # comparison pass evaluates the loss mid-schedule so that the projection
 # head's gradient is live on both paths
 TRIPLET_LIVE_STEP = 40_000
-# the kernel launches of one train step: depthwise forward, input gradient
-# and weight gradient (the head's two sep-bottleneck convolutions), fused
-# loss forward and backward
-STEP_LAUNCHES = {"depthwise3x3": 2, "depthwise3x3_dgrad": 2, "depthwise3x3_wgrad": 2,
-                 "hiera2_fused_fwd": 1, "hiera2_fused_bwd": 1}
+# The two train phases. Per phase: its config, what the config must select,
+# the library path's knobs, and the kernel launches of one train step —
+# depthwise forward, input gradient and weight gradient (the head's two
+# sep-bottleneck convolutions) and the loss kernels (config 2: the fused
+# loss forward and backward; config 3: the RMI Gram kernels #6, #7 forward
+# and #8 backward).
+_DW = {"depthwise3x3": 2, "depthwise3x3_dgrad": 2, "depthwise3x3_wgrad": 2}
+TRAIN_PHASES = {
+    "train": {
+        "config": "example-train-hopper.yaml", "what": "config 2",
+        "selects": lambda m, t, h: (t.pallas_fused_loss, t.batch_size, h.has_super)
+        == (True, 8, False),
+        "library": {"pallas_fused_loss": False},
+        "launches": dict(_DW, hiera2_fused_fwd=1, hiera2_fused_bwd=1, rmi_gram18=0,
+                         rmi_residual_gram=0, rmi_grad_maps=0),
+    },
+    "train3": {
+        "config": "example-train-3level-hopper.yaml", "what": "config 3",
+        "selects": lambda m, t, h: (t.rmi_backend, t.pallas_fused_loss, t.batch_size,
+                                    h.has_super, h.total_classes)
+        == ("pallas", False, 4, True, 15),
+        "library": {"rmi_backend": "xla"},
+        "launches": dict(_DW, hiera2_fused_fwd=0, hiera2_fused_bwd=0, rmi_gram18=1,
+                         rmi_residual_gram=1, rmi_grad_maps=1),
+    },
+}
 
 
 def _counters():
-    from seghiero_torch.ops import depthwise, hiera2_fused
+    from seghiero_torch.ops import depthwise, hiera2_fused, rmi_gram
 
     return {"depthwise3x3": (depthwise, "launches"),
             "depthwise3x3_dgrad": (depthwise, "dgrad_launches"),
             "depthwise3x3_wgrad": (depthwise, "wgrad_launches"),
             "hiera2_fused_fwd": (hiera2_fused, "fwd_launches"),
             "hiera2_fused_bwd": (hiera2_fused, "bwd_launches"),
+            "rmi_gram18": (rmi_gram, "gram18_launches"),
+            "rmi_residual_gram": (rmi_gram, "residual_launches"),
+            "rmi_grad_maps": (rmi_gram, "grad_launches"),
             "backward_copies": (depthwise, "backward_copies")}
 
 
@@ -727,7 +931,9 @@ def _median_3_to_8(ms):
     return float(np.median(ms[2:8]))
 
 
-def phase_train(seed: int, device_line: str, profile_dir):
+def phase_train(name: str, seed: int, device_line: str, profile_dir):
+    """One train phase of ``TRAIN_PHASES``; returns the launch counts of
+    its ``fit`` run."""
     import copy
     import shutil
 
@@ -741,12 +947,15 @@ def phase_train(seed: int, device_line: str, profile_dir):
     from seghiero_torch.train.steps import make_composite_loss, train_step
     from seghiero_torch.train.trainer import Trainer
 
-    cfg = load_config(str(ROOT / "configs" / "example-train-hopper.yaml"))
+    torch.cuda.empty_cache()  # what the previous phase left cached
+    spec = TRAIN_PHASES[name]
+    step_launches = spec["launches"]
+    cfg = load_config(str(ROOT / "configs" / spec["config"]))
     m, t = cfg.model, cfg.training
-    if ((m.depth, m.dtype, m.depthwise_backend, t.pallas_fused_loss, t.batch_size,
-         tuple(cfg.transform.resize)) != (50, "bfloat16", "pallas", True, 8, (512, 512))):
-        raise AssertionError("the train config must be config 2 with both kernel paths on")
-    ckpt_dir = ROOT / "checkpoints" / "chip-smoke-train"
+    if ((m.depth, m.dtype, m.depthwise_backend, tuple(cfg.transform.resize))
+            != (50, "bfloat16", "pallas", (512, 512)) or not spec["selects"](m, t, cfg.hierarchy)):
+        raise AssertionError(f"the {name} config must be {spec['what']} with its kernels on")
+    ckpt_dir = ROOT / "checkpoints" / f"chip-smoke-{name}"
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     cfg = dataclasses.replace(cfg, output=dataclasses.replace(
         cfg.output, checkpoint_dir=str(ckpt_dir)))
@@ -759,7 +968,7 @@ def phase_train(seed: int, device_line: str, profile_dir):
     # -- kernel path against library path: same weights, same batch
     cfg_lib = dataclasses.replace(
         cfg, model=dataclasses.replace(m, depthwise_backend="xla"),
-        training=dataclasses.replace(t, pallas_fused_loss=False))
+        training=dataclasses.replace(t, **spec["library"]))
     lib_model = load_reference_checkpoint(build_model(cfg_lib), weights).to(
         "cuda", memory_format=torch.channels_last)
     lib_composite = make_composite_loss(cfg_lib)
@@ -769,8 +978,8 @@ def phase_train(seed: int, device_line: str, profile_dir):
     zero_counts()
     loss_k, grads_k = _grads(ker_model, trainer.composite, cfg, batch)
     counts = read_counts()
-    if any(counts[k] != n for k, n in STEP_LAUNCHES.items()):
-        raise AssertionError(f"comparison pass launches {counts}, want {STEP_LAUNCHES}")
+    if any(counts[k] != n for k, n in step_launches.items()):
+        raise AssertionError(f"comparison pass launches {counts}, want {step_launches}")
     loss_l, grads_l = _grads(lib_model, lib_composite, cfg_lib, batch)
     bad = [n for n, g in grads_k.items()
            if g is None or not bool(torch.isfinite(g).all()) or not bool(g.abs().max() > 0)]
@@ -781,7 +990,7 @@ def phase_train(seed: int, device_line: str, profile_dir):
         for n in grads_k}
     worst = sorted(cos.items(), key=lambda kv: kv[1])[:5]
     loss_rel = abs(loss_k - loss_l) / abs(loss_l)
-    say("train", check="kernel path vs library path, one batch, same weights",
+    say(name, check="kernel path vs library path, one batch, same weights",
         loss_kernel=loss_k, loss_library=loss_l, loss_rel_diff=loss_rel, loss_rtol=LOSS_RTOL,
         grad_cos_min=worst[0][1], grad_cos_floor=GRAD_COS_MIN, worst_params=worst,
         params=len(cos), setup_s=round(setup_s, 2))
@@ -805,10 +1014,12 @@ def phase_train(seed: int, device_line: str, profile_dir):
         times[path]["peak_mb_above_resident"] = max(
             times[path]["peak_mb_above_resident"],
             (torch.cuda.max_memory_allocated() - base) / 2**20)
+    model, composite, c = paths["kernel"]
+    syncs = sync_audit(lambda: train_step(model, composite, opts["kernel"], c, batch, 0),
+                       f"{name} train_step, kernel path")
     if profile_dir:
-        model, composite, c = paths["kernel"]
         profile(lambda: train_step(model, composite, opts["kernel"], c, batch, 0), 1,
-                "train_step", Path(profile_dir))
+                f"{name}_step", Path(profile_dir))
     del ker_model, lib_model, paths, opts
     torch.cuda.empty_cache()
 
@@ -852,8 +1063,8 @@ def phase_train(seed: int, device_line: str, profile_dir):
     if n_steps != len(trainer.train_loader) or n_steps < 8:
         raise AssertionError(f"{n_steps} train steps ran")
     for i, c in enumerate(per_step):
-        if any(c[k] != n for k, n in STEP_LAUNCHES.items()):
-            raise AssertionError(f"step {i + 1} launches {c}, want {STEP_LAUNCHES}")
+        if any(c[k] != n for k, n in step_launches.items()):
+            raise AssertionError(f"step {i + 1} launches {c}, want {step_launches}")
     if grad_report["non_finite"] or any(
             not n.startswith("aspp_head.proj_head.") for n in grad_report["zero"]):
         raise AssertionError(f"step 1 gradients: {grad_report}")
@@ -862,7 +1073,9 @@ def phase_train(seed: int, device_line: str, profile_dir):
         raise AssertionError(f"non-finite step loss: {step_losses}")
     fit_ms = [a.elapsed_time(b) for a, b in events]
     rec = history[-1]
-    if not (np.isfinite(rec["val_loss"]) and 0.0 <= rec["val_fine_miou"] <= 1.0):
+    levels = ("fine", "coarse", "super") if cfg.hierarchy.has_super else ("fine", "coarse")
+    if not (np.isfinite(rec["val_loss"])
+            and all(0.0 <= rec[f"val_{lvl}_miou"] <= 1.0 for lvl in levels)):
         raise AssertionError(f"evaluation: {rec}")
 
     # -- checkpoint round trip: a fresh Trainer resumes, same eval loss bits
@@ -875,7 +1088,7 @@ def phase_train(seed: int, device_line: str, profile_dir):
     del fresh
     shutil.rmtree(ckpt_dir, ignore_errors=True)
 
-    say("train", steps=n_steps, launches_per_step=per_step[0], launches_total=fit_counts,
+    say(name, steps=n_steps, launches_per_step=per_step[0], launches_total=fit_counts,
         backward_copies_per_step=per_step[0]["backward_copies"],
         step_losses=step_losses, zero_grad_params_step1=grad_report["zero"],
         val=rec, eval_loss_after_restore=val_again,
@@ -884,7 +1097,8 @@ def phase_train(seed: int, device_line: str, profile_dir):
         peak_mb_above_resident={k: v["peak_mb_above_resident"] for k, v in times.items()},
         fit_step_ms=fit_ms, fit_step_ms_median_3_8=_median_3_to_8(fit_ms),
         fit_images_per_s=rec["train_images_per_sec"], fit_train_seconds=rec["train_seconds"],
-        fit_s=round(fit_s, 2), fit_max_memory_allocated_mb=peak_mb, card=device_line)
+        fit_s=round(fit_s, 2), fit_max_memory_allocated_mb=peak_mb,
+        host_syncs_per_step=syncs, card=device_line)
     return fit_counts
 
 
@@ -893,7 +1107,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--profile", type=str, default=None,
                    help="also write torch.profiler tables and traces of batch-8 "
-                   "predictions and of one train step into this directory")
+                   "predictions and of one train step of each train config into "
+                   "this directory")
     args = p.parse_args(argv)
 
     import torch
@@ -905,12 +1120,18 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT))
     import seghiero_torch  # noqa: F401  (fails outside a checkout of the repo)
 
+    t_start = time.perf_counter()
     name, count, smi, sm_mhz = phase_device()
     phase_build()
     kernels = phase_kernels(SEED)
     kernels.update(phase_train_kernels(SEED, sm_mhz))
-    serve = phase_serve(SEED, N_REQUESTS, smi, args.profile)
-    train = phase_train(SEED, smi, args.profile)
+    t_kernels = time.perf_counter()
+    paths = {"serve": phase_serve(SEED, N_REQUESTS, smi, args.profile)}
+    t_serve = time.perf_counter()
+    for phase in TRAIN_PHASES:
+        paths[phase] = phase_train(phase, SEED, smi, args.profile)
+    say("elapsed", seconds_to_kernels_end=round(t_kernels - t_start, 1),
+        serve_s=round(t_serve - t_kernels, 1), train_s=round(time.perf_counter() - t_serve, 1))
     sources = {
         "depthwise3x3": ("seghiero_torch/csrc/depthwise3x3.cu",
                          "seghiero_tpu/ops/pallas/depthwise.py:221"),
@@ -924,11 +1145,17 @@ def main(argv=None) -> int:
                              "seghiero_tpu/ops/pallas/hiera2_fused.py:348"),
         "upsample_argmax": ("seghiero_torch/csrc/upsample_argmax.cu",
                             "seghiero_tpu/ops/pallas/upsample_argmax.py:153"),
+        "rmi_gram18": ("seghiero_torch/csrc/rmi_gram.cu",
+                       "seghiero_tpu/ops/pallas/rmi_gram.py:257"),
+        "rmi_residual_gram": ("seghiero_torch/csrc/rmi_gram.cu",
+                              "seghiero_tpu/ops/pallas/rmi_gram.py:274"),
+        "rmi_grad_maps": ("seghiero_torch/csrc/rmi_gram.cu",
+                          "seghiero_tpu/ops/pallas/rmi_gram.py:297"),
     }
     line = []
     for kname, (src, replaces) in sources.items():
         k = kernels[kname]
-        by_path = {p: c[kname] for p, c in (("serve", serve), ("train", train)) if kname in c}
+        by_path = {p: c[kname] for p, c in paths.items() if c.get(kname)}
         if sum(by_path.values()) <= 0:
             raise AssertionError(f"{kname} was not launched on its path")
         line.append({
@@ -938,7 +1165,7 @@ def main(argv=None) -> int:
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
             "shapes": k["shapes"],
-            **{x: k[x] for x in ("unfused_ms", "unfused_what") if x in k},
+            **{x: k[x] for x in ("unfused_ms", "unfused_what", "kernel_path_ms") if x in k},
         })
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)

@@ -1,8 +1,10 @@
-"""The 2-level composite loss in C-major layout (the port of
+"""The composite losses in C-major layout (the port of
 ``seghiero_tpu/losses/fast.py``: ``_pick_channel``,
 ``_masked_level_bce_pick``, ``_ce_cmajor``, ``_bucket_max_cmajor``,
-``hiera_bce_two_level_cmajor``, ``FastHieraTripletLoss`` with
-``hiera_variant: bce``, ``aux_ce_fast``).
+``hiera_bce_two_level_cmajor``, ``hiera_bce_three_level_cmajor``,
+``FastHieraTripletLoss`` and ``FastRMIHieraTripletLoss`` with
+``hiera_variant: bce``, ``aux_ce_fast``; the RMI term is in
+``losses/rmi.py``).
 
 The port takes its model's outputs as they come: logits ``[B, C, h, w]``
 and embedding ``[B, D, h', w']`` (NCHW, any memory format). The logits
@@ -29,13 +31,19 @@ from seghiero_torch.hierarchy import Hierarchy
 from seghiero_torch.losses.hiera import (
     _log_one_minus_sig_eps,
     _log_sig_eps,
+    _one_hot_valid,
+    lut_lookup,
+    prepare_targets_three_level,
     prepare_targets_two_level,
 )
+from seghiero_torch.losses.rmi import _CLIP_MIN, rmi_lower_bound_cmajor
 from seghiero_torch.losses.tree_triplet import (
+    tree_triplet_loss_groups,
     tree_triplet_loss_range,
     triplet_readiness,
     triplet_schedule_factor,
 )
+from seghiero_torch.ops.consts import on_device
 from seghiero_torch.ops.hiera2_fused import SCALE, fused_hiera2_loss_sums
 from seghiero_torch.ops.resize import resize_bilinear
 
@@ -87,7 +95,16 @@ def _bucket_max_cmajor(child_l, buckets: Sequence[Sequence[int]], own_l) -> torc
     cols = []
     for i, ids in enumerate(buckets):
         o = own_l[:, i]
-        cols.append(torch.maximum(torch.amax(child_l[:, list(ids)], dim=1), o) if ids else o)
+        if not ids:
+            cols.append(o)
+            continue
+        # a contiguous bucket is a slice; other ids index with a table kept on
+        # the device (a Python list index is copied to the card on every call,
+        # which waits for the card's queue to drain)
+        ids = list(ids)
+        kids = (child_l[:, ids[0] : ids[-1] + 1] if ids == list(range(ids[0], ids[-1] + 1))
+                else child_l.index_select(1, on_device(ids, torch.int64, child_l.device)))
+        cols.append(torch.maximum(torch.amax(kids, dim=1), o))
     return torch.stack(cols, dim=1)
 
 
@@ -105,6 +122,27 @@ def hiera_bce_two_level_cmajor(lf, t_fine, t_coarse, h: Hierarchy, eps: float = 
     loss_f = _masked_level_bce_pick(pos_f, la, t_fine, nf, h.ignore_index, eps)
     loss_c = _masked_level_bce_pick(lb_lbl, mcmb, t_coarse, nc, h.ignore_index, eps)
     return 5.0 * (loss_f + loss_c)
+
+
+def hiera_bce_three_level_cmajor(lf, t_f, t_m, t_h, h: Hierarchy, clip_min: float = _CLIP_MIN):
+    """3-level hierarchy BCE, ``5·(fine + mid + high)``, with ``clip_min`` as
+    the log guard. The positive min-chains are evaluated at the label
+    channel only; the mid pick composes ``coarse_to_super`` from the *mid*
+    label, not ``fine_to_super`` from the fine one."""
+    nf, nm, nh = h.n_fine, h.n_coarse, h.n_super
+    la, lb, lc = lf[:, :nf], lf[:, nf : nf + nm], lf[:, nf + nm : nf + nm + nh]
+    mcmb = _bucket_max_cmajor(la, h.fine_by_coarse, lb)
+    mcmc = _bucket_max_cmajor(mcmb, h.coarse_by_super, lc)
+    sf = torch.where(t_f != h.ignore_index, t_f, 0)
+    sm = torch.where(t_m != h.ignore_index, t_m, 0)
+    sh = torch.where(t_h != h.ignore_index, t_h, 0)
+    lb_lbl = _pick_channel(lb, sm)
+    pos_f = torch.minimum(_pick_channel(la, sf), lb_lbl)
+    pos_m = torch.minimum(lb_lbl, _pick_channel(lc, lut_lookup(h.coarse_to_super, sm)))
+    loss_f = _masked_level_bce_pick(pos_f, la, t_f, nf, h.ignore_index, clip_min)
+    loss_m = _masked_level_bce_pick(pos_m, mcmb, t_m, nm, h.ignore_index, clip_min)
+    loss_h = _masked_level_bce_pick(_pick_channel(lc, sh), mcmc, t_h, nh, h.ignore_index, clip_min)
+    return 5.0 * (loss_f + loss_m + loss_h)
 
 
 def _not_yet_ported(what: str) -> NotImplementedError:
@@ -164,6 +202,86 @@ class FastHieraTripletLoss:
                                      h.ignore_index)
         emb = embedding.to(torch.float32).permute(0, 2, 3, 1)  # NHWC, the JAX layout
         t, c = tree_triplet_loss_range(emb, label, h, selection=self.selection)
+        factor = triplet_schedule_factor(step, self.schedule_total_steps, device=lo.device)
+        ready = triplet_readiness(c)
+        return (loss + torch.where(ready, factor * t, 0.0)) * self.loss_weight
+
+
+class FastRMIHieraTripletLoss:
+    """The 3-level composite ``loss_weight · (λ·RMI + 0.5·hieraBCE₃ + CE_fine
+    + CE_mid + CE_high + ready · schedule(step) · triplet_groups)`` from
+    low-res logits, called as :class:`FastHieraTripletLoss` is.
+
+    The logits are upsampled to the label size in f32 (all
+    ``n_fine + n_coarse + n_super`` channels); RMI runs on the concatenated
+    one-hots [fine | mid | high] against ``sigmoid(logits)`` zeroed at each
+    level's ignored pixels and floored at ``_CLIP_MIN``, through
+    ``rmi_lower_bound_cmajor`` (``rmi_backend``: ``pallas`` = the CUDA Gram
+    kernels, ``xla`` = the materialized PyTorch op). ``use_kernel``
+    (``training.pallas_fused_loss``) has no 3-level kernel: the CPU ignores
+    it, as the JAX package does, and the card raises."""
+
+    def __init__(self, hierarchy: Hierarchy, rmi_radius: int = 3,
+                 loss_weight_lambda: float = 0.5, loss_weight: float = 1.0,
+                 upper_ids=None, lower_ids=None, use_float64: bool = False,
+                 rmi_streaming: str = "auto", rmi_backend: str = "auto",
+                 rmi_precision: str = "parity", hiera_variant: str = "bce", ohem=None,
+                 selection: str = "auto", use_kernel: bool = False):
+        if hiera_variant != "bce":
+            raise _not_yet_ported(f"training.hiera_variant: {hiera_variant}")
+        if ohem is not None:
+            raise _not_yet_ported("OHEM (training.ohem_thresh)")
+        if rmi_precision != "parity":
+            raise _not_yet_ported(f"training.rmi_precision: {rmi_precision}")
+        self.h = hierarchy
+        self.rmi_radius = rmi_radius
+        self.loss_weight_lambda = loss_weight_lambda
+        self.loss_weight = loss_weight
+        self.upper_ids = upper_ids
+        self.lower_ids = lower_ids
+        self.use_float64 = use_float64
+        self.rmi_streaming = rmi_streaming
+        self.rmi_backend = rmi_backend
+        self.rmi_precision = rmi_precision
+        self.selection = selection
+        self.use_kernel = use_kernel
+
+    @property
+    def schedule_total_steps(self) -> int:
+        return 160_000 if self.h.n_fine > 15 else 60_000
+
+    def __call__(self, step, embedding, cls_score_before, cls_score, label):
+        h = self.h
+        nf, nm, nh = h.n_fine, h.n_coarse, h.n_super
+        lo = cls_score.to(torch.float32).contiguous()
+        if self.use_kernel and lo.device.type != "cpu":
+            raise ValueError(
+                "training.pallas_fused_loss: there is no fused 3-level loss kernel "
+                "(the fused loss is 2-level only); set it to false")
+        lf = resize_bilinear(lo, tuple(label.shape[1:3]))
+        t_f, t_m, t_h = prepare_targets_three_level(label, h)
+        hiera = hiera_bce_three_level_cmajor(lf, t_f, t_m, t_h, h)
+
+        probs = torch.sigmoid(lf)
+        levels = [_one_hot_valid(t, n, h.ignore_index, dim=1)
+                  for t, n in ((t_f, nf), (t_m, nm), (t_h, nh))]
+        oh_all = torch.cat([oh for oh, _ in levels], dim=1)
+        valid_all = torch.cat([v.unsqueeze(1).expand_as(oh) for oh, v in levels],
+                              dim=1).to(torch.float32)
+        rmi = rmi_lower_bound_cmajor(
+            oh_all, probs * valid_all + _CLIP_MIN, radius=self.rmi_radius,
+            use_float64=self.use_float64, streaming=self.rmi_streaming,
+            backend=self.rmi_backend, precision=self.rmi_precision)
+        loss = self.loss_weight_lambda * rmi + 0.5 * hiera
+        loss = loss + _ce_cmajor(lf[:, :nf], t_f, h.ignore_index)
+        loss = loss + _ce_cmajor(lf[:, nf : nf + nm], t_m, h.ignore_index)
+        loss = loss + _ce_cmajor(lf[:, nf + nm : nf + nm + nh], t_h, h.ignore_index)
+
+        upper, lower = ((tuple(self.upper_ids), tuple(self.lower_ids))
+                        if self.upper_ids is not None else h.split_upper_lower())
+        emb = embedding.to(torch.float32).permute(0, 2, 3, 1)  # NHWC, the JAX layout
+        t, c = tree_triplet_loss_groups(emb, label, upper, lower, nf,
+                                        ignore_index=h.ignore_index, selection=self.selection)
         factor = triplet_schedule_factor(step, self.schedule_total_steps, device=lo.device)
         ready = triplet_readiness(c)
         return (loss + torch.where(ready, factor * t, 0.0)) * self.loss_weight

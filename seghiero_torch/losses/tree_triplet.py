@@ -1,12 +1,14 @@
-"""Tree-triplet embedding loss, range variant (the port of
-``seghiero_tpu/losses/tree_triplet.py:45-290`` and the schedule/readiness
+"""Tree-triplet embedding losses, range and group variants (the port of
+``seghiero_tpu/losses/tree_triplet.py:45-402`` and the schedule/readiness
 helpers ``:405-428``).
 
-For each fine class present, positives are same-coarse-bucket pixels and
-negatives out-of-bucket pixels — including ignore-255 pixels, as the
-reference's ``(labels < start) | (labels >= end)`` admits them — with
-cosine distances on the L2-normalized embedding, margin 0.6, at most 200
-triplets per class. The reference's "first ``k`` pixels of each mask" is
+Range variant (2-level): for each fine class present, positives are
+same-coarse-bucket pixels and negatives out-of-bucket pixels — including
+ignore-255 pixels, as the reference's ``(labels < start) | (labels >=
+end)`` admits them. Group variant (3-level): positives and negatives come
+from two fine-id groups. Both use cosine distances on the L2-normalized
+embedding, margin 0.6, at most 200 triplets per class. The reference's
+"first ``k`` pixels of each mask" is
 reproduced with fixed shapes: ``topk`` of the unique scores
 ``mask · (N − position)`` (the ``mask`` selection) or one stable sort of
 the labels plus exact merges (the ``sorted`` selection); both pick the
@@ -19,12 +21,13 @@ Returns ``(loss, class_count)``; ``class_count == 0`` implies
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
 
 from seghiero_torch.hierarchy import Hierarchy
+from seghiero_torch.ops.consts import on_device
 from seghiero_torch.ops.resize import downsample_labels_nearest
 
 # static crossover between the two selections (DESIGN decision 22)
@@ -62,10 +65,10 @@ def _merged_first_k(idx_by_class, counts, member_rows: np.ndarray, k: int, n: in
     (exact: a position among the k smallest of the union is among the k
     smallest of its own class)."""
     dev = idx_by_class.device
-    safe = torch.as_tensor(np.maximum(member_rows, 0), device=dev)
+    safe = on_device(np.maximum(member_rows, 0), torch.int64, dev)
     cand = idx_by_class[safe]  # [C, m, k]
     lane = torch.arange(k, device=dev)
-    present = torch.as_tensor(member_rows >= 0, device=dev)
+    present = on_device(member_rows >= 0, torch.bool, dev)
     cand_valid = (lane[None, None, :] < counts[safe][:, :, None]) & present[:, :, None]
     merged = torch.where(cand_valid, cand, n).reshape(len(member_rows), -1)
     sel = torch.topk(merged, k, dim=-1, largest=False).values  # ascending
@@ -120,7 +123,7 @@ def tree_triplet_loss_range(
     if hierarchy.coarse_ranges is None:
         raise ValueError(
             "range-variant triplet loss requires contiguous coarse buckets; "
-            "the group variant is not yet ported (ROADMAP queue 1 item 5)"
+            "use tree_triplet_loss_groups for general hierarchies"
         )
     B, h, w, D = embedding.shape
     lbl = downsample_labels_nearest(labels, (h, w)).reshape(-1)
@@ -132,8 +135,8 @@ def tree_triplet_loss_range(
     f2c = np.asarray(hierarchy.fine_to_coarse, np.int64)
 
     if selection == "mask":
-        starts = torch.as_tensor([hierarchy.coarse_ranges[c][0] for c in f2c], device=dev)
-        ends = torch.as_tensor([hierarchy.coarse_ranges[c][1] for c in f2c], device=dev)
+        starts = on_device([hierarchy.coarse_ranges[c][0] for c in f2c], torch.int64, dev)
+        ends = on_device([hierarchy.coarse_ranges[c][1] for c in f2c], torch.int64, dev)
         lblr = lbl[None, :]
         anchor = lblr == torch.arange(n_fine, device=dev)[:, None]
         in_bucket = (lblr >= starts[:, None]) & (lblr < ends[:, None])
@@ -144,7 +147,7 @@ def tree_triplet_loss_range(
         raise ValueError(f"selection must be auto|mask|sorted, got {selection!r}")
     n = lbl.shape[0]
     k = min(max_triplet, n)
-    f2c_t = torch.as_tensor(f2c, device=dev)
+    f2c_t = on_device(f2c, torch.int64, dev)
     idx_by_class, counts = _per_class_first_k(lbl, n_fine, k)
     bucket_totals = torch.zeros(hierarchy.n_coarse, dtype=counts.dtype, device=dev)
     bucket_totals.index_add_(0, f2c_t, counts[:n_fine])
@@ -160,17 +163,103 @@ def tree_triplet_loss_range(
         member_rows[c, : len(others)] = others
     idx_p = _merged_first_k(idx_by_class, counts, member_rows, k, n)
 
-    bstarts = torch.as_tensor([r[0] for r in hierarchy.coarse_ranges], device=dev)
-    bends = torch.as_tensor([r[1] for r in hierarchy.coarse_ranges], device=dev)
+    bstarts = on_device([r[0] for r in hierarchy.coarse_ranges], torch.int64, dev)
+    bends = on_device([r[1] for r in hierarchy.coarse_ranges], torch.int64, dev)
     neg_mask = ~((lbl[None, :] >= bstarts[:, None]) & (lbl[None, :] < bends[:, None]))
     idx_n = _first_k_selection(neg_mask, k)[f2c_t]
     return _triplet_from_indices(feats, idx_by_class, idx_p, idx_n, min_size, k, margin)
 
 
+def tree_triplet_loss_groups(
+    embedding: torch.Tensor,  # [B, h, w, D], L2-normalized over D
+    labels: torch.Tensor,  # [B, H, W] fine ids or 255
+    upper_ids: Sequence[int],
+    lower_ids: Sequence[int],
+    n_fine: int,
+    *,
+    ignore_index: int = 255,
+    max_triplet: int = 200,
+    margin: float = 0.6,
+    selection: str = "auto",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Group variant (rmi_tree_triplet_loss.py:5-70 of the reference): for an
+    anchor class in ``upper_ids`` the positives are the other upper ids and
+    the negatives the lower ids, and vice versa; classes in neither group
+    (background 0 among them) contribute nothing. ``selection`` as in
+    :func:`tree_triplet_loss_range`; the sorted path merges the per-class
+    lists of a group (one shared negative row per group)."""
+    B, h, w, D = embedding.shape
+    lbl = downsample_labels_nearest(labels, (h, w)).reshape(-1)
+    feats = embedding.reshape(-1, D)
+    dev = lbl.device
+    upper = sorted(int(i) for i in upper_ids)
+    lower = sorted(int(i) for i in lower_ids)
+    # checked here for both selections: an index gather would clamp silently
+    bad = [i for i in upper + lower if not 0 <= i < n_fine]
+    if bad:
+        raise ValueError(f"triplet group ids out of range [0, {n_fine}): {sorted(bad)}")
+    listed = upper + lower
+    if not listed:
+        return (torch.zeros((), dtype=torch.float32, device=dev),
+                torch.zeros((), dtype=torch.int64, device=dev))
+    C = len(listed)
+    if selection == "auto":
+        selection = "sorted" if C >= SORTED_SELECTION_MIN_CLASSES else "mask"
+
+    if selection == "mask":
+        pos_lut = np.zeros((C, n_fine), dtype=bool)
+        neg_lut = np.zeros((C, n_fine), dtype=bool)
+        for row, c in enumerate(listed):
+            group, other = (upper, lower) if c in upper else (lower, upper)
+            pos_lut[row, [p for p in group if p != c]] = True
+            neg_lut[row, other] = True
+        valid = (lbl >= 0) & (lbl < n_fine) & (lbl != ignore_index)
+        safe = torch.where(valid, lbl, 0).long()
+        anchor = (lbl[None, :] == on_device(listed, torch.int64, dev)[:, None]) & valid[None, :]
+        pos = on_device(pos_lut, torch.bool, dev)[:, safe] & valid[None, :]
+        neg = on_device(neg_lut, torch.bool, dev)[:, safe] & valid[None, :]
+        return _triplet_core(feats, anchor, pos, neg, max_triplet, margin)
+
+    if selection != "sorted":
+        raise ValueError(f"selection must be auto|mask|sorted, got {selection!r}")
+    n = lbl.shape[0]
+    k = min(max_triplet, n)
+    # ignore_index into the invalid bucket even if it were < n_fine
+    lbl_sel = torch.where(lbl == ignore_index, n_fine, lbl)
+    idx_by_class, counts = _per_class_first_k(lbl_sel, n_fine, k)
+    group_of = on_device([0 if c in upper else 1 for c in listed], torch.int64, dev)
+    zero = torch.zeros((), dtype=counts.dtype, device=dev)
+    group_sum = torch.stack([counts[on_device(upper, torch.int64, dev)].sum() if upper else zero,
+                             counts[on_device(lower, torch.int64, dev)].sum() if lower else zero])
+    listed_t = on_device(listed, torch.int64, dev)
+    n_anchor = counts[listed_t]
+    n_pos = group_sum[group_of] - n_anchor
+    n_neg = group_sum[1 - group_of]
+    min_size = torch.minimum(torch.minimum(n_anchor, n_pos), torch.clamp(n_neg, max=k))
+    idx_a = idx_by_class[listed_t]
+
+    # positives: the own group's per-class lists merged, the own class left out
+    m = max(max(len(upper), len(lower)) - 1, 1)
+    member_rows = np.full((C, m), -1, dtype=np.int64)
+    for row, c in enumerate(listed):
+        others = [p for p in (upper if c in upper else lower) if p != c]
+        member_rows[row, : len(others)] = others
+    idx_p = _merged_first_k(idx_by_class, counts, member_rows, k, n)
+
+    # negatives: one shared row per group (the first k of the other group)
+    neg_rows = np.full((2, max(len(upper), len(lower), 1)), -1, dtype=np.int64)
+    neg_rows[0, : len(lower)] = lower  # anchors in upper draw from lower
+    neg_rows[1, : len(upper)] = upper
+    idx_n = _merged_first_k(idx_by_class, counts, neg_rows, k, n)[group_of]
+    return _triplet_from_indices(feats, idx_a, idx_p, idx_n, min_size, k, margin)
+
+
 def triplet_schedule_factor(step, total_steps: int, device=None) -> torch.Tensor:
     """Cosine ramp of the triplet weight: ``0.25·(1 + cos((step − T)/T·π))``
     before ``T`` steps, else 0.5 — in f32, as a 0-dim tensor."""
-    s = torch.as_tensor(step, dtype=torch.float32, device=device)
+    # a Python step is filled on the device (no host-to-device copy)
+    s = (step.to(device=device, dtype=torch.float32) if torch.is_tensor(step)
+         else torch.full((), float(step), dtype=torch.float32, device=device))
     t = float(total_steps)
     ramp = 0.25 * (1.0 + torch.cos((s - t) / t * math.pi))
     return torch.where(s < t, ramp, torch.full_like(ramp, 0.5))

@@ -1,0 +1,259 @@
+"""The RMI Gram kernels and the half-logdet they feed — the port of
+``seghiero_tpu/ops/pallas/rmi_gram.py`` (``_gram18``, ``_residual_gram``,
+``_grad_maps``, ``_solve_w``, ``_finish_logdet`` and the ``custom_vjp``
+``_half_logdet``, :153-446), for radius 3 in f32.
+
+Per map pair (one-hot ``la``, probabilities ``pr``, both ``[BC, H, W]``)
+the 18 views ``z`` are the 3×3 shifted views ``map[r+dy, c+dx]`` of both
+maps over the ``nh × nw = (H−2) × (W−2)`` output pixels (not centred).
+
+* ``gram18`` — kernel #6 (``csrc/rmi_gram.cu``): ``G18 = z·zᵀ``, raw sums
+  ``[BC, 18, 18]``;
+* ``residual_gram`` — kernel #7: ``A = y·yᵀ`` with ``y = z_la − Wᵀ·z_pr``,
+  ``[BC, 9, 9]``;
+* ``grad_maps`` — kernel #8: ``u = P·z`` per output pixel, its 9 shifted
+  rows overlap-added into ``dpr [BC, H, W]``.
+
+Each wrapper launches its kernel for a tensor on the card and runs its
+plain PyTorch version (which materializes ``z``) for a tensor on the CPU;
+any other device raises. The 1/N scaling, the 9×9 solve and the Cholesky
+stay in ``torch.linalg`` (``_solve_w``, ``_finish_logdet``), as the JAX
+package leaves them to XLA. ``rmi_logdet_kernel_cmajor(oh, pr)`` returns
+the ``[B, C]`` half-logdets through ``_HalfLogdet``, the
+``torch.autograd.Function`` whose backward is the algebra of
+``_half_logdet_bwd`` and kernel #8: the kernel path never materializes
+the ``[B, C, 9, N]`` neighbourhood tensor.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from seghiero_torch.ops import _build
+
+_POS_ALPHA = 1e-3  # rmi_hiera_triplet_loss.py:18 of the reference
+COLS, ROWS = 128, 32  # csrc/rmi_gram.cu kCols, kRows
+
+# kernel launches in this process (set to 0 to count a run)
+gram18_launches = 0
+residual_launches = 0
+grad_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# plain versions: the kernels' raw f32 sums in PyTorch
+def _views(m: torch.Tensor) -> torch.Tensor:
+    """``[BC, H, W]`` → the 9 views ``[BC, 9, nh·nw]``, k = 3·dy + dx."""
+    BC, H, W = m.shape
+    nh, nw = H - 2, W - 2
+    return torch.stack([m[:, dy : dy + nh, dx : dx + nw] for dy in range(3) for dx in range(3)],
+                       dim=1).reshape(BC, 9, nh * nw)
+
+
+def gram18_plain(la: torch.Tensor, pr: torch.Tensor) -> torch.Tensor:
+    z = torch.cat([_views(la), _views(pr)], dim=1)
+    return z @ z.mT
+
+
+def residual_gram_plain(la: torch.Tensor, pr: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    y = _views(la) - w.mT @ _views(pr)
+    return y @ y.mT
+
+
+def grad_maps_plain(la: torch.Tensor, pr: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    BC, H, W = pr.shape
+    nh, nw = H - 2, W - 2
+    u = (p @ torch.cat([_views(la), _views(pr)], dim=1)).reshape(BC, 9, nh, nw)
+    dpr = torch.zeros((BC, H, W), dtype=u.dtype, device=pr.device)
+    for dy in range(3):
+        for dx in range(3):
+            dpr[:, dy : dy + nh, dx : dx + nw] += u[:, dy * 3 + dx]
+    return dpr
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+def _on_card(x: torch.Tensor, what: str) -> bool:
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} runs on cuda or cpu tensors, got {x.device}")
+    return True
+
+
+def _check_maps(la: torch.Tensor, pr: torch.Tensor, what: str, *small):
+    """(BC, H, W) of two matching contiguous f32 maps on the card; ``small``
+    are ``(tensor, shape)`` pairs that must match too."""
+    if pr.ndim != 3 or pr.shape[1] < 3 or pr.shape[2] < 3:
+        raise ValueError(f"{what}: maps must be [BC, H, W] with H, W >= 3, got {tuple(pr.shape)}")
+    BC = pr.shape[0]
+    for t, shape in ((la, pr.shape), (pr, pr.shape), *small):
+        if tuple(t.shape) != tuple(shape) or t.dtype != torch.float32 or t.device != pr.device:
+            raise ValueError(f"{what}: expected f32 {tuple(shape)} on {pr.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what} needs contiguous operands; refusing to copy")
+    if BC > 65535:
+        raise ValueError(f"{what}: at most 65535 maps, got {BC}")
+    return pr.shape
+
+
+def partial_blocks(H: int, W: int) -> int:
+    """Partial rows per map of kernels #6 and #7 (one per block)."""
+    return -(-(W - 2) // COLS) * -(-(H - 2) // ROWS)
+
+
+def _stream(x: torch.Tensor):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def gram18(la: torch.Tensor, pr: torch.Tensor) -> torch.Tensor:
+    """Raw ``G18 = z·zᵀ`` ``[BC, 18, 18]`` f32: kernel #6 on the card."""
+    if not _on_card(pr, "rmi gram18"):
+        return gram18_plain(la, pr)
+    BC, H, W = _check_maps(la, pr, "rmi gram18")
+    nblk = partial_blocks(H, W)
+    partial = torch.empty((BC, nblk, 171), dtype=torch.float32, device=pr.device)
+    out = torch.empty((BC, 18, 18), dtype=torch.float32, device=pr.device)
+    lib = _build.library()
+    err = lib.seghiero_rmi_gram18(la.data_ptr(), pr.data_ptr(), partial.data_ptr(),
+                                  out.data_ptr(), BC, H, W, nblk, pr.device.index, _stream(pr))
+    _build.check(lib, err, "rmi gram18")
+    global gram18_launches
+    gram18_launches += 1
+    return out
+
+
+def residual_gram(la: torch.Tensor, pr: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Raw ``A = y·yᵀ``, ``y = z_la − Wᵀ·z_pr``, ``[BC, 9, 9]`` f32 for the
+    regression ``w [BC, 9, 9]``: kernel #7 on the card."""
+    if not _on_card(pr, "rmi residual_gram"):
+        return residual_gram_plain(la, pr, w)
+    BC, H, W = _check_maps(la, pr, "rmi residual_gram", (w, (pr.shape[0], 9, 9)))
+    nblk = partial_blocks(H, W)
+    partial = torch.empty((BC, nblk, 45), dtype=torch.float32, device=pr.device)
+    out = torch.empty((BC, 9, 9), dtype=torch.float32, device=pr.device)
+    lib = _build.library()
+    err = lib.seghiero_rmi_residual(la.data_ptr(), pr.data_ptr(), w.data_ptr(),
+                                    partial.data_ptr(), out.data_ptr(), BC, H, W, nblk,
+                                    pr.device.index, _stream(pr))
+    _build.check(lib, err, "rmi residual_gram")
+    global residual_launches
+    residual_launches += 1
+    return out
+
+
+def grad_maps(la: torch.Tensor, pr: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """``dpr [BC, H, W]`` f32: ``u = P·z`` (``p [BC, 9, 18]``) overlap-added
+    through the 9 views: kernel #8 on the card."""
+    if not _on_card(pr, "rmi grad_maps"):
+        return grad_maps_plain(la, pr, p)
+    BC, H, W = _check_maps(la, pr, "rmi grad_maps", (p, (pr.shape[0], 9, 18)))
+    dpr = torch.empty_like(pr)
+    lib = _build.library()
+    err = lib.seghiero_rmi_grad_maps(la.data_ptr(), pr.data_ptr(), p.data_ptr(),
+                                     dpr.data_ptr(), BC, H, W, pr.device.index, _stream(pr))
+    _build.check(lib, err, "rmi grad_maps")
+    global grad_launches
+    grad_launches += 1
+    return dpr
+
+
+# ---------------------------------------------------------------------------
+# the solve and the logdet on the small Grams (N-normalized, noise-aware
+# jitter: the numerics of losses/rmi.py:_rmi_logdet_core)
+_EPS_REL = 32 * float(np.finfo(np.float32).eps)
+
+
+def _jitter(m: torch.Tensor, alpha_n: float, eps_rel: float = _EPS_REL) -> torch.Tensor:
+    """The diagonal jitter ``max(α/N, eps_rel · mean diag)``, ``[..., 1, 1]``."""
+    mean_diag = torch.diagonal(m, dim1=-2, dim2=-1).mean(-1)
+    return torch.maximum(torch.full_like(mean_diag, alpha_n), eps_rel * mean_diag)[..., None, None]
+
+
+def _solve_w(g18_raw: torch.Tensor, n: int) -> torch.Tensor:
+    """The regression W ``[BC, 9, 9]`` from the raw 18×18 Gram. ``solve_ex``
+    does not check for a singular system (no host sync): like JAX, a bad
+    batch gives non-finite values, not an exception. Contiguous, as
+    kernel #7 takes it (the solve returns it column-major)."""
+    pr_cov = g18_raw[:, 9:, 9:] * (1.0 / n)
+    la_pr = g18_raw[:, 0:9, 9:] * (1.0 / n)
+    eye = torch.eye(9, dtype=torch.float32, device=g18_raw.device)
+    m_pr = pr_cov + eye * _jitter(pr_cov, _POS_ALPHA / n)
+    return torch.linalg.solve_ex(m_pr, la_pr.mT)[0].contiguous()
+
+
+def _finish_logdet(a_raw: torch.Tensor, n: int) -> torch.Tensor:
+    """The half-logdets ``[BC]`` from the raw residual Gram (``cholesky_ex``:
+    no host sync; a matrix that is not positive definite gives NaN)."""
+    a = a_raw * (1.0 / n)
+    a = 0.5 * (a + a.mT)
+    eye = torch.eye(9, dtype=torch.float32, device=a_raw.device)
+    chol = torch.linalg.cholesky_ex(a + eye * _jitter(a, _POS_ALPHA / n))[0]
+    logdet = 2.0 * torch.log(torch.diagonal(chol, dim1=-2, dim2=-1) * float(np.sqrt(n))
+                             + 1e-8).sum(-1)
+    return 0.5 * logdet
+
+
+class _HalfLogdet(torch.autograd.Function):
+    """The ``custom_vjp`` ``_half_logdet``: forward kernels #6 and #7 around
+    the solve; backward the small algebra of ``_half_logdet_bwd`` and one
+    pass of kernel #8. The one-hot map gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, oh, pr, n):
+        g18 = gram18(oh, pr)
+        w = _solve_w(g18, n)
+        a_raw = residual_gram(oh, pr, w)
+        ctx.save_for_backward(oh, pr, g18, w, a_raw)
+        ctx.n = n
+        return _finish_logdet(a_raw, n)
+
+    @staticmethod
+    def backward(ctx, dhalf):
+        oh, pr, g18, w, a_raw = ctx.saved_tensors
+        return None, grad_maps(oh, pr, backward_p(g18, w, a_raw, dhalf, ctx.n)), None
+
+
+def backward_p(g18: torch.Tensor, w: torch.Tensor, a_raw: torch.Tensor, dhalf: torch.Tensor,
+               n: int) -> torch.Tensor:
+    """``P [BC, 9, 18]`` of the backward, ``d pr = grad_maps(P)``, from the
+    forward's residuals and the half-logdets' cotangent: with ``S = [I | −Wᵀ]``
+    and ``M = dA + dAᵀ``, the residual Gram gives ``Q = −W·M·S`` and
+    ``dW = −((M·S·G18)[:, 9:])ᵀ``, the solve ``dG18``, and
+    ``P = Q + (dG18 + dG18ᵀ)[9:, :]``. The two small VJPs are autograd's."""
+    with torch.enable_grad():  # the logdet's cotangent → dA_raw
+        a = a_raw.detach().requires_grad_()
+        (dA,) = torch.autograd.grad(_finish_logdet(a, n), a, dhalf)
+    M = dA + dA.mT  # [BC, 9, 9]
+    eye = torch.eye(9, dtype=torch.float32, device=w.device).expand_as(w)
+    S = torch.cat([eye, -w.mT], dim=-1)  # [BC, 9, 18]
+    MS = M @ S
+    Q = -(w @ MS)
+    dw = -(MS @ g18)[:, :, 9:].mT
+    with torch.enable_grad():  # the solve's cotangent → dG18
+        g = g18.detach().requires_grad_()
+        (dG18,) = torch.autograd.grad(_solve_w(g, n), g, dw)
+    return (Q + (dG18 + dG18.mT)[:, 9:, :]).contiguous()
+
+
+def rmi_gram_kernel_available(H: int, W: int, radius: int, use_float64: bool,
+                              device: torch.device) -> bool:
+    """The kernels' preconditions (``rmi_gram_pallas_available``): radius 3,
+    f32, maps of at least 3×3, on the card."""
+    return radius == 3 and not use_float64 and H >= 3 and W >= 3 and device.type == "cuda"
+
+
+def rmi_logdet_kernel_cmajor(oh_map: torch.Tensor, pr_map: torch.Tensor) -> torch.Tensor:
+    """``[B, C]`` half-logdets of ``_rmi_logdet_core`` for radius 3 in f32,
+    from the one-hot targets (no gradient) and the masked probabilities,
+    both ``[B, C, H, W]``, through kernels #6–#8 on the card (their plain
+    versions on the CPU). On the card both maps must be contiguous f32."""
+    B, C, H, W = pr_map.shape
+    if _on_card(pr_map, "rmi_logdet_kernel_cmajor") and not (
+            pr_map.is_contiguous() and oh_map.is_contiguous()):
+        raise ValueError("rmi_logdet_kernel_cmajor needs contiguous maps; refusing to copy")
+    oh = oh_map.detach().to(torch.float32).reshape(B * C, H, W)
+    pr = pr_map.to(torch.float32).reshape(B * C, H, W)
+    return _HalfLogdet.apply(oh, pr, (H - 2) * (W - 2)).reshape(B, C)

@@ -25,8 +25,8 @@ def main(argv=None) -> int:
     h = cfg.hierarchy
     print(f"Number of train samples: {len(trainer.train_ds)}")
     print(f"Number of val   samples: {len(trainer.val_ds)}")
-    print(f"n_fine={h.n_fine}, n_coarse={h.n_coarse}; total classes {h.total_classes}; "
-          f"device {trainer.device}")
+    print(f"n_fine={h.n_fine}, n_coarse={h.n_coarse}, has_super={h.has_super}, "
+          f"n_super={h.n_super}; total classes {h.total_classes}; device {trainer.device}")
     trainer.fit()
     return 0
 

@@ -89,16 +89,20 @@ class FitLoopMixin:
                 "train_images_per_sec": train_ips,
                 "train_seconds": train_time,
             }
+            if cfg.hierarchy.has_super:  # the port's record and table add the super level
+                record["val_super_miou"] = val["super_miou"]
             history.append(record)
             if path:
                 with open(path, "a") as f:
                     f.write(json.dumps(record) + "\n")
             if self.verbose:
-                print(ascii_table([
-                    ["Epoch", "Avg Train Loss", "Avg Val Loss", "Val Pixel Acc", "Val fine mIoU"],
-                    [epoch + 1, f"{train_loss:.4f}", f"{val['loss']:.4f}",
-                     f"{val['fine_acc'] * 100:.2f}%", f"{val['fine_miou'] * 100:.2f}%"],
-                ]), flush=True)
+                head = ["Epoch", "Avg Train Loss", "Avg Val Loss", "Val Pixel Acc", "Val fine mIoU"]
+                row = [epoch + 1, f"{train_loss:.4f}", f"{val['loss']:.4f}",
+                       f"{val['fine_acc'] * 100:.2f}%", f"{val['fine_miou'] * 100:.2f}%"]
+                if cfg.hierarchy.has_super:
+                    head.append("Val super mIoU")
+                    row.append(f"{val['super_miou'] * 100:.2f}%")
+                print(ascii_table([head, row]), flush=True)
             is_best = val["loss"] < self.best_val_loss
             if is_best:
                 self.best_val_loss = val["loss"]
@@ -122,13 +126,19 @@ class FitLoopMixin:
 
     def _iou_table(self, acc: SegMetrics) -> str:
         names = {"fine": self.cfg.fine_names, "coarse": self.cfg.coarse_names}
+        if self.cfg.hierarchy.has_super:
+            names["super"] = self.cfg.super_names
         return acc.iou_table(names)
 
     def evaluate(self):
-        """Loss, pixel accuracy, mIoU and mAcc per level over the val split
-        (device results gathered once at the end)."""
+        """Loss, pixel accuracy, mIoU and mAcc per level (fine, coarse and,
+        for a 3-level hierarchy, super) over the val split (device results
+        gathered once at the end)."""
         h = self.cfg.hierarchy
-        acc = SegMetrics({"fine": h.n_fine, "coarse": h.n_coarse})
+        levels = {"fine": h.n_fine, "coarse": h.n_coarse}
+        if h.has_super:
+            levels["super"] = h.n_super
+        acc = SegMetrics(levels)
         outs = [eval_step(self.model, self.composite, self.cfg, batch, self.step)
                 for batch in self.val_loader]
         for out in outs:

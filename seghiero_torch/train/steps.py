@@ -11,6 +11,7 @@ step (``training.triplet_schedule_unit: epoch`` uses the epoch index).
 from __future__ import annotations
 
 import contextlib
+import warnings
 from typing import Dict
 
 import torch
@@ -18,7 +19,11 @@ from torch import nn
 
 from seghiero_torch.config import SegHieroConfig
 from seghiero_torch.data.pipeline import normalize_images
-from seghiero_torch.losses.fast import FastHieraTripletLoss, aux_ce_fast
+from seghiero_torch.losses.fast import (
+    FastHieraTripletLoss,
+    FastRMIHieraTripletLoss,
+    aux_ce_fast,
+)
 from seghiero_torch.ops.resize import resize_bilinear
 from seghiero_torch.train.metrics import confusion_matrix, pixel_accuracy_counts
 
@@ -27,16 +32,38 @@ def _not_yet_ported(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not yet ported to seghiero_torch (ROADMAP queue 1)")
 
 
-def make_composite_loss(cfg: SegHieroConfig) -> FastHieraTripletLoss:
-    """The 2-level fast-path composite; every other choice raises."""
+def make_composite_loss(cfg: SegHieroConfig):
+    """The fast-path composite: 3-level (RMI + group triplet) when the
+    hierarchy has a super level, else 2-level; every other choice raises.
+    As in the JAX package, the 3-level loss takes ``training.fine_weight``
+    as its RMI weight λ (and a loss weight of 1), the 2-level one as its
+    loss weight."""
     h, t = cfg.hierarchy, cfg.training
-    if h.has_super:
-        raise _not_yet_ported("the 3-level loss (RMI + group triplet)")
+    if h.has_super and (t.triplet_upper_ids is None or t.triplet_lower_ids is None):
+        upper, lower = h.split_upper_lower()
+        if not upper or not lower:
+            warnings.warn(
+                "the hierarchy-derived triplet upper/lower split is "
+                f"one-sided (upper={upper}, lower={lower}): every "
+                "non-background fine class falls in one super bucket, "
+                "so the tree-triplet term will never activate. Set "
+                "training.triplet_upper_ids / training.triplet_lower_ids "
+                "explicitly to define the positive/negative groups.",
+                stacklevel=2,
+            )
     if not t.fast_losses:
         raise _not_yet_ported("training.fast_losses: false (the NHWC parity losses)")
     if t.extra_losses:
         raise _not_yet_ported("training.extra_losses (dice, lovasz)")
     ohem = (t.ohem_thresh, t.ohem_min_kept * t.batch_size) if t.ohem_thresh is not None else None
+    if h.has_super:
+        return FastRMIHieraTripletLoss(
+            h, rmi_radius=t.rmi_radius, loss_weight_lambda=t.fine_weight, loss_weight=1.0,
+            rmi_streaming=t.rmi_streaming, rmi_backend=t.rmi_backend,
+            rmi_precision=t.rmi_precision, hiera_variant=t.hiera_variant, ohem=ohem,
+            upper_ids=t.triplet_upper_ids, lower_ids=t.triplet_lower_ids,
+            selection=t.triplet_selection, use_kernel=t.pallas_fused_loss,
+        )
     return FastHieraTripletLoss(
         h, loss_weight=t.fine_weight, use_kernel=t.pallas_fused_loss,
         hiera_variant=t.hiera_variant, ohem=ohem, selection=t.triplet_selection,
@@ -108,6 +135,8 @@ def eval_step(model: nn.Module, composite, cfg: SegHieroConfig,
     H, W = batch["fine"].shape[1:3]
     up = resize_bilinear(logits.to(torch.float32).contiguous(), (H, W))
     labels = {"fine": batch["fine"], "coarse": batch.get("coarse")}
+    if h.has_super:
+        labels["super"] = batch.get("super")
     stats = {}
     for lvl, (lo, hi) in zip(labels, h.level_slices):
         pred = up[:, lo:hi].argmax(dim=1)

@@ -17,6 +17,7 @@ from seghiero_torch.losses.hiera import prepare_targets_two_level
 from seghiero_torch.models.heads import DepthwiseConv
 from seghiero_torch.ops import depthwise as port_dw
 from seghiero_torch.ops import hiera2_fused as port_fused
+from seghiero_torch.ops import rmi_gram as port_rg
 from seghiero_torch.ops import upsample_argmax as port_ua
 
 
@@ -167,3 +168,68 @@ def test_fused_loss_kernels_equal_plain_versions():
                           dtype=torch.int64, device=dev)
     with pytest.raises(ValueError, match="pallas_fused_loss"):
         FastHieraTripletLoss(h, use_kernel=True)(0, None, None, lo_t, labels8)
+
+
+def _rmi_maps(gen, dev, BC, H, W):
+    """A one-hot-like map (0/1) and probabilities in (0, 1], [BC, H, W] f32."""
+    la = (torch.rand((BC, H, W), generator=gen, device=dev) < 0.3).float()
+    pr = torch.sigmoid(2 * torch.randn((BC, H, W), generator=gen, device=dev)) + 1e-6
+    return la, pr
+
+
+@pytest.mark.gpu
+def test_rmi_gram_kernels_equal_plain_versions():
+    """Card-only: the RMI kernels #6–#8 against their plain versions at small
+    and ragged shapes (H−2 and W−2 not multiples of the kernels' 32-row,
+    128-column blocks; W < 128; several row bands): the Grams per entry
+    within 1e-5·Σ|z_i·z_j| (for #7 with |y| bounded by |z_la| + |W|ᵀ·|z_pr|),
+    d pr per pixel within 1e-5·Σ|P|·|z| (f32 sums in another order), and
+    two runs give the same bits."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for BC, H, W in ((3, 18, 20), (2, 37, 131), (1, 3, 3), (2, 70, 257), (4, 131, 40)):
+        la, pr = _rmi_maps(gen, dev, BC, H, W)
+        w = torch.randn((BC, 9, 9), generator=gen, device=dev) * 0.3
+        p = torch.randn((BC, 9, 18), generator=gen, device=dev)
+        before = (port_rg.gram18_launches, port_rg.residual_launches, port_rg.grad_launches)
+        g18, a, dpr = port_rg.gram18(la, pr), port_rg.residual_gram(la, pr, w), \
+            port_rg.grad_maps(la, pr, p)
+        assert (port_rg.gram18_launches, port_rg.residual_launches,
+                port_rg.grad_launches) == tuple(b + 1 for b in before)
+        mag = port_rg.gram18_plain(la.abs(), pr.abs())
+        assert ((g18 - port_rg.gram18_plain(la, pr)).abs() <= 1e-5 * mag + 1e-30).all(), (H, W)
+        yb = port_rg._views(la.abs()) + w.abs().mT @ port_rg._views(pr.abs())
+        assert ((a - port_rg.residual_gram_plain(la, pr, w)).abs()
+                <= 1e-5 * (yb @ yb.mT) + 1e-30).all(), (H, W)
+        mag = port_rg.grad_maps_plain(la.abs(), pr.abs(), p.abs())
+        assert ((dpr - port_rg.grad_maps_plain(la, pr, p)).abs() <= 1e-5 * mag + 1e-30).all()
+        assert torch.equal(g18, port_rg.gram18(la, pr))
+        assert torch.equal(a, port_rg.residual_gram(la, pr, w))
+        assert torch.equal(dpr, port_rg.grad_maps(la, pr, p))
+    with pytest.raises(ValueError, match="refusing to copy"):
+        port_rg.gram18(la.transpose(1, 2), pr.transpose(1, 2))
+
+
+@pytest.mark.gpu
+def test_rmi_kernel_path_matches_the_materialized_op_on_the_card():
+    """Card-only: the RMI term through kernels #6–#8 (``rmi_backend:
+    pallas``) against the materialized op (``xla``), value and gradient, at
+    JAX's kernel-vs-core tolerances (tests/test_rmi_gram_pallas.py: value
+    rtol 2e-4, gradient rtol 5e-3 / atol 2e-5 at unit-scale maps)."""
+    from seghiero_torch.losses.rmi import rmi_lower_bound_cmajor
+
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(4)
+    B, C, H, W = 2, 3, 34, 26
+    oh = torch.nn.functional.one_hot(torch.randint(0, C, (B, H, W), generator=gen, device=dev),
+                                     C).permute(0, 3, 1, 2).float().contiguous()
+    lg = torch.randn((B, C, H, W), generator=gen, device=dev)
+    out = {}
+    for backend in ("pallas", "xla"):
+        x = lg.clone().requires_grad_()
+        v = rmi_lower_bound_cmajor(oh, torch.sigmoid(x) + 1e-6, backend=backend)
+        v.backward()
+        out[backend] = (v.item(), x.grad)
+    torch.testing.assert_close(out["pallas"][0], out["xla"][0], rtol=2e-4, atol=0)
+    # the gradient of the mean over B·9 is 1/18 of the per-map half's
+    torch.testing.assert_close(out["pallas"][1] * 18, out["xla"][1] * 18, rtol=5e-3, atol=2e-5)

@@ -1,0 +1,298 @@
+"""The port's 3-level losses and RMI kernels against the JAX package.
+
+Same inputs (made with numpy from a seed) through ``seghiero_tpu`` and
+``seghiero_torch`` on the CPU, f32: the 3-level targets, hierarchy BCE and
+group triplet; the materialized RMI core; the kernel path (the plain
+versions of kernels #6–#8 inside the port's ``autograd.Function``) against
+the Pallas kernels in interpret mode; the backend and precision knobs; and
+the whole ``FastRMIHieraTripletLoss``. The CUDA kernels are held against
+the plain versions by tests/test_torch_port_cuda.py and chip_smoke.py.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from seghiero_torch.hierarchy import Hierarchy as PortHierarchy
+from seghiero_torch.losses import fast as port_fast
+from seghiero_torch.losses import hiera as port_hiera
+from seghiero_torch.losses import rmi as port_rmi
+from seghiero_torch.losses import tree_triplet as port_tt
+from seghiero_torch.ops import rmi_gram as port_rg
+from seghiero_tpu.hierarchy import Hierarchy as JaxHierarchy
+from seghiero_tpu.losses import fast as jax_fast
+from seghiero_tpu.losses import hiera as jax_hiera
+from seghiero_tpu.losses import rmi as jax_rmi
+from seghiero_tpu.losses import tree_triplet as jax_tt
+from seghiero_tpu.ops.pallas.rmi_gram import rmi_logdet_pallas_cmajor
+
+CLASSES_3L = {
+    "super_coarse_to_coarse_map": [[0, 2], [3]],
+    "super_coarse_names": {0: "x", 1: "y"},
+    "coarse_to_fine_map": [[0, 3], [4, 6], [7], [8]],
+    "coarse_names": {0: "a", 1: "b", 2: "c", 3: "d"},
+    "fine_names": {i: f"f{i}" for i in range(9)},
+}
+JH, PH = JaxHierarchy.from_class_config(CLASSES_3L), PortHierarchy.from_class_config(CLASSES_3L)
+UPPER, LOWER = PH.split_upper_lower()  # (1..7), (8,): super bucket 0 vs 1
+
+
+def _labels(rng, B, H, W):
+    """Fine labels with an ignore block and planted classes 1, 2 (upper
+    group) and 8 (lower) where the 1/16 nearest downsample reads."""
+    labels = rng.integers(0, 9, (B, H, W)).astype(np.int32)
+    labels[:, 3:7, 2:9] = 255
+    for lbl, (y, x) in zip((1, 2, 8, 5), ((0, 0), (0, W // 2), (H // 2, 0), (H // 2, W // 2))):
+        labels[:, y, x] = lbl
+    return labels
+
+
+def _rmi_maps(seed, B=2, C=3, H=18, W=20):
+    """One-hot maps of random labels and sigmoid(logits) + 1e-6, [B, C, H, W]."""
+    rng = np.random.default_rng(seed)
+    oh = np.eye(C, dtype=np.float32)[rng.integers(0, C, (B, H, W))].transpose(0, 3, 1, 2)
+    lg = rng.standard_normal((B, C, H, W)).astype(np.float32) * 2
+    return np.ascontiguousarray(oh), lg
+
+
+def test_three_level_targets_and_hiera_bce_match_jax():
+    rng = np.random.default_rng(0)
+    labels = _labels(rng, 2, 24, 20)
+    jt = jax_hiera.prepare_targets_three_level(jnp.asarray(labels), JH)
+    pt = port_hiera.prepare_targets_three_level(torch.from_numpy(labels), PH)
+    for a, b in zip(pt, jt):
+        assert a.dtype == torch.int32
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    lf = (rng.standard_normal((2, 15, 24, 20)) * 3).astype(np.float32)
+    lf = np.where(rng.random(lf.shape) < 0.05, np.sign(lf) * 40.0, lf).astype(np.float32)
+    v, g = jax.jit(jax.value_and_grad(
+        lambda x: jax_fast.hiera_bce_three_level_cmajor(x, *jt, JH)))(jnp.asarray(lf))
+    lf_t = torch.from_numpy(lf).requires_grad_()
+    got = port_fast.hiera_bce_three_level_cmajor(lf_t, *pt, PH)
+    got.backward()
+    # f32 sums over 960 pixels in another order; the same logit-space forms
+    np.testing.assert_allclose(got.item(), float(v), rtol=1e-5)
+    np.testing.assert_allclose(lf_t.grad.numpy(), np.asarray(g), rtol=1e-4, atol=1e-8)
+    oh_j, v_j = jax_hiera._one_hot_valid(jnp.asarray(labels), 9, 255)
+    oh_t, v_t = port_hiera._one_hot_valid(torch.from_numpy(labels), 9, 255)
+    np.testing.assert_array_equal(oh_t.numpy(), np.asarray(oh_j))
+    np.testing.assert_array_equal(v_t.numpy(), np.asarray(v_j))
+    np.testing.assert_array_equal(
+        port_hiera._one_hot_valid(torch.from_numpy(labels), 9, 255, dim=1)[0].numpy(),
+        np.asarray(oh_j).transpose(0, 3, 1, 2))
+
+
+@pytest.mark.parametrize("selection", ["mask", "sorted"])
+def test_group_triplet_matches_jax(selection):
+    """Values, class counts and embedding gradients of both selections, with
+    ignore pixels and unequal class sizes (some below k, some above)."""
+    rng = np.random.default_rng(1)
+    emb = rng.standard_normal((2, 6, 10, 8)).astype(np.float32)
+    emb /= np.linalg.norm(emb, axis=-1, keepdims=True)
+    labels = rng.integers(0, 9, (2, 40, 32)).astype(np.int32)
+    labels[:, ::3, ::2] = 255
+    labels[:, :, :4] = 8
+
+    def f(e):
+        return jax_tt.tree_triplet_loss_groups(e, jnp.asarray(labels), UPPER, LOWER, 9,
+                                               max_triplet=20, selection=selection)
+
+    (v, c), g = jax.jit(jax.value_and_grad(f, has_aux=True))(jnp.asarray(emb))
+    e_t = torch.from_numpy(emb).requires_grad_()
+    vt, ct = port_tt.tree_triplet_loss_groups(e_t, torch.from_numpy(labels), UPPER, LOWER, 9,
+                                              max_triplet=20, selection=selection)
+    vt.backward()
+    assert int(ct) == int(c) > 0
+    np.testing.assert_allclose(vt.item(), float(v), rtol=1e-5)
+    np.testing.assert_allclose(e_t.grad.numpy(), np.asarray(g), rtol=1e-5, atol=1e-7)
+
+
+def test_group_triplet_edge_cases():
+    rng = np.random.default_rng(2)
+    emb = torch.from_numpy(rng.standard_normal((1, 12, 12, 4)).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, 9, (1, 48, 48)).astype(np.int32))
+    a = port_tt.tree_triplet_loss_groups(emb, labels, UPPER, LOWER, 9, max_triplet=30,
+                                         selection="mask")
+    b = port_tt.tree_triplet_loss_groups(emb, labels, UPPER, LOWER, 9, max_triplet=30,
+                                         selection="sorted")
+    assert int(a[1]) == int(b[1]) > 0 and float(a[0]) == float(b[0])
+    with pytest.raises(ValueError, match=r"out of range \[0, 9\): \[9\]"):
+        port_tt.tree_triplet_loss_groups(emb, labels, (1, 9), (8,), 9)
+    v, c = port_tt.tree_triplet_loss_groups(emb, labels, (), (), 9)  # empty groups
+    assert float(v) == 0.0 and int(c) == 0
+
+
+def _jax_core(oh, lg, cot):
+    """JAX's materialized core: (value of Σ cot·half, d logits)."""
+    B, C, H, W = lg.shape
+    nh, nw = H - 2, W - 2
+
+    def nbhd(x):
+        return jnp.stack([x[:, :, y : y + nh, xx : xx + nw] for y in range(3) for xx in range(3)],
+                         axis=2).reshape(B, C, 9, nh * nw)
+
+    def f(x):
+        half = jax_rmi._rmi_logdet_core(nbhd(jnp.asarray(oh)), nbhd(jax.nn.sigmoid(x) + 1e-6),
+                                        9, False)
+        return jnp.sum(half * cot)
+
+    v, g = jax.jit(jax.value_and_grad(f))(jnp.asarray(lg))
+    return float(v), np.asarray(g)
+
+
+def _port_half(oh, lg, cot, half_fn):
+    lg_t = torch.from_numpy(lg).requires_grad_()
+    v = (half_fn(torch.from_numpy(oh), torch.sigmoid(lg_t) + 1e-6) * torch.from_numpy(cot)).sum()
+    v.backward()
+    return v.item(), lg_t.grad.numpy()
+
+
+def _port_core_half(oh, pr):
+    B, C, H, W = pr.shape
+
+    def nbhd(x):
+        return torch.stack([x[:, :, y : y + H - 2, xx : xx + W - 2] for y in range(3)
+                            for xx in range(3)], dim=2).reshape(B, C, 9, -1)
+
+    return port_rmi._rmi_logdet_core(nbhd(oh), nbhd(pr), 9, False)
+
+
+def test_rmi_core_matches_jax():
+    """The materialized core, value and gradient, against JAX's: the same
+    f32 algorithm; the products and the 9×9 solve and Cholesky round in
+    another order, and the logdet's conditioning amplifies that."""
+    oh, lg = _rmi_maps(3)
+    cot = np.random.default_rng(4).uniform(0.5, 1.5, (2, 3)).astype(np.float32)
+    want = _jax_core(oh, lg, cot)
+    got = _port_half(oh, lg, cot, _port_core_half)
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-3, atol=1e-6)
+
+
+def test_rmi_kernel_path_matches_pallas_interpret():
+    """The port's kernel path (plain kernels inside ``_HalfLogdet``) against
+    JAX's Pallas kernels in interpret mode and against JAX's materialized
+    core, at B=2, C=3, 18×20 (the tolerances of JAX's own kernel-vs-core
+    test, tests/test_rmi_gram_pallas.py: value rtol 2e-4, gradient rtol
+    5e-3 / atol 2e-5). Against the Pallas kernels — the same algorithm,
+    sums in another order — the tolerance is tighter."""
+    oh, lg = _rmi_maps(5)
+    cot = np.random.default_rng(6).uniform(0.5, 1.5, (2, 3)).astype(np.float32)
+
+    def f(x):
+        half = rmi_logdet_pallas_cmajor(jnp.asarray(oh), jax.nn.sigmoid(x) + 1e-6,
+                                        interpret=True)
+        return jnp.sum(half * cot)
+
+    v_p, g_p = jax.jit(jax.value_and_grad(f))(jnp.asarray(lg))
+    got = _port_half(oh, lg, cot, port_rg.rmi_logdet_kernel_cmajor)
+    np.testing.assert_allclose(got[0], float(v_p), rtol=1e-5)
+    np.testing.assert_allclose(got[1], np.asarray(g_p), rtol=1e-3, atol=1e-6)
+    core = _jax_core(oh, lg, cot)
+    np.testing.assert_allclose(got[0], core[0], rtol=2e-4)
+    np.testing.assert_allclose(got[1], core[1], rtol=5e-3, atol=2e-5)
+
+
+def test_rmi_plain_kernels_are_the_sums_they_name():
+    """The plain versions against float64 numpy sums (Gram entries) and
+    autograd (the overlap-add is the VJP of the views), at a ragged shape."""
+    rng = np.random.default_rng(7)
+    la = rng.integers(0, 2, (3, 7, 11)).astype(np.float32)
+    pr = rng.random((3, 7, 11)).astype(np.float32)
+    w = rng.standard_normal((3, 9, 9)).astype(np.float32)
+    p = rng.standard_normal((3, 9, 18)).astype(np.float32)
+    z = np.concatenate([np.stack([m[:, dy : dy + 5, dx : dx + 9].reshape(3, -1)
+                                  for dy in range(3) for dx in range(3)], 1)
+                        for m in (la.astype(np.float64), pr.astype(np.float64))], 1)
+    t = {k: torch.from_numpy(v) for k, v in (("la", la), ("pr", pr), ("w", w), ("p", p))}
+    np.testing.assert_allclose(port_rg.gram18_plain(t["la"], t["pr"]).numpy(),
+                               z @ z.transpose(0, 2, 1), rtol=1e-6, atol=1e-5)
+    y = z[:, :9] - np.swapaxes(w, 1, 2).astype(np.float64) @ z[:, 9:]
+    np.testing.assert_allclose(port_rg.residual_gram_plain(t["la"], t["pr"], t["w"]).numpy(),
+                               y @ y.transpose(0, 2, 1), rtol=1e-5, atol=1e-4)
+    pr_req = t["pr"].clone().requires_grad_()
+    u = (t["p"] @ torch.cat([port_rg._views(t["la"]), port_rg._views(pr_req)], 1)).detach()
+    # d/dpr Σ u_k·(view k of pr) overlap-adds each u_k through its view
+    (u[:, :9] * port_rg._views(pr_req)).sum().backward()
+    # 9 terms per pixel added in another order than autograd's
+    torch.testing.assert_close(port_rg.grad_maps_plain(t["la"], t["pr"], t["p"]), pr_req.grad,
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_rmi_knobs():
+    oh = torch.zeros((2, 3, 16, 16))
+    pr = torch.full((2, 3, 16, 16), 0.5)
+    with pytest.raises(ValueError, match="rmi_radius == 3"):
+        port_rmi.rmi_lower_bound_cmajor(oh, pr, radius=5, backend="pallas")
+    with pytest.raises(ValueError, match="f32-only"):
+        port_rmi.rmi_lower_bound_cmajor(oh, pr, use_float64=True, backend="pallas")
+    with pytest.raises(NotImplementedError, match="rmi_precision: fast"):
+        port_rmi.rmi_lower_bound_cmajor(oh, pr, precision="fast")
+    with pytest.raises(NotImplementedError, match="streaming"):
+        port_rmi.rmi_lower_bound_cmajor(oh, pr, streaming="on")
+    big = torch.zeros(()).expand(4, 15, 1100, 1100)  # 2.6 GB of views: JAX would stream
+    with pytest.raises(NotImplementedError, match="streaming"):
+        port_rmi.rmi_lower_bound_cmajor(big, big)
+    # radius 3 under pallas on the CPU: the plain kernels, equal to auto
+    # (which on the CPU takes the materialized op) within the two paths'
+    # tolerance; radius 5 and f64 take the op under auto
+    a = port_rmi.rmi_lower_bound_cmajor(oh, pr + 0.1 * torch.rand(pr.shape), backend="pallas")
+    assert torch.isfinite(a)
+    port_rg.gram18_launches = port_rg.residual_launches = port_rg.grad_launches = 0
+    for kw in ({"radius": 5}, {"use_float64": True}, {}):
+        assert torch.isfinite(port_rmi.rmi_lower_bound_cmajor(oh, pr, **kw))
+    assert (port_rg.gram18_launches, port_rg.residual_launches) == (0, 0)  # no launch on the CPU
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        port_rg.gram18(torch.zeros(1, 4, 4, device="meta"), torch.zeros(1, 4, 4, device="meta"))
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        port_fast.FastRMIHieraTripletLoss(PH, rmi_precision="fast")
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        port_fast.FastRMIHieraTripletLoss(PH, hiera_variant="focal")
+
+
+def _loss_inputs(seed, B=2, h=8, w=8, D=16):
+    rng = np.random.default_rng(seed)
+    lo = (rng.standard_normal((B, 15, h, w)) * 2).astype(np.float32)
+    emb = rng.standard_normal((B, D, h // 4, w // 4)).astype(np.float32)
+    emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+    return lo, emb, _labels(rng, B, 4 * h, 4 * w)
+
+
+@pytest.mark.parametrize("backend", ["xla", "pallas"])
+def test_fast_rmi_hiera_triplet_loss_matches_jax(backend):
+    """The whole 3-level composite, value and d(logits), d(embedding),
+    mid-schedule so the triplet term is live: ``xla`` against JAX's
+    materialized RMI, ``pallas`` (the port's plain kernels) against JAX's
+    Pallas kernels in interpret mode."""
+    lo, emb, labels = _loss_inputs(8)
+    step = 30_000  # the ramp of the 60k-step schedule is non-zero here
+    jloss = jax_fast.FastRMIHieraTripletLoss(JH, rmi_backend=backend, hiera_precision="parity",
+                                            pallas_interpret=backend == "pallas")
+
+    def f(lo_, emb_):
+        return jloss(jnp.int32(step), jnp.transpose(emb_, (0, 2, 3, 1)), None,
+                     jnp.transpose(lo_, (0, 2, 3, 1)), jnp.asarray(labels))
+
+    v, (g_lo, g_emb) = jax.jit(jax.value_and_grad(f, argnums=(0, 1)))(jnp.asarray(lo),
+                                                                      jnp.asarray(emb))
+    ploss = port_fast.FastRMIHieraTripletLoss(PH, rmi_backend=backend)
+    assert ploss.schedule_total_steps == 60_000
+    lo_t, emb_t = torch.from_numpy(lo).requires_grad_(), torch.from_numpy(emb).requires_grad_()
+    got = ploss(step, emb_t, None, lo_t, torch.from_numpy(labels))
+    got.backward()
+    # f32 sums in other orders; torch's and XLA's bilinear resizes round
+    # differently; the RMI logdet amplifies rounding (test_rmi_core_matches_jax)
+    np.testing.assert_allclose(got.item(), float(v), rtol=1e-5)
+    np.testing.assert_allclose(lo_t.grad.numpy(), np.asarray(g_lo), rtol=1e-3, atol=1e-7)
+    np.testing.assert_allclose(emb_t.grad.numpy(), np.asarray(g_emb), rtol=1e-4, atol=1e-7)
+    assert np.abs(emb_t.grad.numpy()).max() > 0  # the triplet term is live
+
+
+def test_fused_loss_knob_is_ignored_on_the_cpu_for_three_levels():
+    lo, emb, labels = _loss_inputs(9)
+    args = (100, torch.from_numpy(emb), None, torch.from_numpy(lo), torch.from_numpy(labels))
+    a = port_fast.FastRMIHieraTripletLoss(PH, use_kernel=True)(*args)
+    b = port_fast.FastRMIHieraTripletLoss(PH)(*args)
+    assert float(a) == float(b)
