@@ -416,9 +416,12 @@ def phase_train_kernels(seed: int, sm_mhz: float):
 # the RMI term's two paths (kernels against the materialized op), at config
 # 3's shapes: the value within JAX's kernel-vs-core tolerance
 # (tests/test_rmi_gram_pallas.py: rtol 2e-4); the gradient, whose entries
-# are ~1e-7 at 512² (below that test's atol), by its direction
+# are ~1e-7 at 512² (below that test's atol), by its direction and by its
+# size: ‖g_kernel − g_op‖ / ‖g_op‖ within that test's gradient rtol, so a
+# backward off by a constant factor fails
 RMI_VALUE_RTOL = 2e-4
 RMI_GRAD_COS_MIN = 0.999
+RMI_GRAD_REL_NORM = 5e-3
 
 
 def rmi_kernel_checks(seed: int):
@@ -491,12 +494,16 @@ def rmi_kernel_checks(seed: int):
         return v
 
     (v_k, g_k), (v_x, g_x) = ((term(b).item(), pr_req.grad.clone()) for b in ("pallas", "xla"))
-    cos = torch.nn.functional.cosine_similarity(g_k.flatten().double(), g_x.flatten().double(),
-                                                dim=0).item()
+    g_k, g_x = g_k.flatten().double(), g_x.flatten().double()
+    cos = torch.nn.functional.cosine_similarity(g_k, g_x, dim=0).item()
+    rel = ((g_k - g_x).norm() / g_x.norm()).item()
     say("kernels", check="RMI term, kernel path vs materialized op", value_kernel=v_k,
         value_library=v_x, value_rel_diff=abs(v_k - v_x) / abs(v_x), value_rtol=RMI_VALUE_RTOL,
-        grad_cos=cos, grad_cos_floor=RMI_GRAD_COS_MIN)
-    if abs(v_k - v_x) > RMI_VALUE_RTOL * abs(v_x) or cos < RMI_GRAD_COS_MIN:
+        grad_cos=cos, grad_cos_floor=RMI_GRAD_COS_MIN, grad_rel_norm_diff=rel,
+        grad_rel_norm_limit=RMI_GRAD_REL_NORM, grad_norm_kernel=g_k.norm().item(),
+        grad_norm_library=g_x.norm().item())
+    if (abs(v_k - v_x) > RMI_VALUE_RTOL * abs(v_x) or cos < RMI_GRAD_COS_MIN
+            or not rel <= RMI_GRAD_REL_NORM):
         raise AssertionError("RMI kernel path and materialized op disagree")
     del g_k, g_x
 
@@ -506,11 +513,19 @@ def rmi_kernel_checks(seed: int):
 
     fwd = {b: time_ms(lambda: forward(b), iters=10) for b in ("pallas", "xla")}
     both = {b: time_ms(lambda: term(b), iters=10) for b in ("pallas", "xla")}
+    # least operations, from the shift structure: the 18 views are shifts of
+    # two maps, so a G18 entry is a correlation of two maps at one offset in
+    # {−2..2}² (la·la and pr·pr 13 offsets each, by symmetry; la·pr 25), up
+    # to O(H + W) terms on the 2-pixel frame: 51 FMAs per output pixel for
+    # #6. #8's dpr is, inside the frame, a 5×5 correlation of each map with
+    # taps folded from P once per map: 50 FMAs per pixel. #7's residual y
+    # is needed per pixel for its numerics: 81 FMAs for Wᵀ·z_pr, 9
+    # subtractions and 45 FMAs, as it computes them.
     pixels = BC * n
     out = {}
     for name, fn, plain, nbytes, flops, err, extra in (
         ("rmi_gram18", lambda: rg.gram18(la, pr), lambda: rg.gram18_plain(la, pr),
-         la.nbytes + pr.nbytes + g18.nbytes, 2 * 171 * pixels, err6,
+         la.nbytes + pr.nbytes + g18.nbytes, 2 * 51 * pixels, err6,
          {"unfused_ms": fwd["xla"], "kernel_path_ms": fwd["pallas"],
           "unfused_what": "RMI term forward, rmi_backend: xla (materialized views) against "
           "pallas (kernel_path_ms)"}),
@@ -520,7 +535,7 @@ def rmi_kernel_checks(seed: int):
          {"unfused_ms": fwd["xla"], "kernel_path_ms": fwd["pallas"],
           "unfused_what": "the same forward"}),
         ("rmi_grad_maps", lambda: rg.grad_maps(la, pr, p), lambda: rg.grad_maps_plain(la, pr, p),
-         la.nbytes + pr.nbytes + p.nbytes + dpr.nbytes, (2 * 162 + 9) * pixels, err8,
+         la.nbytes + pr.nbytes + p.nbytes + dpr.nbytes, 2 * 50 * BC * H * W, err8,
          {"unfused_ms": both["xla"], "kernel_path_ms": both["pallas"],
           "unfused_what": "RMI term forward + backward, xla against pallas (kernel_path_ms)"}),
     ):
@@ -843,6 +858,10 @@ LOSS_RTOL = 1e-3
 # 50 bf16 layers; uncorrelated perturbations of ≤ 0.4 % keep each
 # parameter's gradient direction well within 1 %:
 GRAD_COS_MIN = 0.99
+# and each parameter's gradient norm within 2 % of the library path's (5×
+# that 0.4 %), so that a term whose gradient is off by a constant factor
+# fails where a cosine alone would pass it:
+GRAD_NORM_RTOL = 0.02
 # the triplet ramp is exactly 0 in f32 for the first steps of a run; the
 # comparison pass evaluates the loss mid-schedule so that the projection
 # head's gradient is live on both paths
@@ -988,13 +1007,18 @@ def phase_train(name: str, seed: int, device_line: str, profile_dir):
     cos = {n: float(torch.nn.functional.cosine_similarity(
         grads_k[n].flatten().double(), grads_l[n].flatten().double(), dim=0))
         for n in grads_k}
+    norm_dev = {n: abs(float(grads_k[n].double().norm() / grads_l[n].double().norm()) - 1.0)
+                for n in grads_k}
     worst = sorted(cos.items(), key=lambda kv: kv[1])[:5]
+    worst_norm = sorted(norm_dev.items(), key=lambda kv: -kv[1])[:5]
     loss_rel = abs(loss_k - loss_l) / abs(loss_l)
     say(name, check="kernel path vs library path, one batch, same weights",
         loss_kernel=loss_k, loss_library=loss_l, loss_rel_diff=loss_rel, loss_rtol=LOSS_RTOL,
         grad_cos_min=worst[0][1], grad_cos_floor=GRAD_COS_MIN, worst_params=worst,
-        params=len(cos), setup_s=round(setup_s, 2))
-    if loss_rel > LOSS_RTOL or worst[0][1] < GRAD_COS_MIN:
+        grad_norm_ratio_max_dev=worst_norm[0][1], grad_norm_rtol=GRAD_NORM_RTOL,
+        worst_norm_params=worst_norm, params=len(cos), setup_s=round(setup_s, 2))
+    if (loss_rel > LOSS_RTOL or worst[0][1] < GRAD_COS_MIN
+            or not worst_norm[0][1] <= GRAD_NORM_RTOL):
         raise AssertionError("kernel path and library path disagree beyond the tolerances")
     del grads_k, grads_l
 

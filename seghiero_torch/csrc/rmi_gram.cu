@@ -17,11 +17,17 @@
 // RMI term of the 3-level loss, forward (#6, #7) and backward (#8).
 //
 // What bounds them on an H100, at config 3 (BC = 60 maps of 512²,
-// 62.9 MB each in f32): #6 reads both maps once (125.8 MB, 0.038 ms at
-// 3.35 TB/s) and does 171 FMAs per output pixel (2.67 G FMA, 0.080 ms at
-// 67 TFLOP/s f32); #7 the same bytes and 81 + 45 FMAs per pixel (0.061 ms);
-// #8 reads both maps and writes dpr (188.7 MB, 0.056 ms) with 162 FMAs per
-// pixel (0.078 ms). All three are bound by f32 operations, not bytes.
+// 62.9 MB each in f32). The 18 views are shifts of two maps, so the least
+// work is smaller than what these kernels do:
+//  * #6 reads both maps once (125.9 MB, 0.038 ms at 3.35 TB/s). Each G18
+//    entry is a correlation of two maps at one offset in {−2..2}² (13 la·la,
+//    13 pr·pr, 25 la·pr, up to the 2-pixel frame): 51 FMAs per output pixel
+//    (0.024 ms at 67 TFLOP/s f32). Bound by bytes; it does 171 FMAs.
+//  * #7 reads the same bytes and needs the residual y per pixel: 81 + 45
+//    FMAs (0.061 ms). Bound by operations.
+//  * #8 reads both maps and writes dpr (188.8 MB, 0.056 ms). Inside the
+//    frame dpr is a 5×5 correlation of each map with taps folded from P:
+//    50 FMAs per pixel (0.023 ms). Bound by bytes; it does 162 FMAs.
 //
 // Design. No tensor cores, no TF32: the logdet downstream needs f32 Grams
 // (the TPU kernels pin precision=HIGHEST), so every product is an f32 FMA.

@@ -12,8 +12,6 @@ from typing import Dict, Iterator
 import numpy as np
 import torch
 
-from seghiero_torch.ops.consts import on_device
-
 
 def normalize_images(
     images_u8: torch.Tensor,
@@ -23,8 +21,8 @@ def normalize_images(
     """uint8 NHWC → f32 ``(x − 255·mean) / (255·std)`` on the tensor's
     device, matching torchvision ToTensor+Normalize."""
     dev = images_u8.device
-    mean = on_device(mean, torch.float32, dev) * 255.0
-    std = on_device(std, torch.float32, dev) * 255.0
+    mean = torch.tensor(mean, dtype=torch.float32, device=dev) * 255.0
+    std = torch.tensor(std, dtype=torch.float32, device=dev) * 255.0
     return (images_u8.to(torch.float32) - mean) / std
 
 

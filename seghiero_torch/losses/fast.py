@@ -43,7 +43,6 @@ from seghiero_torch.losses.tree_triplet import (
     triplet_readiness,
     triplet_schedule_factor,
 )
-from seghiero_torch.ops.consts import on_device
 from seghiero_torch.ops.hiera2_fused import SCALE, fused_hiera2_loss_sums
 from seghiero_torch.ops.resize import resize_bilinear
 
@@ -95,16 +94,7 @@ def _bucket_max_cmajor(child_l, buckets: Sequence[Sequence[int]], own_l) -> torc
     cols = []
     for i, ids in enumerate(buckets):
         o = own_l[:, i]
-        if not ids:
-            cols.append(o)
-            continue
-        # a contiguous bucket is a slice; other ids index with a table kept on
-        # the device (a Python list index is copied to the card on every call,
-        # which waits for the card's queue to drain)
-        ids = list(ids)
-        kids = (child_l[:, ids[0] : ids[-1] + 1] if ids == list(range(ids[0], ids[-1] + 1))
-                else child_l.index_select(1, on_device(ids, torch.int64, child_l.device)))
-        cols.append(torch.maximum(torch.amax(kids, dim=1), o))
+        cols.append(torch.maximum(torch.amax(child_l[:, list(ids)], dim=1), o) if ids else o)
     return torch.stack(cols, dim=1)
 
 

@@ -10,14 +10,13 @@ import numpy as np
 import torch
 
 from seghiero_torch.hierarchy import Hierarchy
-from seghiero_torch.ops.consts import on_device
 
 
 def lut_lookup(lut, idx: torch.Tensor) -> torch.Tensor:
     """``lut[idx]`` for a small static table, int32. Indices outside
     ``[0, len(lut))`` give ``lut[0]``, as the JAX package's unrolled
     compare-select chain does; callers pass in-range indices."""
-    table = on_device(np.asarray(lut, np.int32), torch.int32, idx.device)
+    table = torch.as_tensor(np.asarray(lut, np.int32), device=idx.device)
     inside = (idx >= 0) & (idx < len(table))
     return torch.where(inside, table[idx.clamp(0, len(table) - 1).long()], table[0])
 

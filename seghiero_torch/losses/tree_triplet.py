@@ -27,7 +27,6 @@ import numpy as np
 import torch
 
 from seghiero_torch.hierarchy import Hierarchy
-from seghiero_torch.ops.consts import on_device
 from seghiero_torch.ops.resize import downsample_labels_nearest
 
 # static crossover between the two selections (DESIGN decision 22)
@@ -65,10 +64,10 @@ def _merged_first_k(idx_by_class, counts, member_rows: np.ndarray, k: int, n: in
     (exact: a position among the k smallest of the union is among the k
     smallest of its own class)."""
     dev = idx_by_class.device
-    safe = on_device(np.maximum(member_rows, 0), torch.int64, dev)
+    safe = torch.as_tensor(np.maximum(member_rows, 0), device=dev)
     cand = idx_by_class[safe]  # [C, m, k]
     lane = torch.arange(k, device=dev)
-    present = on_device(member_rows >= 0, torch.bool, dev)
+    present = torch.as_tensor(member_rows >= 0, device=dev)
     cand_valid = (lane[None, None, :] < counts[safe][:, :, None]) & present[:, :, None]
     merged = torch.where(cand_valid, cand, n).reshape(len(member_rows), -1)
     sel = torch.topk(merged, k, dim=-1, largest=False).values  # ascending
@@ -135,8 +134,8 @@ def tree_triplet_loss_range(
     f2c = np.asarray(hierarchy.fine_to_coarse, np.int64)
 
     if selection == "mask":
-        starts = on_device([hierarchy.coarse_ranges[c][0] for c in f2c], torch.int64, dev)
-        ends = on_device([hierarchy.coarse_ranges[c][1] for c in f2c], torch.int64, dev)
+        starts = torch.as_tensor([hierarchy.coarse_ranges[c][0] for c in f2c], device=dev)
+        ends = torch.as_tensor([hierarchy.coarse_ranges[c][1] for c in f2c], device=dev)
         lblr = lbl[None, :]
         anchor = lblr == torch.arange(n_fine, device=dev)[:, None]
         in_bucket = (lblr >= starts[:, None]) & (lblr < ends[:, None])
@@ -147,7 +146,7 @@ def tree_triplet_loss_range(
         raise ValueError(f"selection must be auto|mask|sorted, got {selection!r}")
     n = lbl.shape[0]
     k = min(max_triplet, n)
-    f2c_t = on_device(f2c, torch.int64, dev)
+    f2c_t = torch.as_tensor(f2c, device=dev)
     idx_by_class, counts = _per_class_first_k(lbl, n_fine, k)
     bucket_totals = torch.zeros(hierarchy.n_coarse, dtype=counts.dtype, device=dev)
     bucket_totals.index_add_(0, f2c_t, counts[:n_fine])
@@ -163,8 +162,8 @@ def tree_triplet_loss_range(
         member_rows[c, : len(others)] = others
     idx_p = _merged_first_k(idx_by_class, counts, member_rows, k, n)
 
-    bstarts = on_device([r[0] for r in hierarchy.coarse_ranges], torch.int64, dev)
-    bends = on_device([r[1] for r in hierarchy.coarse_ranges], torch.int64, dev)
+    bstarts = torch.as_tensor([r[0] for r in hierarchy.coarse_ranges], device=dev)
+    bends = torch.as_tensor([r[1] for r in hierarchy.coarse_ranges], device=dev)
     neg_mask = ~((lbl[None, :] >= bstarts[:, None]) & (lbl[None, :] < bends[:, None]))
     idx_n = _first_k_selection(neg_mask, k)[f2c_t]
     return _triplet_from_indices(feats, idx_by_class, idx_p, idx_n, min_size, k, margin)
@@ -215,9 +214,9 @@ def tree_triplet_loss_groups(
             neg_lut[row, other] = True
         valid = (lbl >= 0) & (lbl < n_fine) & (lbl != ignore_index)
         safe = torch.where(valid, lbl, 0).long()
-        anchor = (lbl[None, :] == on_device(listed, torch.int64, dev)[:, None]) & valid[None, :]
-        pos = on_device(pos_lut, torch.bool, dev)[:, safe] & valid[None, :]
-        neg = on_device(neg_lut, torch.bool, dev)[:, safe] & valid[None, :]
+        anchor = (lbl[None, :] == torch.as_tensor(listed, device=dev)[:, None]) & valid[None, :]
+        pos = torch.as_tensor(pos_lut, device=dev)[:, safe] & valid[None, :]
+        neg = torch.as_tensor(neg_lut, device=dev)[:, safe] & valid[None, :]
         return _triplet_core(feats, anchor, pos, neg, max_triplet, margin)
 
     if selection != "sorted":
@@ -227,11 +226,11 @@ def tree_triplet_loss_groups(
     # ignore_index into the invalid bucket even if it were < n_fine
     lbl_sel = torch.where(lbl == ignore_index, n_fine, lbl)
     idx_by_class, counts = _per_class_first_k(lbl_sel, n_fine, k)
-    group_of = on_device([0 if c in upper else 1 for c in listed], torch.int64, dev)
+    group_of = torch.as_tensor([0 if c in upper else 1 for c in listed], device=dev)
     zero = torch.zeros((), dtype=counts.dtype, device=dev)
-    group_sum = torch.stack([counts[on_device(upper, torch.int64, dev)].sum() if upper else zero,
-                             counts[on_device(lower, torch.int64, dev)].sum() if lower else zero])
-    listed_t = on_device(listed, torch.int64, dev)
+    group_sum = torch.stack([counts[torch.as_tensor(upper, device=dev)].sum() if upper else zero,
+                             counts[torch.as_tensor(lower, device=dev)].sum() if lower else zero])
+    listed_t = torch.as_tensor(listed, device=dev)
     n_anchor = counts[listed_t]
     n_pos = group_sum[group_of] - n_anchor
     n_neg = group_sum[1 - group_of]
@@ -257,9 +256,7 @@ def tree_triplet_loss_groups(
 def triplet_schedule_factor(step, total_steps: int, device=None) -> torch.Tensor:
     """Cosine ramp of the triplet weight: ``0.25·(1 + cos((step − T)/T·π))``
     before ``T`` steps, else 0.5 — in f32, as a 0-dim tensor."""
-    # a Python step is filled on the device (no host-to-device copy)
-    s = (step.to(device=device, dtype=torch.float32) if torch.is_tensor(step)
-         else torch.full((), float(step), dtype=torch.float32, device=device))
+    s = torch.as_tensor(step, dtype=torch.float32, device=device)
     t = float(total_steps)
     ramp = 0.25 * (1.0 + torch.cos((s - t) / t * math.pi))
     return torch.where(s < t, ramp, torch.full_like(ramp, 0.5))
