@@ -17,7 +17,12 @@ printed as one line, any failure exits non-zero:
    then timed with CUDA events against the plain version, the PyTorch
    library call computing the same function (for the fused loss and the
    RMI Gram kernels, which have none, the port's library-op path of the
-   same loss term), and the least time the card could take;
+   same loss term), and the least time the card could take; the
+   depthwise kernels also at config 4's shapes (193², odd); the RMI Gram
+   kernels at config 3's shapes (f32) and their bf16-view variants at
+   config 4's (beside the f32 kernels' times there), then the RMI term at
+   config 4's shapes on four routes (fast kernels, parity kernels,
+   materialized op, streaming), value, gradient, time and memory;
 4. serve   — ``configs/example-serving-hopper.yaml`` at full width with
    weights made from a fixed seed: the port's ``ServingModel`` +
    ``make_server`` answer two bursts of concurrent 512×512 requests on a
@@ -40,7 +45,14 @@ printed as one line, any failure exits non-zero:
    same checks against the library path (``depthwise_backend: xla``,
    ``rmi_backend: xla``), each ``fit`` step with exactly 2/2/2 depthwise
    launches and 1/1/1 of the RMI Gram kernels, the evaluation's fine,
-   coarse and super mIoU, and the checkpoint round trip.
+   coarse and super mIoU, and the checkpoint round trip;
+7. train4  — ``configs/example-train-r101-769-hopper.yaml`` (BASELINE
+   config 4 on one card: ResNet-101, the same hierarchy, 769², batch 2,
+   bf16, ``rmi_precision: fast``): on one batch the parity kernel path
+   against the library path, and the fast kernel path against the parity
+   kernel path; the three paths' device step times; each ``fit`` step with
+   exactly 2/2/2 depthwise launches and 1/1/1 of the bf16-view RMI kernels
+   #6f–#8f (none of #6–#8), eval at three levels, checkpoint round trip.
 
 Then one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` name/power
 line, and as the last line ``{"ok": true, "device": {...}}``.
@@ -64,6 +76,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12  # f32 outside the tensor cores, H100 SXM data sheet
+H100_BF16_FLOPS = 989e12  # bf16 tensor cores, dense, H100 SXM data sheet
 H100_SMS = 132
 # special-function unit (MUFU) results per clock per SM on Hopper: ex2,
 # lg2, rcp; each expf, logf, log1pf and f32 division counted as one
@@ -94,12 +107,14 @@ def time_ms(fn, iters: int = 30, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def bound(nbytes: int, flops: int, mufu: int = 0, sm_mhz: float = 0.0):
-    """(least ms, "bytes" | "operations"): bytes over HBM bandwidth, f32
-    flops over the non-tensor f32 rate, and MUFU operations over
-    132 SMs × 16 per clock at ``sm_mhz``, whichever is longest."""
+def bound(nbytes: int, flops: int, mufu: int = 0, sm_mhz: float = 0.0,
+          flops_per_s: float = H100_F32_FLOPS):
+    """(least ms, "bytes" | "operations"): bytes over HBM bandwidth, flops
+    over ``flops_per_s`` (the non-tensor f32 rate unless the operands are
+    bf16), and MUFU operations over 132 SMs × 16 per clock at ``sm_mhz``,
+    whichever is longest."""
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / H100_F32_FLOPS * 1e3
+    t_ops = flops / flops_per_s * 1e3
     if mufu:
         t_ops = max(t_ops, mufu / (H100_SMS * MUFU_PER_CLOCK_PER_SM * sm_mhz * 1e6) * 1e3)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -153,11 +168,87 @@ def _sum_entries(entries):
     return out
 
 
+# the head's two sep-bottleneck depthwise convolutions (bf16, NHWC): one
+# serving batch or config-2 step, and a config-4 step (193²: odd)
+DW_SHAPES = {"config 2": ((8, 128, 128, 560), (8, 128, 128, 512)),
+             "config 4": ((2, 193, 193, 560), (2, 193, 193, 512))}
+
+
+def depthwise_checks(gen, shapes):
+    """The three depthwise kernels at ``shapes``: the forward (#1) and the
+    input gradient (#1b, the forward kernel with reversed taps) bit-exact
+    against their plain versions (the same f32 order, no FMA); the weight
+    gradient (#2) within 1e-5 · Σ|x·g| per entry (f32 sums in another order
+    than torch.sum's) and the same bits twice. Each is timed beside its
+    plain version and the PyTorch library call computing it; returns each
+    kernel's entry summed over the shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from seghiero_torch.ops.depthwise import (
+        depthwise3x3,
+        depthwise3x3_dgrad,
+        depthwise3x3_plain,
+        depthwise3x3_wgrad,
+        depthwise3x3_wgrad_plain,
+    )
+
+    dev = torch.device("cuda")
+    entries = {"depthwise3x3": [], "depthwise3x3_dgrad": [], "depthwise3x3_wgrad": []}
+    for shape in shapes:
+        C = shape[-1]
+        x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        g = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        k9 = (torch.randn((9, C), generator=gen, device=dev) * 0.3).to(torch.bfloat16)
+        x_cl, g_cl = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)  # channels_last views
+        w = k9.t().reshape(C, 1, 3, 3).contiguous()
+        y, dx, dk = depthwise3x3(x, k9), depthwise3x3_dgrad(g, k9), depthwise3x3_wgrad(x, g)
+        mag = depthwise3x3_wgrad_plain(x.float().abs(), g.float().abs())
+        diff = (dk - depthwise3x3_wgrad_plain(x, g)).abs()
+        torch.cuda.synchronize()
+        for name, got, want in (("depthwise3x3", y, depthwise3x3_plain(x, k9)),
+                                ("depthwise3x3_dgrad", dx, depthwise3x3_plain(g, k9.flip(0)))):
+            if not torch.equal(got, want):
+                raise AssertionError(f"{name} {shape}: max |kernel − plain| = "
+                                     f"{(got.float() - want.float()).abs().max().item()}")
+        if not bool((diff <= 1e-5 * mag).all()):
+            raise AssertionError(f"depthwise3x3_wgrad {shape}: max |Δ|/Σ|x·g| = "
+                                 f"{(diff / mag).max().item()} > 1e-5")
+        if not torch.equal(dk, depthwise3x3_wgrad(x, g)):
+            raise AssertionError("depthwise3x3_wgrad: two runs differ")
+        for name, fn, plain, lib, lib_as_kernel, err, nbytes, extra in (
+            ("depthwise3x3", lambda: depthwise3x3(x, k9), lambda: depthwise3x3_plain(x, k9),
+             lambda: F.conv2d(x_cl, w, padding=1, groups=C),
+             lambda r: (r.permute(0, 2, 3, 1).float() - y.float()), 0.0,
+             x.nbytes + k9.nbytes + y.nbytes, {}),
+            ("depthwise3x3_dgrad", lambda: depthwise3x3_dgrad(g, k9),
+             lambda: depthwise3x3_plain(g, k9.flip(0)),
+             lambda: torch.nn.grad.conv2d_input(x_cl.shape, w, g_cl, padding=1, groups=C),
+             lambda r: (r.permute(0, 2, 3, 1).float() - dx.float()), 0.0,
+             g.nbytes + k9.nbytes + dx.nbytes, {}),
+            ("depthwise3x3_wgrad", lambda: depthwise3x3_wgrad(x, g),
+             lambda: depthwise3x3_wgrad_plain(x, g),
+             lambda: torch.nn.grad.conv2d_weight(x_cl, (C, 1, 3, 3), g_cl, padding=1, groups=C),
+             lambda r: (r.float().reshape(C, 9).t() - dk), diff.max().item(),
+             x.nbytes + g.nbytes + dk.nbytes,
+             {"max_rel_err_of_sum_abs": (diff / mag).max().item()}),
+        ):
+            lib_err = lib_as_kernel(lib()).abs().max().item()
+            t = {"ms": time_ms(fn), "plain_ms": time_ms(plain, iters=5),
+                 "library_ms": time_ms(lib)}
+            b_ms, b_by = bound(nbytes, 18 * x.numel())
+            e = dict(t, shape=list(shape), max_abs_err=err, bound_ms=b_ms, bound_by=b_by)
+            say("kernels", kernel=name, dtype="bfloat16", bytes=nbytes,
+                library_max_abs_diff=lib_err, share_of_bound=b_ms / t["ms"], **extra, **e)
+            entries[name].append(e)
+        del x, g, x_cl, g_cl, y, dx, dk, mag, diff
+    return {name: _sum_entries(e) for name, e in entries.items()}
+
+
 def phase_kernels(seed: int):
     import torch
     import torch.nn.functional as F
 
-    from seghiero_torch.ops.depthwise import depthwise3x3, depthwise3x3_plain
     from seghiero_torch.ops.upsample_argmax import upsample_argmax, upsample_argmax_plain
 
     torch.backends.cudnn.allow_tf32 = False
@@ -166,33 +257,10 @@ def phase_kernels(seed: int):
     gen = torch.Generator(device=dev).manual_seed(seed)
     results = {}
 
-    # depthwise 3×3 at the two sep-bottleneck shapes of one serving batch
-    dw = []
-    for shape in ((8, 128, 128, 560), (8, 128, 128, 512)):
-        C = shape[-1]
-        x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
-        k9 = (torch.randn((9, C), generator=gen, device=dev) * 0.3).to(torch.bfloat16)
-        got, want = depthwise3x3(x, k9), depthwise3x3_plain(x, k9)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        if err != 0.0:  # stated tolerance: bit-exact (same f32 order, no FMA)
-            raise AssertionError(f"depthwise3x3 {shape}: max |kernel − plain| = {err}")
-        x_cl = x.permute(0, 3, 1, 2)  # channels_last NCHW view, no copy
-        w = k9.t().reshape(C, 1, 3, 3).contiguous()
-        lib_err = (F.conv2d(x_cl, w, padding=1, groups=C).permute(0, 2, 3, 1).float()
-                   - got.float()).abs().max().item()
-        t = {
-            "ms": time_ms(lambda: depthwise3x3(x, k9)),
-            "plain_ms": time_ms(lambda: depthwise3x3_plain(x, k9), iters=5),
-            "library_ms": time_ms(lambda: F.conv2d(x_cl, w, padding=1, groups=C)),
-        }
-        nbytes = x.nbytes + k9.nbytes + got.nbytes
-        b_ms, b_by = bound(nbytes, 2 * 9 * x.numel())
-        e = dict(t, shape=list(shape), max_abs_err=err, bound_ms=b_ms, bound_by=b_by)
-        say("kernels", kernel="depthwise3x3", dtype="bfloat16", library_max_abs_diff=lib_err,
-            bytes=nbytes, share_of_bound=b_ms / t["ms"], **e)
-        dw.append(e)
-    results["depthwise3x3"] = _sum_entries(dw)
+    # the depthwise kernels at config 2's (and serving's) shapes, and at
+    # config 4's, which the kernels line carries beside them
+    results.update(depthwise_checks(gen, DW_SHAPES["config 2"]))
+    results["config4"] = depthwise_checks(gen, DW_SHAPES["config 4"])
 
     # fused 4× upsample + per-level argmax at the serving decode shape
     B, C, h, w = 8, 13, 128, 128
@@ -228,93 +296,25 @@ def phase_kernels(seed: int):
 
 
 def phase_train_kernels(seed: int, sm_mhz: float):
-    """The training path's kernels at the shapes config 2 gives them: the
-    depthwise input and weight gradients at the two sep-bottleneck shapes
-    (bf16), and the fused upsample + hierarchy-BCE + CE forward and
-    backward on ``[8, 13, 128, 128]`` logits with the synthetic dataset's
-    512² label maps."""
+    """The training path's loss kernels: the fused upsample + hierarchy-BCE
+    + CE forward and backward at config 2's shapes (``[8, 13, 128, 128]``
+    logits with the synthetic dataset's 512² label maps), then the RMI
+    Gram kernels (``rmi_kernel_checks``, ``rmi_fast_checks``). The
+    depthwise gradients are checked with the forward (``depthwise_checks``)."""
     import torch
-    import torch.nn.functional as F
 
     from seghiero_torch.config import load_config
     from seghiero_torch.data.dataset import build_dataset
     from seghiero_torch.losses.fast import _ce_cmajor, hiera_bce_two_level_cmajor
     from seghiero_torch.losses.hiera import prepare_targets_two_level
     from seghiero_torch.ops import hiera2_fused as fused
-    from seghiero_torch.ops.depthwise import (
-        depthwise3x3_dgrad,
-        depthwise3x3_plain,
-        depthwise3x3_wgrad,
-        depthwise3x3_wgrad_plain,
-    )
     from seghiero_torch.ops.resize import resize_bilinear
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
-    dgrad, wgrad = [], []
-    for shape in ((8, 128, 128, 560), (8, 128, 128, 512)):
-        C = shape[-1]
-        x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
-        g = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
-        k9 = (torch.randn((9, C), generator=gen, device=dev) * 0.3).to(torch.bfloat16)
-        x_cl, g_cl = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)  # channels_last views
-        w = k9.t().reshape(C, 1, 3, 3).contiguous()
-
-        # #1b: the forward kernel with reversed taps; stated tolerance:
-        # bit-exact (the same kernel and f32 order as the plain version)
-        dx = depthwise3x3_dgrad(g, k9)
-        err = (dx.float() - depthwise3x3_plain(g, k9.flip(0)).float()).abs().max().item()
-        torch.cuda.synchronize()
-        if err != 0.0:
-            raise AssertionError(f"depthwise3x3_dgrad {shape}: max |kernel − plain| = {err}")
-
-        def lib_dgrad():
-            return torch.nn.grad.conv2d_input(x_cl.shape, w, g_cl, padding=1, groups=C)
-
-        lib_err = (lib_dgrad().permute(0, 2, 3, 1).float() - dx.float()).abs().max().item()
-        t = {"ms": time_ms(lambda: depthwise3x3_dgrad(g, k9)),
-             "plain_ms": time_ms(lambda: depthwise3x3_plain(g, k9.flip(0)), iters=5),
-             "library_ms": time_ms(lib_dgrad)}
-        nbytes = g.nbytes + k9.nbytes + dx.nbytes
-        b_ms, b_by = bound(nbytes, 18 * g.numel())
-        e = dict(t, shape=list(shape), max_abs_err=err, bound_ms=b_ms, bound_by=b_by)
-        say("kernels", kernel="depthwise3x3_dgrad", dtype="bfloat16", bytes=nbytes,
-            library_max_abs_diff=lib_err, share_of_bound=b_ms / t["ms"], **e)
-        dgrad.append(e)
-
-        # #2: stated tolerance |Δ| ≤ 1e-5 · Σ|x·g| per entry (f32 sums of
-        # 131,072 products in another order than torch.sum's)
-        dk = depthwise3x3_wgrad(x, g)
-        want = depthwise3x3_wgrad_plain(x, g)
-        mag = depthwise3x3_wgrad_plain(x.float().abs(), g.float().abs())
-        diff = (dk - want).abs()
-        torch.cuda.synchronize()
-        if not bool((diff <= 1e-5 * mag).all()):
-            raise AssertionError(f"depthwise3x3_wgrad {shape}: max |Δ|/Σ|x·g| = "
-                                 f"{(diff / mag).max().item()} > 1e-5")
-        if not torch.equal(dk, depthwise3x3_wgrad(x, g)):
-            raise AssertionError("depthwise3x3_wgrad: two runs differ")
-
-        def lib_wgrad():
-            return torch.nn.grad.conv2d_weight(x_cl, (C, 1, 3, 3), g_cl, padding=1, groups=C)
-
-        lib_err = (lib_wgrad().float().reshape(C, 9).t() - dk).abs().max().item()
-        t = {"ms": time_ms(lambda: depthwise3x3_wgrad(x, g)),
-             "plain_ms": time_ms(lambda: depthwise3x3_wgrad_plain(x, g), iters=5),
-             "library_ms": time_ms(lib_wgrad)}
-        nbytes = x.nbytes + g.nbytes + dk.nbytes
-        b_ms, b_by = bound(nbytes, 18 * x.numel())
-        e = dict(t, shape=list(shape), max_abs_err=diff.max().item(), bound_ms=b_ms,
-                 bound_by=b_by)
-        say("kernels", kernel="depthwise3x3_wgrad", dtype="bfloat16", bytes=nbytes,
-            max_rel_err_of_sum_abs=(diff / mag).max().item(), library_max_abs_diff=lib_err,
-            share_of_bound=b_ms / t["ms"], **e)
-        wgrad.append(e)
-        del x, g, x_cl, g_cl, dx, dk, want, mag, diff
-    results = {"depthwise3x3_dgrad": _sum_entries(dgrad),
-               "depthwise3x3_wgrad": _sum_entries(wgrad)}
+    results = {}
 
     # fused loss at config 2: low-res logits [8, 13, 128, 128] f32 and the
     # training split's first 8 label maps (512², ~2 % ignore)
@@ -410,6 +410,7 @@ def phase_train_kernels(seed: int, sm_mhz: float):
     del lo, dlo, dwant, lo_req
     torch.cuda.empty_cache()
     results.update(rmi_kernel_checks(seed))
+    results.update(rmi_fast_checks(seed))
     return results
 
 
@@ -424,13 +425,43 @@ RMI_GRAD_COS_MIN = 0.999
 RMI_GRAD_REL_NORM = 5e-3
 
 
+def _check_gram(name, got, plain, plain64, mag, again, rtol: float = 1e-5):
+    """An RMI kernel against its plain version in f64 (a sum of 260,100 f32
+    products in cuBLAS's order carries ~1e-4 relative error of its own; the
+    kernel's order, ≤ 32 terms per thread, a shuffle tree and the block
+    partials, ~1e-5 at worst): |Δ| ≤ ``rtol`` · mag per entry; the f32 plain
+    version's own deviation is reported; two runs give the same bits."""
+    import torch
+
+    diff = (got.double() - plain64).abs()
+    torch.cuda.synchronize()
+    if not bool((diff <= rtol * mag).all()):
+        raise AssertionError(f"{name}: max |Δ|/mag = {(diff / mag).max().item()} > {rtol}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"{name}: two runs differ")
+    plain_dev = ((plain.double() - plain64).abs() / mag.clamp_min(1e-300)).max().item()
+    return (diff.max().item(), (diff / mag.clamp_min(1e-300)).max().item(), plain_dev,
+            (got - plain).abs().max().item())
+
+
+def _rmi_maps(gen, B, C, H, W):
+    """A one-hot of random labels and sigmoids of random logits + 1e-6,
+    both ``[B, C, H, W]`` f32 on the card."""
+    import torch
+    import torch.nn.functional as F
+
+    labels = torch.randint(0, C, (B, H, W), generator=gen, device="cuda")
+    oh_map = F.one_hot(labels, C).permute(0, 3, 1, 2).to(torch.float32).contiguous()
+    pr_map = torch.sigmoid(2 * torch.randn((B, C, H, W), generator=gen, device="cuda")) + 1e-6
+    return oh_map, pr_map
+
+
 def rmi_kernel_checks(seed: int):
     """Kernels #6–#8 at config 3's shapes: 60 maps (batch 4 × 15 classes)
     of 512², a one-hot of random labels and sigmoids of random logits
     + 1e-6; W is the regression solved from the kernel's G18 and P the
     backward's, for the RMI term's cotangent 1/(4·9) per half-logdet."""
     import torch
-    import torch.nn.functional as F
 
     from seghiero_torch.losses.rmi import rmi_lower_bound_cmajor
     from seghiero_torch.ops import rmi_gram as rg
@@ -439,30 +470,11 @@ def rmi_kernel_checks(seed: int):
     gen = torch.Generator(device=dev).manual_seed(seed + 2)
     B, C, H, W = 4, 15, 512, 512
     BC, n = B * C, (H - 2) * (W - 2)
-    labels = torch.randint(0, C, (B, H, W), generator=gen, device=dev)
-    oh_map = F.one_hot(labels, C).permute(0, 3, 1, 2).to(torch.float32).contiguous()
-    pr_map = torch.sigmoid(2 * torch.randn((B, C, H, W), generator=gen, device=dev)) + 1e-6
+    oh_map, pr_map = _rmi_maps(gen, B, C, H, W)
     la, pr = oh_map.reshape(BC, H, W), pr_map.reshape(BC, H, W)
 
     la64, pr64 = la.double(), pr.double()
-
-    def check(name, got, plain, plain64, mag, again):
-        """The kernel against its plain version in f64 (a sum of 260,100 f32
-        products in cuBLAS's order carries ~1e-4 relative error of its own;
-        the kernel's order, ≤ 32 terms per thread, a shuffle tree and 64
-        block partials, ~1e-5 at worst): stated tolerance |Δ| ≤ 1e-5 · mag
-        per entry; the f32 plain version's own deviation is reported; two
-        runs give the same bits."""
-        diff = (got.double() - plain64).abs()
-        torch.cuda.synchronize()
-        if not bool((diff <= 1e-5 * mag).all()):
-            raise AssertionError(f"{name}: max |Δ|/mag = {(diff / mag).max().item()} > 1e-5")
-        if not torch.equal(got, again):
-            raise AssertionError(f"{name}: two runs differ")
-        plain_dev = ((plain.double() - plain64).abs() / mag.clamp_min(1e-300)).max().item()
-        return (diff.max().item(), (diff / mag.clamp_min(1e-300)).max().item(), plain_dev,
-                (got - plain).abs().max().item())
-
+    check = _check_gram
     # #6: la, pr ≥ 0, so Σ|z_i·z_j| is the Gram itself
     g18 = rg.gram18(la, pr)
     want = rg.gram18_plain(la64, pr64)
@@ -547,6 +559,169 @@ def rmi_kernel_checks(seed: int):
             max_rel_err_of_mag=err[1], plain_f32_max_rel_err_of_mag=err[2],
             max_abs_diff_vs_plain_f32=err[3], share_of_bound=b_ms / t["ms"], **out[name])
     del pr_req, oh_map, pr_map, la, pr, g18, a, dpr
+    torch.cuda.empty_cache()
+    return out
+
+
+# kernels #6f–#8f (``rmi_precision: fast``) against their plain versions in
+# f64 after the same bf16 roundings. #6f and #8f round only their inputs,
+# identically on both sides, so they differ from the f64 sums by f32 order
+# alone, as #6 and #8 do: 1e-5 of the magnitude. #7f also rounds the
+# residual y from its own f32 sum of 9 products, which lands on the other
+# side of a bf16 rounding boundary than the f64 sum for about 1 in 10^4
+# values (9·2^-24 of a 2^-8 spacing); each such flip moves one pixel's
+# products by 2^-8 of themselves, about 1e-6 of the magnitude in all:
+# 2e-5 leaves room for both.
+RMI_FAST_RTOL = {"rmi_gram18_fast": 1e-5, "rmi_residual_gram_fast": 2e-5,
+                 "rmi_grad_maps_fast": 1e-5}
+# the RMI term through the fast kernels against the parity kernels: the
+# value within the JAX package's fast-vs-parity tolerance
+# (tests/test_rmi_gram_pallas.py:75, rtol 2e-2); the gradient, P·z with P
+# and z rounded to bf16 (at most 2^-9 relative each, P's rounding the same
+# for every pixel of a map), within 2e-2 of the parity gradient's norm
+# (five bf16 half-ulps) and at a cosine of 0.999
+RMI_FAST_VALUE_RTOL = 2e-2
+RMI_FAST_GRAD_COS_MIN = 0.999
+RMI_FAST_GRAD_REL_NORM = 2e-2
+
+
+def _rmi_term_routes(oh_map, pr_map, routes):
+    """The RMI term (``rmi_lower_bound_cmajor``) on each route, forward and
+    backward: value, gradient, device ms and the peak memory above the
+    inputs it allocated."""
+    import torch
+
+    from seghiero_torch.losses.rmi import rmi_lower_bound_cmajor
+
+    pr_req = pr_map.clone().requires_grad_()
+    out = {}
+    for route, kw in routes.items():
+        def term():  # forward + backward, no host sync
+            pr_req.grad = None
+            v = rmi_lower_bound_cmajor(oh_map, pr_req, **kw)
+            v.backward()
+            return v
+
+        pr_req.grad = None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        value = term().item()
+        peak_mb = (torch.cuda.max_memory_allocated() - base) / 2**20
+        grad = pr_req.grad.flatten().double()
+        out[route] = {"value": value, "grad": grad, "peak_mb_above_inputs": peak_mb,
+                      "fwd_bwd_ms": time_ms(term, iters=5, warmup=1)}
+    return out
+
+
+def _agree(a, b):
+    """(value rel diff, gradient cosine, ‖g_a − g_b‖/‖g_b‖) of two routes."""
+    import torch
+
+    cos = torch.nn.functional.cosine_similarity(a["grad"], b["grad"], dim=0).item()
+    rel = ((a["grad"] - b["grad"]).norm() / b["grad"].norm()).item()
+    return abs(a["value"] - b["value"]) / abs(b["value"]), cos, rel
+
+
+def rmi_fast_checks(seed: int):
+    """Kernels #6f–#8f at config 4's shapes: 30 maps (batch 2 × 15 classes)
+    of 769² (767 output rows and columns: ragged against the 32-row,
+    128-column blocks), made as ``rmi_kernel_checks`` makes them; each
+    timed beside its f32 twin at the same shapes. Then the RMI term at
+    those shapes on four routes: the fast kernels, the parity kernels, the
+    materialized op and the streaming path."""
+    import torch
+
+    from seghiero_torch.ops import rmi_gram as rg
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    B, C, H, W = 2, 15, 769, 769
+    BC, n = B * C, (H - 2) * (W - 2)
+    oh_map, pr_map = _rmi_maps(gen, B, C, H, W)
+    la, pr = oh_map.reshape(BC, H, W), pr_map.reshape(BC, H, W)
+    la64, pr64 = la.double(), pr.double()
+    F_ = "fast"
+    tol = RMI_FAST_RTOL
+
+    g18 = rg.gram18(la, pr, F_)
+    want = rg.gram18_plain(la64, pr64, F_)  # la, pr ≥ 0: its own magnitude
+    err6 = _check_gram("rmi_gram18_fast", g18, rg.gram18_plain(la, pr, F_), want, want,
+                       rg.gram18(la, pr, F_), tol["rmi_gram18_fast"])
+    w = rg._solve_w(g18, n)
+    a = rg.residual_gram(la, pr, w, F_)
+    yb = (rg._views(rg.bf16_round(la64))
+          + rg.bf16_round(w.double()).abs().mT @ rg._views(rg.bf16_round(pr64)))
+    err7 = _check_gram("rmi_residual_gram_fast", a, rg.residual_gram_plain(la, pr, w, F_),
+                       rg.residual_gram_plain(la64, pr64, w.double(), F_), yb @ yb.mT,
+                       rg.residual_gram(la, pr, w, F_), tol["rmi_residual_gram_fast"])
+    del yb, want
+    p = rg.backward_p(g18, w, a, torch.full((BC,), 1.0 / (B * 9), device="cuda"), n)
+    dpr = rg.grad_maps(la, pr, p, F_)
+    err8 = _check_gram("rmi_grad_maps_fast", dpr, rg.grad_maps_plain(la, pr, p, F_),
+                       rg.grad_maps_plain(la64, pr64, p.double(), F_),
+                       rg.grad_maps_plain(la64, pr64, p.double().abs(), F_),
+                       rg.grad_maps(la, pr, p, F_), tol["rmi_grad_maps_fast"])
+    del la64, pr64
+    torch.cuda.empty_cache()
+
+    # least work as for #6–#8 (rmi_kernel_checks), the products on bf16
+    # operands at the tensor cores' bf16 rate: all three bound by bytes
+    pixels = BC * n
+    out = {}
+    for name, args, fn, nbytes, flops, err in (
+        ("rmi_gram18_fast", (la, pr), rg.gram18, la.nbytes + pr.nbytes + g18.nbytes,
+         2 * 51 * pixels, err6),
+        ("rmi_residual_gram_fast", (la, pr, w), rg.residual_gram,
+         la.nbytes + pr.nbytes + w.nbytes + a.nbytes, (2 * 81 + 9 + 2 * 45) * pixels, err7),
+        ("rmi_grad_maps_fast", (la, pr, p), rg.grad_maps,
+         la.nbytes + pr.nbytes + p.nbytes + dpr.nbytes, 2 * 50 * BC * H * W, err8),
+    ):
+        plain = getattr(rg, fn.__name__ + "_plain")
+        t = {"ms": time_ms(lambda: fn(*args, F_)),
+             "plain_ms": time_ms(lambda: plain(*args, F_), iters=3),
+             "f32_twin_ms": time_ms(lambda: fn(*args))}
+        b_ms, b_by = bound(nbytes, flops, flops_per_s=H100_BF16_FLOPS)
+        out[name] = dict(t, library_ms=None, bound_ms=b_ms, bound_by=b_by, max_abs_err=err[0],
+                         shapes=[[BC, H, W]])
+        say("kernels", kernel=name, shape=[BC, H, W], views="bfloat16", bytes=nbytes,
+            flops=flops, tolerance_of_mag=tol[name], max_rel_err_of_mag=err[1],
+            plain_f32_max_rel_err_of_mag=err[2], max_abs_diff_vs_plain_f32=err[3],
+            share_of_bound=b_ms / t["ms"], **out[name])
+    del la, pr, g18, a, dpr
+    torch.cuda.empty_cache()
+
+    # the RMI term at config 4's shapes on four routes
+    routes = _rmi_term_routes(oh_map, pr_map, {
+        "fast kernels": {"backend": "pallas", "precision": "fast"},
+        "parity kernels": {"backend": "pallas"},
+        "materialized op": {"backend": "xla", "streaming": "off"},
+        "streaming": {"backend": "xla", "streaming": "on"},
+    })
+    checks = (("parity kernels", "materialized op", RMI_VALUE_RTOL, RMI_GRAD_COS_MIN,
+               RMI_GRAD_REL_NORM),
+              ("streaming", "materialized op", RMI_VALUE_RTOL, RMI_GRAD_COS_MIN,
+               RMI_GRAD_REL_NORM),
+              ("fast kernels", "parity kernels", RMI_FAST_VALUE_RTOL, RMI_FAST_GRAD_COS_MIN,
+               RMI_FAST_GRAD_REL_NORM))
+    failed = []
+    for a_, b_, v_tol, cos_min, rel_max in checks:
+        v_rel, cos, rel = _agree(routes[a_], routes[b_])
+        say("kernels", check=f"RMI term at config 4's shapes, {a_} vs {b_}",
+            shape=[B, C, H, W], value=routes[a_]["value"], value_ref=routes[b_]["value"],
+            value_rel_diff=v_rel, value_rtol=v_tol, grad_cos=cos, grad_cos_floor=cos_min,
+            grad_rel_norm_diff=rel, grad_rel_norm_limit=rel_max)
+        if v_rel > v_tol or cos < cos_min or not rel <= rel_max:
+            failed.append(f"{a_} vs {b_}")
+    say("kernels", check="RMI term at config 4's shapes, forward + backward per route",
+        **{r: {k: v for k, v in d.items() if k != "grad"} for r, d in routes.items()})
+    if routes["streaming"]["peak_mb_above_inputs"] >= \
+            routes["materialized op"]["peak_mb_above_inputs"]:
+        failed.append("streaming route uses no less memory than the materialized op")
+    if failed:
+        raise AssertionError(f"RMI term routes disagree: {failed}")
+    for name in out:
+        out[name]["rmi_term_fwd_bwd_ms"] = {r: d["fwd_bwd_ms"] for r, d in routes.items()}
+    del routes, oh_map, pr_map
     torch.cuda.empty_cache()
     return out
 
@@ -866,30 +1041,60 @@ GRAD_NORM_RTOL = 0.02
 # comparison pass evaluates the loss mid-schedule so that the projection
 # head's gradient is live on both paths
 TRIPLET_LIVE_STEP = 40_000
-# The two train phases. Per phase: its config, what the config must select,
-# the library path's knobs, and the kernel launches of one train step —
-# depthwise forward, input gradient and weight gradient (the head's two
-# sep-bottleneck convolutions) and the loss kernels (config 2: the fused
-# loss forward and backward; config 3: the RMI Gram kernels #6, #7 forward
-# and #8 backward).
+# train4's comparison (b), the fast kernel path (rmi_precision: fast)
+# against the parity kernel path on one batch: only the RMI term's Grams
+# differ (bf16 views), so the loss moves by at most that term's
+# fast-vs-parity tolerance times its share of the loss (λ·RMI / loss,
+# measured on the batch on the parity path). The RMI term's gradient moves
+# by a few 1e-3 of itself (one bf16 rounding of P and of z), which reaches
+# the parameters through the same bf16 layers as the kernel-vs-library
+# differences: GRAD_COS_MIN and GRAD_NORM_RTOL hold for it too.
+# The train phases. Per phase: its config, the depth and image size it
+# must have and what else it must select, the library path's knobs, other
+# paths compared on the one batch (their knobs and launches), the pairs
+# compared, and the kernel launches of one train step of the config's own
+# path — depthwise forward, input gradient and weight gradient (the head's
+# two sep-bottleneck convolutions) and the loss kernels (config 2: the
+# fused loss forward and backward; config 3: the RMI Gram kernels #6, #7
+# forward and #8 backward; config 4: their bf16-view variants #6f–#8f).
 _DW = {"depthwise3x3": 2, "depthwise3x3_dgrad": 2, "depthwise3x3_wgrad": 2}
+_NO_FUSED = {"hiera2_fused_fwd": 0, "hiera2_fused_bwd": 0}
+_NO_RMI = {"rmi_gram18": 0, "rmi_residual_gram": 0, "rmi_grad_maps": 0,
+           "rmi_gram18_fast": 0, "rmi_residual_gram_fast": 0, "rmi_grad_maps_fast": 0}
+_RMI_PARITY = dict(_NO_RMI, rmi_gram18=1, rmi_residual_gram=1, rmi_grad_maps=1)
+_RMI_FAST = dict(_NO_RMI, rmi_gram18_fast=1, rmi_residual_gram_fast=1, rmi_grad_maps_fast=1)
 TRAIN_PHASES = {
     "train": {
-        "config": "example-train-hopper.yaml", "what": "config 2",
+        "config": "example-train-hopper.yaml", "what": "config 2", "model": (50, (512, 512)),
         "selects": lambda m, t, h: (t.pallas_fused_loss, t.batch_size, h.has_super)
         == (True, 8, False),
         "library": {"pallas_fused_loss": False},
-        "launches": dict(_DW, hiera2_fused_fwd=1, hiera2_fused_bwd=1, rmi_gram18=0,
-                         rmi_residual_gram=0, rmi_grad_maps=0),
+        "paths": {},
+        "compare": (("kernel", "library"),),
+        "launches": dict(_DW, hiera2_fused_fwd=1, hiera2_fused_bwd=1, **_NO_RMI),
     },
     "train3": {
         "config": "example-train-3level-hopper.yaml", "what": "config 3",
-        "selects": lambda m, t, h: (t.rmi_backend, t.pallas_fused_loss, t.batch_size,
-                                    h.has_super, h.total_classes)
-        == ("pallas", False, 4, True, 15),
+        "model": (50, (512, 512)),
+        "selects": lambda m, t, h: (t.rmi_backend, t.rmi_precision, t.pallas_fused_loss,
+                                    t.batch_size, h.has_super, h.total_classes)
+        == ("pallas", "parity", False, 4, True, 15),
         "library": {"rmi_backend": "xla"},
-        "launches": dict(_DW, hiera2_fused_fwd=0, hiera2_fused_bwd=0, rmi_gram18=1,
-                         rmi_residual_gram=1, rmi_grad_maps=1),
+        "paths": {},
+        "compare": (("kernel", "library"),),
+        "launches": dict(_DW, **_NO_FUSED, **_RMI_PARITY),
+    },
+    "train4": {
+        "config": "example-train-r101-769-hopper.yaml", "what": "config 4",
+        "model": (101, (769, 769)),
+        "selects": lambda m, t, h: (t.rmi_backend, t.rmi_precision, t.pallas_fused_loss,
+                                    t.batch_size, h.has_super, h.total_classes)
+        == ("pallas", "fast", False, 2, True, 15),
+        "library": {"rmi_backend": "xla"},
+        "paths": {"parity": ({"rmi_precision": "parity"}, dict(_DW, **_NO_FUSED, **_RMI_PARITY))},
+        # (a) parity kernels vs library ops, (b) fast kernels vs parity kernels
+        "compare": (("parity", "library"), ("kernel", "parity")),
+        "launches": dict(_DW, **_NO_FUSED, **_RMI_FAST),
     },
 }
 
@@ -905,6 +1110,9 @@ def _counters():
             "rmi_gram18": (rmi_gram, "gram18_launches"),
             "rmi_residual_gram": (rmi_gram, "residual_launches"),
             "rmi_grad_maps": (rmi_gram, "grad_launches"),
+            "rmi_gram18_fast": (rmi_gram, "gram18_fast_launches"),
+            "rmi_residual_gram_fast": (rmi_gram, "residual_fast_launches"),
+            "rmi_grad_maps_fast": (rmi_gram, "grad_fast_launches"),
             "backward_copies": (depthwise, "backward_copies")}
 
 
@@ -959,6 +1167,7 @@ def phase_train(name: str, seed: int, device_line: str, profile_dir):
     import torch
 
     from seghiero_torch.config import load_config
+    from seghiero_torch.losses import fast as loss_fast
     from seghiero_torch.models.convert import load_reference_checkpoint
     from seghiero_torch.models.segmenter import build_model
     from seghiero_torch.train import loop
@@ -971,8 +1180,9 @@ def phase_train(name: str, seed: int, device_line: str, profile_dir):
     step_launches = spec["launches"]
     cfg = load_config(str(ROOT / "configs" / spec["config"]))
     m, t = cfg.model, cfg.training
+    depth, hw = spec["model"]
     if ((m.depth, m.dtype, m.depthwise_backend, tuple(cfg.transform.resize))
-            != (50, "bfloat16", "pallas", (512, 512)) or not spec["selects"](m, t, cfg.hierarchy)):
+            != (depth, "bfloat16", "pallas", hw) or not spec["selects"](m, t, cfg.hierarchy)):
         raise AssertionError(f"the {name} config must be {spec['what']} with its kernels on")
     ckpt_dir = ROOT / "checkpoints" / f"chip-smoke-{name}"
     shutil.rmtree(ckpt_dir, ignore_errors=True)
@@ -984,52 +1194,83 @@ def phase_train(name: str, seed: int, device_line: str, profile_dir):
     load_reference_checkpoint(trainer.model, weights)
     setup_s = time.perf_counter() - t0
 
-    # -- kernel path against library path: same weights, same batch
+    # -- the paths compared on one batch with the same weights: the
+    # config's own ("kernel"), the library ops ("library") and the
+    # phase's other kernel paths (a copy of the model, another loss)
     cfg_lib = dataclasses.replace(
         cfg, model=dataclasses.replace(m, depthwise_backend="xla"),
         training=dataclasses.replace(t, **spec["library"]))
     lib_model = load_reference_checkpoint(build_model(cfg_lib), weights).to(
         "cuda", memory_format=torch.channels_last)
-    lib_composite = make_composite_loss(cfg_lib)
     ker_model = copy.deepcopy(trainer.model)
+    paths = {"kernel": (ker_model, trainer.composite, cfg, step_launches),
+             "library": (lib_model, make_composite_loss(cfg_lib), cfg_lib, None)}
+    for path, (knobs, launches) in spec["paths"].items():
+        c = dataclasses.replace(cfg, training=dataclasses.replace(t, **knobs))
+        paths[path] = (ker_model, make_composite_loss(c), c, launches)
     batch = {k: torch.from_numpy(v).cuda() for k, v in
              trainer.train_loader.make_batch(np.arange(t.batch_size)).items()}
-    zero_counts()
-    loss_k, grads_k = _grads(ker_model, trainer.composite, cfg, batch)
-    counts = read_counts()
-    if any(counts[k] != n for k, n in step_launches.items()):
-        raise AssertionError(f"comparison pass launches {counts}, want {step_launches}")
-    loss_l, grads_l = _grads(lib_model, lib_composite, cfg_lib, batch)
-    bad = [n for n, g in grads_k.items()
-           if g is None or not bool(torch.isfinite(g).all()) or not bool(g.abs().max() > 0)]
+    losses_1, grads_1, rmi_share = {}, {}, {}
+    real_rmi = loss_fast.rmi_lower_bound_cmajor
+    for path, (model, composite, c, launches) in paths.items():
+        rmi_seen = []
+
+        def recording_rmi(*a, **kw):  # the RMI term's value, for its share
+            v = real_rmi(*a, **kw)
+            rmi_seen.append(float(v.detach()))
+            return v
+
+        zero_counts()
+        loss_fast.rmi_lower_bound_cmajor = recording_rmi
+        try:
+            losses_1[path], grads_1[path] = _grads(model, composite, c, batch)
+        finally:
+            loss_fast.rmi_lower_bound_cmajor = real_rmi
+        counts = read_counts()
+        if launches is not None and any(counts[k] != n for k, n in launches.items()):
+            raise AssertionError(f"{path} comparison pass launches {counts}, want {launches}")
+        if rmi_seen:
+            rmi_share[path] = abs(c.training.fine_weight * rmi_seen[0] / losses_1[path])
+        # the copy of the model is shared: keep this path's gradients
+        grads_1[path] = {n: g.clone() for n, g in grads_1[path].items() if g is not None}
+    bad = [n for n, p in ker_model.named_parameters()
+           if n not in grads_1["kernel"] or not bool(torch.isfinite(grads_1["kernel"][n]).all())
+           or not bool(grads_1["kernel"][n].abs().max() > 0)]
     if bad:
         raise AssertionError(f"kernel path: no finite non-zero gradient for {bad}")
-    cos = {n: float(torch.nn.functional.cosine_similarity(
-        grads_k[n].flatten().double(), grads_l[n].flatten().double(), dim=0))
-        for n in grads_k}
-    norm_dev = {n: abs(float(grads_k[n].double().norm() / grads_l[n].double().norm()) - 1.0)
-                for n in grads_k}
-    worst = sorted(cos.items(), key=lambda kv: kv[1])[:5]
-    worst_norm = sorted(norm_dev.items(), key=lambda kv: -kv[1])[:5]
-    loss_rel = abs(loss_k - loss_l) / abs(loss_l)
-    say(name, check="kernel path vs library path, one batch, same weights",
-        loss_kernel=loss_k, loss_library=loss_l, loss_rel_diff=loss_rel, loss_rtol=LOSS_RTOL,
-        grad_cos_min=worst[0][1], grad_cos_floor=GRAD_COS_MIN, worst_params=worst,
-        grad_norm_ratio_max_dev=worst_norm[0][1], grad_norm_rtol=GRAD_NORM_RTOL,
-        worst_norm_params=worst_norm, params=len(cos), setup_s=round(setup_s, 2))
-    if (loss_rel > LOSS_RTOL or worst[0][1] < GRAD_COS_MIN
-            or not worst_norm[0][1] <= GRAD_NORM_RTOL):
-        raise AssertionError("kernel path and library path disagree beyond the tolerances")
-    del grads_k, grads_l
+    failed = []
+    for a, b in spec["compare"]:
+        ga, gb = grads_1[a], grads_1[b]
+        cos = {n: float(torch.nn.functional.cosine_similarity(
+            ga[n].flatten().double(), gb[n].flatten().double(), dim=0)) for n in ga}
+        norm_dev = {n: abs(float(ga[n].double().norm() / gb[n].double().norm()) - 1.0)
+                    for n in ga}
+        worst = sorted(cos.items(), key=lambda kv: kv[1])[:5]
+        worst_norm = sorted(norm_dev.items(), key=lambda kv: -kv[1])[:5]
+        loss_rel = abs(losses_1[a] - losses_1[b]) / abs(losses_1[b])
+        # kernel paths against each other differ in the RMI term's precision only
+        loss_rtol = (RMI_FAST_VALUE_RTOL * rmi_share[b] if b != "library" else LOSS_RTOL)
+        say(name, check=f"{a} path vs {b} path, one batch, same weights",
+            loss=losses_1[a], loss_ref=losses_1[b], loss_rel_diff=loss_rel, loss_rtol=loss_rtol,
+            rmi_share_of_loss=rmi_share.get(b), grad_cos_min=worst[0][1],
+            grad_cos_floor=GRAD_COS_MIN, worst_params=worst,
+            grad_norm_ratio_max_dev=worst_norm[0][1], grad_norm_rtol=GRAD_NORM_RTOL,
+            worst_norm_params=worst_norm, params=len(cos), setup_s=round(setup_s, 2))
+        if (loss_rel > loss_rtol or worst[0][1] < GRAD_COS_MIN
+                or not worst_norm[0][1] <= GRAD_NORM_RTOL):
+            failed.append(f"{a} vs {b}")
+    if failed:
+        raise AssertionError(f"paths disagree beyond the tolerances: {failed}")
+    del grads_1
 
-    # -- device step time of both paths on the batch already on the card,
-    # in the order kernel, library, library, kernel
-    paths = {"kernel": (ker_model, trainer.composite, cfg),
-             "library": (lib_model, lib_composite, cfg_lib)}
-    opts = {p: make_optimizer(c.training, mdl.parameters()) for p, (mdl, _, c) in paths.items()}
+    # -- device step time of every path on the batch already on the card,
+    # in the order kernel, others, library, library, others, kernel
+    opts = {p: make_optimizer(c.training, mdl.parameters())
+            for p, (mdl, _, c, _) in paths.items()}
     times = {p: {"step_ms_median_3_8": [], "peak_mb_above_resident": 0.0} for p in paths}
-    for path in ("kernel", "library", "library", "kernel"):
-        model, composite, c = paths[path]
+    order = ["kernel", *spec["paths"], "library"]
+    for path in order + order[::-1]:
+        model, composite, c, _ = paths[path]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
@@ -1038,7 +1279,7 @@ def phase_train(name: str, seed: int, device_line: str, profile_dir):
         times[path]["peak_mb_above_resident"] = max(
             times[path]["peak_mb_above_resident"],
             (torch.cuda.max_memory_allocated() - base) / 2**20)
-    model, composite, c = paths["kernel"]
+    model, composite, c, _ = paths["kernel"]
     syncs = sync_audit(lambda: train_step(model, composite, opts["kernel"], c, batch, 0),
                        f"{name} train_step, kernel path")
     if profile_dir:
@@ -1116,8 +1357,7 @@ def phase_train(name: str, seed: int, device_line: str, profile_dir):
         backward_copies_per_step=per_step[0]["backward_copies"],
         step_losses=step_losses, zero_grad_params_step1=grad_report["zero"],
         val=rec, eval_loss_after_restore=val_again,
-        device_step_ms_kernel=times["kernel"]["step_ms_median_3_8"],
-        device_step_ms_library=times["library"]["step_ms_median_3_8"],
+        device_step_ms_median_3_8={p: v["step_ms_median_3_8"] for p, v in times.items()},
         peak_mb_above_resident={k: v["peak_mb_above_resident"] for k, v in times.items()},
         fit_step_ms=fit_ms, fit_step_ms_median_3_8=_median_3_to_8(fit_ms),
         fit_images_per_s=rec["train_images_per_sec"], fit_train_seconds=rec["train_seconds"],
@@ -1152,10 +1392,14 @@ def main(argv=None) -> int:
     t_kernels = time.perf_counter()
     paths = {"serve": phase_serve(SEED, N_REQUESTS, smi, args.profile)}
     t_serve = time.perf_counter()
+    train_s = {}
     for phase in TRAIN_PHASES:
+        t_phase = time.perf_counter()
         paths[phase] = phase_train(phase, SEED, smi, args.profile)
+        train_s[phase] = round(time.perf_counter() - t_phase, 1)
     say("elapsed", seconds_to_kernels_end=round(t_kernels - t_start, 1),
-        serve_s=round(t_serve - t_kernels, 1), train_s=round(time.perf_counter() - t_serve, 1))
+        serve_s=round(t_serve - t_kernels, 1), train_s=train_s,
+        total_s=round(time.perf_counter() - t_start, 1))
     sources = {
         "depthwise3x3": ("seghiero_torch/csrc/depthwise3x3.cu",
                          "seghiero_tpu/ops/pallas/depthwise.py:221"),
@@ -1176,20 +1420,30 @@ def main(argv=None) -> int:
         "rmi_grad_maps": ("seghiero_torch/csrc/rmi_gram.cu",
                           "seghiero_tpu/ops/pallas/rmi_gram.py:297"),
     }
+    # #6f–#8f: the same pallas_calls built with bf16 views (zdt = bfloat16,
+    # rmi_gram.py:416-443), config 4's path
+    for kname in ("rmi_gram18", "rmi_residual_gram", "rmi_grad_maps"):
+        sources[kname + "_fast"] = sources[kname]
     line = []
     for kname, (src, replaces) in sources.items():
         k = kernels[kname]
         by_path = {p: c[kname] for p, c in paths.items() if c.get(kname)}
         if sum(by_path.values()) <= 0:
             raise AssertionError(f"{kname} was not launched on its path")
+        if kname.endswith("_fast") and not by_path.get("train4"):
+            raise AssertionError(f"{kname} was not launched on train4")
         line.append({
             "name": kname, "route": "cuda", "source": src, "replaces": replaces,
+            **({"instantiation": "bf16 views (training.rmi_precision: fast)",
+                "f32_twin_ms": k["f32_twin_ms"]} if kname.endswith("_fast") else {}),
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
             "shapes": k["shapes"],
             **{x: k[x] for x in ("unfused_ms", "unfused_what", "kernel_path_ms") if x in k},
+            # the depthwise kernels also at config 4's shapes (train4's path)
+            **({"config4": kernels["config4"][kname]} if kname in kernels["config4"] else {}),
         })
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)

@@ -207,7 +207,9 @@ class FastRMIHieraTripletLoss:
     one-hots [fine | mid | high] against ``sigmoid(logits)`` zeroed at each
     level's ignored pixels and floored at ``_CLIP_MIN``, through
     ``rmi_lower_bound_cmajor`` (``rmi_backend``: ``pallas`` = the CUDA Gram
-    kernels, ``xla`` = the materialized PyTorch op). ``use_kernel``
+    kernels, ``xla`` = the materialized PyTorch op or, under
+    ``rmi_streaming``, its row-chunked form; ``rmi_precision: fast`` = the
+    kernels' bf16-view variants). ``use_kernel``
     (``training.pallas_fused_loss``) has no 3-level kernel: the CPU ignores
     it, as the JAX package does, and the card raises."""
 
@@ -221,8 +223,6 @@ class FastRMIHieraTripletLoss:
             raise _not_yet_ported(f"training.hiera_variant: {hiera_variant}")
         if ohem is not None:
             raise _not_yet_ported("OHEM (training.ohem_thresh)")
-        if rmi_precision != "parity":
-            raise _not_yet_ported(f"training.rmi_precision: {rmi_precision}")
         self.h = hierarchy
         self.rmi_radius = rmi_radius
         self.loss_weight_lambda = loss_weight_lambda

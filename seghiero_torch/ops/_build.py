@@ -57,12 +57,12 @@ SIGNATURES = {
     "seghiero_hiera2_fwd": [_P] * 6 + [_I] * 7 + [_P],
     # lo, t_fine, t_coarse, f2c, gsum, dlo, B, C, h, w, nf, nc, device, stream
     "seghiero_hiera2_bwd": [_P] * 6 + [_I] * 7 + [_P],
-    # la, pr, partial, g18, BC, H, W, nblk, device, stream
-    "seghiero_rmi_gram18": [_P] * 4 + [_I] * 5 + [_P],
-    # la, pr, w, partial, a, BC, H, W, nblk, device, stream
-    "seghiero_rmi_residual": [_P] * 5 + [_I] * 5 + [_P],
-    # la, pr, p, dpr, BC, H, W, device, stream
-    "seghiero_rmi_grad_maps": [_P] * 4 + [_I] * 4 + [_P],
+    # la, pr, partial, g18, BC, H, W, nblk, bf16, device, stream
+    "seghiero_rmi_gram18": [_P] * 4 + [_I] * 6 + [_P],
+    # la, pr, w, partial, a, BC, H, W, nblk, bf16, device, stream
+    "seghiero_rmi_residual": [_P] * 5 + [_I] * 6 + [_P],
+    # la, pr, p, dpr, BC, H, W, bf16, device, stream
+    "seghiero_rmi_grad_maps": [_P] * 4 + [_I] * 5 + [_P],
 }
 
 _lock = threading.Lock()

@@ -1,7 +1,7 @@
 """The RMI Gram kernels and the half-logdet they feed — the port of
 ``seghiero_tpu/ops/pallas/rmi_gram.py`` (``_gram18``, ``_residual_gram``,
 ``_grad_maps``, ``_solve_w``, ``_finish_logdet`` and the ``custom_vjp``
-``_half_logdet``, :153-446), for radius 3 in f32.
+``_half_logdet``, :153-446), for radius 3 in f32, in both precisions.
 
 Per map pair (one-hot ``la``, probabilities ``pr``, both ``[BC, H, W]``)
 the 18 views ``z`` are the 3×3 shifted views ``map[r+dy, c+dx]`` of both
@@ -13,6 +13,13 @@ maps over the ``nh × nw = (H−2) × (W−2)`` output pixels (not centred).
   ``[BC, 9, 9]``;
 * ``grad_maps`` — kernel #8: ``u = P·z`` per output pixel, its 9 shifted
   rows overlap-added into ``dpr [BC, H, W]``.
+
+``precision="fast"`` (``training.rmi_precision: fast``) selects the bf16-view
+variants #6f–#8f: the TPU kernel's bf16 ``z`` scratch and single-pass bf16
+dots with f32 accumulation, i.e. the maps' values, ``W``, the residual ``y``
+and ``P`` rounded to bf16 (nearest even) where the TPU kernel rounds them,
+every product and sum in f32 (a product of two bf16 values is exact in
+f32, so an f32 product of rounded operands is the bf16 dot's).
 
 Each wrapper launches its kernel for a tensor on the card and runs its
 plain PyTorch version (which materializes ``z``) for a tensor on the CPU;
@@ -35,14 +42,33 @@ from seghiero_torch.ops import _build
 _POS_ALPHA = 1e-3  # rmi_hiera_triplet_loss.py:18 of the reference
 COLS, ROWS = 128, 32  # csrc/rmi_gram.cu kCols, kRows
 
-# kernel launches in this process (set to 0 to count a run)
+PRECISIONS = ("parity", "fast")
+
+# kernel launches in this process (set to 0 to count a run): the f32
+# kernels #6–#8 and their bf16-view variants #6f–#8f
 gram18_launches = 0
 residual_launches = 0
 grad_launches = 0
+gram18_fast_launches = 0
+residual_fast_launches = 0
+grad_fast_launches = 0
+
+
+def _check_precision(precision: str) -> bool:
+    """True for ``"fast"`` (bf16 views), False for ``"parity"``."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"rmi precision must be one of {PRECISIONS}, got {precision!r}")
+    return precision == "fast"
 
 
 # ---------------------------------------------------------------------------
 # plain versions: the kernels' raw f32 sums in PyTorch
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to the nearest bf16 (ties to even), in ``x``'s dtype: the
+    TPU kernel's ``astype(bfloat16)`` of a value it then multiplies."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
 def _views(m: torch.Tensor) -> torch.Tensor:
     """``[BC, H, W]`` → the 9 views ``[BC, 9, nh·nw]``, k = 3·dy + dx."""
     BC, H, W = m.shape
@@ -51,19 +77,30 @@ def _views(m: torch.Tensor) -> torch.Tensor:
                        dim=1).reshape(BC, 9, nh * nw)
 
 
-def gram18_plain(la: torch.Tensor, pr: torch.Tensor) -> torch.Tensor:
+def gram18_plain(la: torch.Tensor, pr: torch.Tensor, precision: str = "parity") -> torch.Tensor:
+    if _check_precision(precision):
+        la, pr = bf16_round(la), bf16_round(pr)
     z = torch.cat([_views(la), _views(pr)], dim=1)
     return z @ z.mT
 
 
-def residual_gram_plain(la: torch.Tensor, pr: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def residual_gram_plain(la: torch.Tensor, pr: torch.Tensor, w: torch.Tensor,
+                        precision: str = "parity") -> torch.Tensor:
+    fast = _check_precision(precision)
+    if fast:
+        la, pr, w = bf16_round(la), bf16_round(pr), bf16_round(w)
     y = _views(la) - w.mT @ _views(pr)
+    if fast:
+        y = bf16_round(y)
     return y @ y.mT
 
 
-def grad_maps_plain(la: torch.Tensor, pr: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+def grad_maps_plain(la: torch.Tensor, pr: torch.Tensor, p: torch.Tensor,
+                    precision: str = "parity") -> torch.Tensor:
     BC, H, W = pr.shape
     nh, nw = H - 2, W - 2
+    if _check_precision(precision):
+        la, pr, p = bf16_round(la), bf16_round(pr), bf16_round(p)
     u = (p @ torch.cat([_views(la), _views(pr)], dim=1)).reshape(BC, 9, nh, nw)
     dpr = torch.zeros((BC, H, W), dtype=u.dtype, device=pr.device)
     for dy in range(3):
@@ -108,28 +145,38 @@ def _stream(x: torch.Tensor):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def gram18(la: torch.Tensor, pr: torch.Tensor) -> torch.Tensor:
-    """Raw ``G18 = z·zᵀ`` ``[BC, 18, 18]`` f32: kernel #6 on the card."""
+def _count(name: str, fast: bool) -> None:
+    """One launch of kernel ``name`` (#6–#8) or of its bf16 variant."""
+    key = f"{name}_fast_launches" if fast else f"{name}_launches"
+    globals()[key] += 1
+
+
+def gram18(la: torch.Tensor, pr: torch.Tensor, precision: str = "parity") -> torch.Tensor:
+    """Raw ``G18 = z·zᵀ`` ``[BC, 18, 18]`` f32: kernel #6 (#6f for
+    ``precision="fast"``) on the card."""
+    fast = _check_precision(precision)
     if not _on_card(pr, "rmi gram18"):
-        return gram18_plain(la, pr)
+        return gram18_plain(la, pr, precision)
     BC, H, W = _check_maps(la, pr, "rmi gram18")
     nblk = partial_blocks(H, W)
     partial = torch.empty((BC, nblk, 171), dtype=torch.float32, device=pr.device)
     out = torch.empty((BC, 18, 18), dtype=torch.float32, device=pr.device)
     lib = _build.library()
     err = lib.seghiero_rmi_gram18(la.data_ptr(), pr.data_ptr(), partial.data_ptr(),
-                                  out.data_ptr(), BC, H, W, nblk, pr.device.index, _stream(pr))
+                                  out.data_ptr(), BC, H, W, nblk, int(fast), pr.device.index,
+                                  _stream(pr))
     _build.check(lib, err, "rmi gram18")
-    global gram18_launches
-    gram18_launches += 1
+    _count("gram18", fast)
     return out
 
 
-def residual_gram(la: torch.Tensor, pr: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def residual_gram(la: torch.Tensor, pr: torch.Tensor, w: torch.Tensor,
+                  precision: str = "parity") -> torch.Tensor:
     """Raw ``A = y·yᵀ``, ``y = z_la − Wᵀ·z_pr``, ``[BC, 9, 9]`` f32 for the
-    regression ``w [BC, 9, 9]``: kernel #7 on the card."""
+    regression ``w [BC, 9, 9]``: kernel #7 (#7f) on the card."""
+    fast = _check_precision(precision)
     if not _on_card(pr, "rmi residual_gram"):
-        return residual_gram_plain(la, pr, w)
+        return residual_gram_plain(la, pr, w, precision)
     BC, H, W = _check_maps(la, pr, "rmi residual_gram", (w, (pr.shape[0], 9, 9)))
     nblk = partial_blocks(H, W)
     partial = torch.empty((BC, nblk, 45), dtype=torch.float32, device=pr.device)
@@ -137,26 +184,27 @@ def residual_gram(la: torch.Tensor, pr: torch.Tensor, w: torch.Tensor) -> torch.
     lib = _build.library()
     err = lib.seghiero_rmi_residual(la.data_ptr(), pr.data_ptr(), w.data_ptr(),
                                     partial.data_ptr(), out.data_ptr(), BC, H, W, nblk,
-                                    pr.device.index, _stream(pr))
+                                    int(fast), pr.device.index, _stream(pr))
     _build.check(lib, err, "rmi residual_gram")
-    global residual_launches
-    residual_launches += 1
+    _count("residual", fast)
     return out
 
 
-def grad_maps(la: torch.Tensor, pr: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+def grad_maps(la: torch.Tensor, pr: torch.Tensor, p: torch.Tensor,
+              precision: str = "parity") -> torch.Tensor:
     """``dpr [BC, H, W]`` f32: ``u = P·z`` (``p [BC, 9, 18]``) overlap-added
-    through the 9 views: kernel #8 on the card."""
+    through the 9 views: kernel #8 (#8f) on the card."""
+    fast = _check_precision(precision)
     if not _on_card(pr, "rmi grad_maps"):
-        return grad_maps_plain(la, pr, p)
+        return grad_maps_plain(la, pr, p, precision)
     BC, H, W = _check_maps(la, pr, "rmi grad_maps", (p, (pr.shape[0], 9, 18)))
     dpr = torch.empty_like(pr)
     lib = _build.library()
     err = lib.seghiero_rmi_grad_maps(la.data_ptr(), pr.data_ptr(), p.data_ptr(),
-                                     dpr.data_ptr(), BC, H, W, pr.device.index, _stream(pr))
+                                     dpr.data_ptr(), BC, H, W, int(fast), pr.device.index,
+                                     _stream(pr))
     _build.check(lib, err, "rmi grad_maps")
-    global grad_launches
-    grad_launches += 1
+    _count("grad", fast)
     return dpr
 
 
@@ -172,48 +220,63 @@ def _jitter(m: torch.Tensor, alpha_n: float, eps_rel: float = _EPS_REL) -> torch
     return torch.maximum(torch.full_like(mean_diag, alpha_n), eps_rel * mean_diag)[..., None, None]
 
 
+def _regression(pr_cov: torch.Tensor, la_pr: torch.Tensor, n: int,
+                eps_rel: float) -> torch.Tensor:
+    """W from the N-normalized Grams: the jittered probability covariance
+    solved against ``la_prᵀ`` (``solve_ex``: no host sync)."""
+    eye = torch.eye(pr_cov.shape[-1], dtype=pr_cov.dtype, device=pr_cov.device)
+    m_pr = pr_cov + eye * _jitter(pr_cov, _POS_ALPHA / n, eps_rel)
+    return torch.linalg.solve_ex(m_pr, la_pr.mT)[0]
+
+
+def _half_logdet(appro_var: torch.Tensor, n: int, eps_rel: float) -> torch.Tensor:
+    """``0.5·logdet`` f32 of the N-normalized residual Gram, symmetrized and
+    jittered (``cholesky_ex``: no host sync; not positive definite gives
+    NaN), with the reference's log(diag + 1e-8) guard at the unnormalized
+    scale."""
+    appro_var = 0.5 * (appro_var + appro_var.mT)
+    eye = torch.eye(appro_var.shape[-1], dtype=appro_var.dtype, device=appro_var.device)
+    chol = torch.linalg.cholesky_ex(
+        appro_var + eye * _jitter(appro_var, _POS_ALPHA / n, eps_rel))[0]
+    logdet = 2.0 * torch.log(torch.diagonal(chol, dim1=-2, dim2=-1) * float(np.sqrt(n))
+                             + 1e-8).sum(-1)
+    return (0.5 * logdet).to(torch.float32)
+
+
 def _solve_w(g18_raw: torch.Tensor, n: int) -> torch.Tensor:
-    """The regression W ``[BC, 9, 9]`` from the raw 18×18 Gram. ``solve_ex``
-    does not check for a singular system (no host sync): like JAX, a bad
-    batch gives non-finite values, not an exception. Contiguous, as
+    """The regression W ``[BC, 9, 9]`` from the raw 18×18 Gram. Like JAX, a
+    bad batch gives non-finite values, not an exception. Contiguous, as
     kernel #7 takes it (the solve returns it column-major)."""
-    pr_cov = g18_raw[:, 9:, 9:] * (1.0 / n)
-    la_pr = g18_raw[:, 0:9, 9:] * (1.0 / n)
-    eye = torch.eye(9, dtype=torch.float32, device=g18_raw.device)
-    m_pr = pr_cov + eye * _jitter(pr_cov, _POS_ALPHA / n)
-    return torch.linalg.solve_ex(m_pr, la_pr.mT)[0].contiguous()
+    return _regression(g18_raw[:, 9:, 9:] * (1.0 / n), g18_raw[:, 0:9, 9:] * (1.0 / n), n,
+                       _EPS_REL).contiguous()
 
 
 def _finish_logdet(a_raw: torch.Tensor, n: int) -> torch.Tensor:
-    """The half-logdets ``[BC]`` from the raw residual Gram (``cholesky_ex``:
-    no host sync; a matrix that is not positive definite gives NaN)."""
-    a = a_raw * (1.0 / n)
-    a = 0.5 * (a + a.mT)
-    eye = torch.eye(9, dtype=torch.float32, device=a_raw.device)
-    chol = torch.linalg.cholesky_ex(a + eye * _jitter(a, _POS_ALPHA / n))[0]
-    logdet = 2.0 * torch.log(torch.diagonal(chol, dim1=-2, dim2=-1) * float(np.sqrt(n))
-                             + 1e-8).sum(-1)
-    return 0.5 * logdet
+    """The half-logdets ``[BC]`` from the raw residual Gram."""
+    return _half_logdet(a_raw * (1.0 / n), n, _EPS_REL)
 
 
 class _HalfLogdet(torch.autograd.Function):
     """The ``custom_vjp`` ``_half_logdet``: forward kernels #6 and #7 around
     the solve; backward the small algebra of ``_half_logdet_bwd`` and one
-    pass of kernel #8. The one-hot map gets no gradient."""
+    pass of kernel #8 (#6f–#8f for ``precision="fast"``; the solve, the
+    logdet and the algebra stay f32, as in JAX). The one-hot map gets no
+    gradient."""
 
     @staticmethod
-    def forward(ctx, oh, pr, n):
-        g18 = gram18(oh, pr)
+    def forward(ctx, oh, pr, n, precision):
+        g18 = gram18(oh, pr, precision)
         w = _solve_w(g18, n)
-        a_raw = residual_gram(oh, pr, w)
+        a_raw = residual_gram(oh, pr, w, precision)
         ctx.save_for_backward(oh, pr, g18, w, a_raw)
-        ctx.n = n
+        ctx.n, ctx.precision = n, precision
         return _finish_logdet(a_raw, n)
 
     @staticmethod
     def backward(ctx, dhalf):
         oh, pr, g18, w, a_raw = ctx.saved_tensors
-        return None, grad_maps(oh, pr, backward_p(g18, w, a_raw, dhalf, ctx.n)), None
+        p = backward_p(g18, w, a_raw, dhalf, ctx.n)
+        return None, grad_maps(oh, pr, p, ctx.precision), None, None
 
 
 def backward_p(g18: torch.Tensor, w: torch.Tensor, a_raw: torch.Tensor, dhalf: torch.Tensor,
@@ -245,15 +308,18 @@ def rmi_gram_kernel_available(H: int, W: int, radius: int, use_float64: bool,
     return radius == 3 and not use_float64 and H >= 3 and W >= 3 and device.type == "cuda"
 
 
-def rmi_logdet_kernel_cmajor(oh_map: torch.Tensor, pr_map: torch.Tensor) -> torch.Tensor:
+def rmi_logdet_kernel_cmajor(oh_map: torch.Tensor, pr_map: torch.Tensor,
+                             precision: str = "parity") -> torch.Tensor:
     """``[B, C]`` half-logdets of ``_rmi_logdet_core`` for radius 3 in f32,
     from the one-hot targets (no gradient) and the masked probabilities,
-    both ``[B, C, H, W]``, through kernels #6–#8 on the card (their plain
-    versions on the CPU). On the card both maps must be contiguous f32."""
+    both ``[B, C, H, W]``, through kernels #6–#8 (``precision="fast"``:
+    #6f–#8f) on the card, their plain versions on the CPU. On the card both
+    maps must be contiguous f32."""
+    _check_precision(precision)
     B, C, H, W = pr_map.shape
     if _on_card(pr_map, "rmi_logdet_kernel_cmajor") and not (
             pr_map.is_contiguous() and oh_map.is_contiguous()):
         raise ValueError("rmi_logdet_kernel_cmajor needs contiguous maps; refusing to copy")
     oh = oh_map.detach().to(torch.float32).reshape(B * C, H, W)
     pr = pr_map.to(torch.float32).reshape(B * C, H, W)
-    return _HalfLogdet.apply(oh, pr, (H - 2) * (W - 2)).reshape(B, C)
+    return _HalfLogdet.apply(oh, pr, (H - 2) * (W - 2), precision).reshape(B, C)

@@ -211,6 +211,53 @@ def test_rmi_gram_kernels_equal_plain_versions():
 
 
 @pytest.mark.gpu
+def test_rmi_fast_kernels_equal_plain_versions():
+    """Card-only: the bf16-view variants #6f–#8f (``rmi_precision: fast``)
+    against their plain fast versions in f64 after the same roundings, at
+    the ragged shapes above and one 769-wide shape (config 4's: 767 output
+    rows and columns): #6f and #8f within 1e-5 of the magnitude (their
+    roundings are the same on both sides; f32 order only), #7f within
+    2e-5 (its residual y is also rounded from its own f32 sum, which can
+    fall on the other side of a bf16 boundary); two runs give the same
+    bits; non-contiguous or non-f32 maps raise instead of being copied."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for BC, H, W in ((3, 18, 20), (2, 37, 131), (1, 3, 3), (2, 70, 257), (4, 131, 40),
+                     (2, 41, 769)):
+        la, pr = _rmi_maps(gen, dev, BC, H, W)
+        w = torch.randn((BC, 9, 9), generator=gen, device=dev) * 0.3
+        p = torch.randn((BC, 9, 18), generator=gen, device=dev)
+        la64, pr64 = la.double(), pr.double()
+        counts = ("gram18_fast_launches", "residual_fast_launches", "grad_fast_launches",
+                  "gram18_launches", "residual_launches", "grad_launches")
+        before = [getattr(port_rg, c) for c in counts]
+        g18, a, dpr = (port_rg.gram18(la, pr, "fast"), port_rg.residual_gram(la, pr, w, "fast"),
+                       port_rg.grad_maps(la, pr, p, "fast"))
+        assert [getattr(port_rg, c) - b for c, b in zip(counts, before)] == [1, 1, 1, 0, 0, 0]
+        want = port_rg.gram18_plain(la64, pr64, "fast")  # la, pr ≥ 0: its own magnitude
+        assert ((g18.double() - want).abs() <= 1e-5 * want + 1e-30).all(), (H, W)
+        r = port_rg.bf16_round
+        yb = port_rg._views(r(la64)) + r(w.double()).abs().mT @ port_rg._views(r(pr64))
+        want = port_rg.residual_gram_plain(la64, pr64, w.double(), "fast")
+        assert ((a.double() - want).abs() <= 2e-5 * (yb @ yb.mT) + 1e-30).all(), (H, W)
+        want = port_rg.grad_maps_plain(la64, pr64, p.double(), "fast")
+        mag = port_rg.grad_maps_plain(la64, pr64, p.double().abs(), "fast")
+        assert ((dpr.double() - want).abs() <= 1e-5 * mag + 1e-30).all(), (H, W)
+        assert torch.equal(g18, port_rg.gram18(la, pr, "fast"))
+        assert torch.equal(a, port_rg.residual_gram(la, pr, w, "fast"))
+        assert torch.equal(dpr, port_rg.grad_maps(la, pr, p, "fast"))
+        # the bf16 views are not the f32 kernels' arithmetic
+        assert not torch.equal(g18, port_rg.gram18(la, pr))
+    with pytest.raises(ValueError, match="refusing to copy"):
+        port_rg.gram18(la.transpose(1, 2), pr.transpose(1, 2), "fast")
+    with pytest.raises(ValueError, match="expected f32"):
+        port_rg.grad_maps(la, pr.to(torch.bfloat16), p, "fast")
+    with pytest.raises(ValueError, match="refusing to copy"):
+        port_rg.rmi_logdet_kernel_cmajor(la[None].transpose(2, 3), pr[None].transpose(2, 3),
+                                         "fast")
+
+
+@pytest.mark.gpu
 def test_rmi_kernel_path_matches_the_materialized_op_on_the_card():
     """Card-only: the RMI term through kernels #6–#8 (``rmi_backend:
     pallas``) against the materialized op (``xla``), value and gradient, at

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_port_threads import one_torch_thread  # noqa: F401  (autouse)
 from seghiero_torch.infer.predictor import decode_masks
 from seghiero_torch.ops import depthwise as port_dw
 from seghiero_torch.ops import upsample_argmax as port_ua

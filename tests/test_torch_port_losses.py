@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_port_threads import one_torch_thread  # noqa: F401  (autouse)
 from seghiero_torch.hierarchy import Hierarchy as PortHierarchy
 from seghiero_torch.losses import fast as port_fast
 from seghiero_torch.losses import hiera as port_hiera
@@ -62,7 +63,8 @@ def _jax_main(lo, emb, labels, step, selection="auto"):
         return loss(jnp.int32(step), jnp.transpose(emb_, (0, 2, 3, 1)), None,
                     jnp.transpose(lo_, (0, 2, 3, 1)), jnp.asarray(labels))
 
-    v, (g_lo, g_emb) = jax.value_and_grad(f, argnums=(0, 1))(jnp.asarray(lo), jnp.asarray(emb))
+    v, (g_lo, g_emb) = jax.jit(jax.value_and_grad(f, argnums=(0, 1)))(jnp.asarray(lo),
+                                                                      jnp.asarray(emb))
     return float(v), np.asarray(g_lo), np.asarray(g_emb)
 
 
@@ -121,7 +123,7 @@ def test_aux_ce_matches_jax():
     def f(a):
         return jax_fast.aux_ce_fast(jnp.transpose(a, (0, 2, 3, 1)), jnp.asarray(labels))
 
-    v, g = jax.value_and_grad(f)(jnp.asarray(aux))
+    v, g = jax.jit(jax.value_and_grad(f))(jnp.asarray(aux))
     a_t = torch.from_numpy(aux).requires_grad_()
     got = port_fast.aux_ce_fast(a_t, torch.from_numpy(labels))
     got.backward()
@@ -146,7 +148,7 @@ def test_range_triplet_matches_jax(selection):
         return jax_tt.tree_triplet_loss_range(e, jnp.asarray(labels), JH, max_triplet=20,
                                               selection=selection)
 
-    (v, c), g = jax.value_and_grad(f, has_aux=True)(jnp.asarray(emb))
+    (v, c), g = jax.jit(jax.value_and_grad(f, has_aux=True))(jnp.asarray(emb))
     e_t = torch.from_numpy(emb).requires_grad_()
     vt, ct = port_tt.tree_triplet_loss_range(e_t, torch.from_numpy(labels), PH,
                                              max_triplet=20, selection=selection)

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_port_threads import one_torch_thread  # noqa: F401  (autouse)
 from seghiero_torch.config import SegHieroConfig as PortConfig
 from seghiero_torch.config import load_config as port_load_config
 from seghiero_torch.infer.predictor import Predictor, resolve_device
@@ -56,7 +57,9 @@ def _cfg_dict(depth, output_stride, dilations, dw_backend="xla"):
 def jax_variables(cfg_dict, seed):
     """JAX init with random BN statistics/affine → numpy variables tree."""
     model = jax_build_model(JaxConfig.from_dict(cfg_dict))
-    variables = model.init(jax.random.key(seed), jnp.zeros((1, HW, HW, 3)), train=False)
+    # jitted: an eager init dispatches every layer's ops one by one
+    init = jax.jit(lambda key, x: model.init(key, x, train=False))
+    variables = init(jax.random.key(seed), jnp.zeros((1, HW, HW, 3)))
     rng = np.random.default_rng(seed)
 
     def randomize(path, leaf):
@@ -78,8 +81,13 @@ def jax_variables(cfg_dict, seed):
 def test_eval_forward_matches_jax(depth, output_stride, dilations):
     cfg_dict = _cfg_dict(depth, output_stride, dilations)
     jax_model, variables = jax_variables(cfg_dict, seed=depth)
-    images = np.random.default_rng(1).standard_normal((2, HW, HW, 3)).astype(np.float32)
-    ref = jax.device_get(jax_model.apply(variables, jnp.asarray(images), train=False))
+    # depth 50 at 33²: every stride-2 stage gets an odd input (33 → 17 → 9
+    # → 5 → 3 → 2, as 769 → 385 → … → 25 in config 4) and the head
+    # resizes 2² → 9² at a non-integer ratio
+    hw = 33 if depth == 50 else HW
+    images = np.random.default_rng(1).standard_normal((2, hw, hw, 3)).astype(np.float32)
+    ref = jax.device_get(jax.jit(lambda v, x: jax_model.apply(v, x, train=False))(
+        variables, jnp.asarray(images)))
 
     ckpt = export_reference_checkpoint(variables, depth)
     outs = {}

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_port_threads import one_torch_thread  # noqa: F401  (autouse)
 from seghiero_torch.hierarchy import Hierarchy as PortHierarchy
 from seghiero_torch.losses import fast as port_fast
 from seghiero_torch.losses import hiera as port_hiera
@@ -228,13 +229,34 @@ def test_rmi_knobs():
         port_rmi.rmi_lower_bound_cmajor(oh, pr, radius=5, backend="pallas")
     with pytest.raises(ValueError, match="f32-only"):
         port_rmi.rmi_lower_bound_cmajor(oh, pr, use_float64=True, backend="pallas")
-    with pytest.raises(NotImplementedError, match="rmi_precision: fast"):
-        port_rmi.rmi_lower_bound_cmajor(oh, pr, precision="fast")
-    with pytest.raises(NotImplementedError, match="streaming"):
-        port_rmi.rmi_lower_bound_cmajor(oh, pr, streaming="on")
-    big = torch.zeros(()).expand(4, 15, 1100, 1100)  # 2.6 GB of views: JAX would stream
-    with pytest.raises(NotImplementedError, match="streaming"):
-        port_rmi.rmi_lower_bound_cmajor(big, big)
+    with pytest.raises(ValueError, match="precision"):
+        port_rmi.rmi_lower_bound_cmajor(oh, pr, precision="bf16")
+    # rmi_precision: fast reaches the kernels only (their plain versions on
+    # the CPU); the materialized op ignores it, as JAX's does
+    pr_r = pr + 0.1 * torch.rand(pr.shape, generator=torch.Generator().manual_seed(0))
+    oh_r = (torch.rand(pr.shape, generator=torch.Generator().manual_seed(1)) < 0.5).float()
+    fast, parity = (port_rmi.rmi_lower_bound_cmajor(oh_r, pr_r, backend="pallas", precision=p)
+                    for p in ("fast", "parity"))
+    assert torch.isfinite(fast) and float(fast) != float(parity)
+    assert float(port_rmi.rmi_lower_bound_cmajor(oh_r, pr_r, backend="xla", precision="fast")) \
+        == float(port_rmi.rmi_lower_bound_cmajor(oh_r, pr_r, backend="xla"))
+    # streaming on: the row-chunked path, the materialized op's value within
+    # f32 order (tests/test_torch_port_rmi_fast.py holds it against JAX)
+    streamed = port_rmi.rmi_lower_bound_cmajor(oh_r, pr_r, streaming="on")
+    torch.testing.assert_close(streamed, port_rmi.rmi_lower_bound_cmajor(oh_r, pr_r),
+                               rtol=1e-5, atol=0)
+    # the route, JAX's decision, without computing at these sizes: 2.6 GB of
+    # views stream under auto; rows that split into chunks of fewer than 8
+    # (1097 output rows: a prime) take the materialized op even when asked
+    cpu = torch.device("cpu")
+    route = port_rmi.rmi_route
+    assert route((4, 15, 1100, 1100), 3, False, "auto", "auto", cpu) == "streaming"
+    assert route((4, 15, 1100, 1100), 3, False, "off", "auto", cpu) == "materialized"
+    assert route((2, 15, 769, 769), 3, False, "auto", "xla", cpu) == "materialized"  # 0.59 GB
+    assert route((2, 15, 769, 769), 3, False, "on", "xla", cpu) == "streaming"
+    assert route((1, 3, 1099, 40), 3, False, "on", "xla", cpu) == "materialized"
+    assert route((4, 15, 1100, 1100), 3, False, "auto", "pallas", cpu) == "kernels"
+    assert route((4, 15, 1100, 1100), 3, False, "auto", "auto", torch.device("cuda")) == "kernels"
     # radius 3 under pallas on the CPU: the plain kernels, equal to auto
     # (which on the CPU takes the materialized op) within the two paths'
     # tolerance; radius 5 and f64 take the op under auto
@@ -246,8 +268,7 @@ def test_rmi_knobs():
     assert (port_rg.gram18_launches, port_rg.residual_launches) == (0, 0)  # no launch on the CPU
     with pytest.raises(ValueError, match="cuda or cpu"):
         port_rg.gram18(torch.zeros(1, 4, 4, device="meta"), torch.zeros(1, 4, 4, device="meta"))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        port_fast.FastRMIHieraTripletLoss(PH, rmi_precision="fast")
+    assert port_fast.FastRMIHieraTripletLoss(PH, rmi_precision="fast").rmi_precision == "fast"
     with pytest.raises(NotImplementedError, match="not yet ported"):
         port_fast.FastRMIHieraTripletLoss(PH, hiera_variant="focal")
 

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_port_threads import one_torch_thread  # noqa: F401  (autouse)
 from seghiero_torch.config import SegHieroConfig as PortConfig
 from seghiero_torch.data.transforms import resize_mask_nearest
 from seghiero_torch.infer.predictor import Predictor as PortPredictor
@@ -51,9 +52,9 @@ def _cfg(cls, argmax_backend):
 def pth(tmp_path_factory):
     """Converted JAX weights (random BN statistics) as a reference .pth."""
     model = jax_build_model(JaxConfig.from_dict(CFG))
-    variables = jax.device_get(
-        model.init(jax.random.key(5), jnp.zeros((1, HW, HW, 3)), train=False)
-    )
+    # jitted: an eager init dispatches every layer's ops one by one
+    init = jax.jit(lambda key, x: model.init(key, x, train=False))
+    variables = jax.device_get(init(jax.random.key(5), jnp.zeros((1, HW, HW, 3))))
     rng = np.random.default_rng(5)
 
     def randomize(path, leaf):

@@ -28,6 +28,7 @@ import pytest
 import torch
 import yaml
 
+from test_torch_port_threads import one_torch_thread  # noqa: F401  (autouse)
 from seghiero_torch.config import SegHieroConfig as PortConfig
 from seghiero_torch.data.dataset import build_dataset as port_build_dataset
 from seghiero_torch.data.pipeline import BatchLoader as PortLoader
@@ -94,7 +95,9 @@ def _batches(n):
 
 
 def _jax_variables(model, seed=0):
-    variables = model.init(jax.random.key(seed), jnp.zeros((1, 64, 64, 3)), train=False)
+    # jitted: an eager init dispatches every layer's ops one by one
+    init = jax.jit(lambda key, x: model.init(key, x, train=False))
+    variables = init(jax.random.key(seed), jnp.zeros((1, 64, 64, 3)))
     rng = np.random.default_rng(seed)
 
     def randomize(path, leaf):  # non-trivial BN affine and statistics

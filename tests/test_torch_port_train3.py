@@ -21,6 +21,7 @@ import pytest
 import torch
 import yaml
 
+from test_torch_port_threads import one_torch_thread  # noqa: F401  (autouse)
 from seghiero_torch.config import SegHieroConfig as PortConfig
 from seghiero_torch.models.convert import (
     export_reference_checkpoint,

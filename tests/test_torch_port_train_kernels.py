@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_port_threads import one_torch_thread  # noqa: F401  (autouse)
 from seghiero_torch.hierarchy import Hierarchy as PortHierarchy
 from seghiero_torch.losses.hiera import prepare_targets_two_level as port_targets
 from seghiero_torch.ops import depthwise as port_dw
