@@ -180,8 +180,10 @@ def depthwise_checks(gen, shapes):
     against their plain versions (the same f32 order, no FMA); the weight
     gradient (#2) within 1e-5 · Σ|x·g| per entry (f32 sums in another order
     than torch.sum's) and the same bits twice. Each is timed beside its
-    plain version and the PyTorch library call computing it; returns each
-    kernel's entry summed over the shapes."""
+    plain version and, in turns (kernel, library, library, kernel), the
+    PyTorch library call computing it; returns each kernel's entry summed
+    over the shapes, with its time over the library's and its share of the
+    bound."""
     import torch
     import torch.nn.functional as F
 
@@ -234,15 +236,25 @@ def depthwise_checks(gen, shapes):
              {"max_rel_err_of_sum_abs": (diff / mag).max().item()}),
         ):
             lib_err = lib_as_kernel(lib()).abs().max().item()
-            t = {"ms": time_ms(fn), "plain_ms": time_ms(plain, iters=5),
-                 "library_ms": time_ms(lib)}
+            # in turns: kernel, library, library, kernel
+            turns = [time_ms(f) for f in (fn, lib, lib, fn)]
+            t = {"ms": (turns[0] + turns[3]) / 2, "plain_ms": time_ms(plain, iters=5),
+                 "library_ms": (turns[1] + turns[2]) / 2}
             b_ms, b_by = bound(nbytes, 18 * x.numel())
             e = dict(t, shape=list(shape), max_abs_err=err, bound_ms=b_ms, bound_by=b_by)
             say("kernels", kernel=name, dtype="bfloat16", bytes=nbytes,
-                library_max_abs_diff=lib_err, share_of_bound=b_ms / t["ms"], **extra, **e)
+                library_max_abs_diff=lib_err, share_of_bound=b_ms / t["ms"],
+                kernel_over_library=t["ms"] / t["library_ms"], turns_ms=turns, **extra, **e)
             entries[name].append(e)
         del x, g, x_cl, g_cl, y, dx, dk, mag, diff
-    return {name: _sum_entries(e) for name, e in entries.items()}
+    summed = {name: _sum_entries(e) for name, e in entries.items()}
+    for name, e in summed.items():  # both launches of a batch or step
+        e["kernel_over_library"] = e["ms"] / e["library_ms"]
+        e["share_of_bound"] = e["bound_ms"] / e["ms"]
+        say("kernels", kernel=name, summed_over=e["shapes"], ms=e["ms"],
+            library_ms=e["library_ms"], kernel_over_library=e["kernel_over_library"],
+            bound_ms=e["bound_ms"], share_of_bound=e["share_of_bound"])
+    return summed
 
 
 def phase_kernels(seed: int):
@@ -1441,7 +1453,8 @@ def main(argv=None) -> int:
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
             "shapes": k["shapes"],
-            **{x: k[x] for x in ("unfused_ms", "unfused_what", "kernel_path_ms") if x in k},
+            **{x: k[x] for x in ("unfused_ms", "unfused_what", "kernel_path_ms",
+                                 "kernel_over_library") if x in k},
             # the depthwise kernels also at config 4's shapes (train4's path)
             **({"config4": kernels["config4"][kname]} if kname in kernels["config4"] else {}),
         })

@@ -47,6 +47,38 @@ __device__ __forceinline__ void upsample4_phase(int p, int& ro, float& a, float&
   }
 }
 
+// Asynchronous copies (sm_80+): `Bytes` from global to shared memory, or
+// `Bytes` zeros when `valid` is false (src-size 0 reads nothing; the
+// address then only has to be a mapped one). 16-byte copies bypass L1.
+// A 2-byte element has no cp.async form and is copied synchronously.
+template <int Bytes>
+__device__ __forceinline__ void copy_async_or_zero(void* smem, const void* gmem, bool valid) {
+  static_assert(Bytes == 2 || Bytes == 4 || Bytes == 8 || Bytes == 16, "copy size");
+  if constexpr (Bytes == 2) {
+    *static_cast<unsigned short*>(smem) =
+        valid ? *static_cast<const unsigned short*>(gmem) : static_cast<unsigned short>(0);
+  } else {
+    const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+    const int src_size = valid ? Bytes : 0;
+    if constexpr (Bytes == 16)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
+                   "r"(src_size));
+    else
+      asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst), "l"(gmem),
+                   "n"(Bytes), "r"(src_size));
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
 inline unsigned int blocks_for(long long n, int threads) {
   return static_cast<unsigned int>((n + threads - 1) / threads);
 }

@@ -1,70 +1,151 @@
 // Weight gradient of the 3×3 depthwise convolution (stride 1, dilation 1,
 // "same" zero padding), NHWC:  dk[dy·3+dx, c] = Σ_{b,h,w} x[b, h+dy−1,
-// w+dx−1, c] · g[b, h, w, c]  in f32.
+// w+dx−1, c] · g[b, h, w, c]  in f32 (#2).
 //
 // Replaces: seghiero_tpu/ops/pallas/depthwise.py, `_dw_wgrad` (the
 // pl.pallas_call at :245, kernel body `_wgrad_kernel` :157-173), reached
 // from `_dw_bwd` :289-302 — the backward of the head's separable
 // bottlenecks in training.
 //
-// What bounds it on an H100: memory bandwidth. Every element of x and g is
-// read once (the 9 taps reuse the x rows a thread already holds); the
-// output is 9·C floats. At the train shapes [8,128,128,560] and
-// [8,128,128,512] bf16 that is 562 MB, 0.168 ms at 3.35 TB/s; the 18 flop
-// per element are 2.4 Gflop, 0.04 ms on the non-tensor f32 units.
+// What bounds it on an H100: memory bandwidth. The least traffic is one
+// read of x and of g and a write of 9·C floats: at the train shapes
+// [8,128,128,560] + [8,128,128,512] bf16, 562 MB, 0.168 ms at 3.35 TB/s.
+// The 9 multiply-adds per element are 1.3 G FMAs, ~0.04 ms of f32 issue;
+// with the conversions and shared-memory reads ~13 instructions an
+// element, ~0.06 ms.
 //
 // Design: a reduction over B·H·W pixels per (tap, channel), in two passes
 // and without float atomics, so two runs give the same bits.
-//  * Pass 1: a block is (cvb channel vectors) × (8 row slots); each thread
-//    owns V adjacent channels (one 16-byte vector where C and the pointers
-//    allow) and walks kSeg columns of kItems (image row, column segment)
-//    items. It keeps a 3×3 window of x vectors in registers and slides it
-//    one column per step (3 new x loads and 1 g load per pixel), adding
-//    x·g to its 9×V f32 sums. The block then adds its 8 row slots in order
-//    through shared memory and writes one partial [9, C] row per block:
-//    partial [P, 9, C] f32. Taps outside the image read zero, as the
-//    forward's padding does.
-//  * Pass 2: one thread per (tap, channel) adds the P partials in order.
+//  * Pass 1: a block owns one channel chunk (128 bytes of each pixel: 64
+//    bf16 or 32 f32 channels), a band of th rows of one image and a tile
+//    of tw ≤ kTileCols columns. It walks down the band one row at a time:
+//    x row h0 − 1 + i (tw + 2 columns with the halo) and g row h0 + i − 2
+//    are copied into a ring of kStages shared-memory slots with cp.async
+//    (16-byte copies where C and the pointers allow), kStages − 1 rows
+//    ahead of the row in use; pixels outside the image, x columns past the
+//    tile's halo and g outside the block's own tile read zero, so no pixel
+//    is counted twice. A lane owns V channels (a bf16 pair or one f32: 4
+//    bytes, so a warp's shared-memory reads are contiguous 128-byte runs)
+//    and a warp kWarpCols columns; the lane keeps the three x rows that g
+//    row h0 + i − 2 needs (rows i − 2 … i) in registers, reading each x
+//    row from shared memory once, and adds x · g to its 9·V f32 sums
+//    (18 for bf16). The block then adds its warps' sums in order through
+//    shared memory and writes one partial [9, chunk] row: partial [P, 9, C]
+//    f32 with P = B · bands · column tiles.
+//  * Pass 2: a block adds the P partials of 32 consecutive (tap, channel)
+//    entries in 8 contiguous segments, then the 8 segment sums in order.
 // The TPU kernel's channel-outermost grid and resident [9, CB] output block
 // (Pallas accumulates only across consecutive grid steps) have no
 // counterpart: blocks run in parallel and meet in the second pass.
 //
-// Numerics: f32 sums in an order set by the launch geometry (not the plain
-// version's), so the plain version in seghiero_torch/ops/depthwise.py is
-// compared within 1e-5 · Σ|x·g| per entry, not bit for bit.
+// Numerics: f32 multiply-adds in an order set by the launch geometry (not
+// the plain version's), so the plain version in
+// seghiero_torch/ops/depthwise.py is compared within 1e-5 · Σ|x·g| per
+// entry, not bit for bit; the order is fixed, so two runs agree bit for bit.
+//
+// Tile sizes are macros so that variants can be built from this file with
+// -D flags and timed against each other on the card
+// (seghiero_torch/ops/depthwise_variants.py); the defaults are the
+// fastest measured at the head's shapes that need no opt-in to more than
+// 48 KB of shared memory. The wrapper's WGRAD_BAND_H and
+// WGRAD_TILE_W mirror SEGHIERO_DWG_ROWS and kTileCols.
 
 #include "common.cuh"
+
+#ifndef SEGHIERO_DWG_ROWS
+#define SEGHIERO_DWG_ROWS 32  // rows per band (balanced over the image)
+#endif
+#ifndef SEGHIERO_DWG_COLS
+#define SEGHIERO_DWG_COLS 4  // columns per warp
+#endif
+#ifndef SEGHIERO_DWG_STAGES
+#define SEGHIERO_DWG_STAGES 4  // ring slots: rows in flight + 1
+#endif
+#ifndef SEGHIERO_DWG_MIN_BLOCKS
+#define SEGHIERO_DWG_MIN_BLOCKS 2  // asked of ptxas (its 79 registers still fit 3)
+#endif
 
 namespace seghiero {
 namespace {
 
-constexpr int kSeg = 32;    // columns per item
-constexpr int kSlots = 8;   // row slots per block (blockDim.y)
-constexpr int kItems = 2;   // items per thread
+constexpr int kChunkBytes = 128;  // bytes of each pixel per channel chunk (32 lanes × 4)
+constexpr int kRows = SEGHIERO_DWG_ROWS;
+constexpr int kWarpCols = SEGHIERO_DWG_COLS;
+constexpr int kMaxWarps = 8;
+constexpr int kTileCols = kMaxWarps * kWarpCols;
+constexpr int kStages = SEGHIERO_DWG_STAGES;
+static_assert(kStages >= 2, "the ring needs a slot to compute from and one to fill");
+constexpr int kFinishCols = 32, kFinishSegs = 8;  // pass 2: entries × segments per block
 
-template <typename T, int V>
-__device__ __forceinline__ Pack<T, V> load_or_zero(const T* __restrict__ x, int b, int hh,
-                                                   int ww, int H, int W, int C, int c0) {
-  Pack<T, V> p;
-  if (hh < 0 || hh >= H || ww < 0 || ww >= W) {
-#pragma unroll
-    for (int v = 0; v < V; ++v) p.v[v] = from_f32<T>(0.f);
-    return p;
-  }
-  return *reinterpret_cast<const Pack<T, V>*>(
-      x + ((static_cast<long long>(b) * H + hh) * W + ww) * C + c0);
+struct Tile {
+  int ntw, tw, warps, nbands, th, nchunks;
+};
+
+Tile make_tile(int H, int W, int C, int itemsize) {
+  Tile t;
+  t.ntw = (W + kTileCols - 1) / kTileCols;
+  t.tw = (W + t.ntw - 1) / t.ntw;
+  t.warps = (t.tw + kWarpCols - 1) / kWarpCols;
+  t.nbands = (H + kRows - 1) / kRows;
+  t.th = (H + t.nbands - 1) / t.nbands;
+  const int ce = kChunkBytes / itemsize;  // channels per chunk
+  t.nchunks = (C + ce - 1) / ce;
+  return t;
 }
 
-template <typename T, int V>
-__global__ void __launch_bounds__(256) dw3x3_wgrad_partial_kernel(
-    const T* __restrict__ x, const T* __restrict__ g, float* __restrict__ partial, int B,
-    int H, int W, int C, int cvb) {
-  const int CV = C / V;
-  const int cv = blockIdx.x * cvb + threadIdx.x;
-  const bool active = threadIdx.x < cvb && cv < CV;
-  const int c0 = cv * V;
-  const int nseg = (W + kSeg - 1) / kSeg;
-  const long long n_items = static_cast<long long>(B) * H * nseg;
+// ring slot bytes: x row (cols + 2 columns) and g row (cols columns), 128 B each
+__host__ __device__ constexpr int slot_bytes(int cols) { return (2 * cols + 2) * kChunkBytes; }
+
+// G: bytes per copy (16 where C·itemsize and the pointers allow)
+template <typename T, int G>
+__global__ void __launch_bounds__(kMaxWarps * 32, SEGHIERO_DWG_MIN_BLOCKS)
+    dw3x3_wgrad_partial_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                               float* __restrict__ partial, int H, int W, int C, Tile tl) {
+  constexpr int V = 4 / sizeof(T);                // channels per lane
+  constexpr int kCE = kChunkBytes / sizeof(T);    // channels per chunk
+  constexpr int kPieces = kChunkBytes / G;        // copies per pixel chunk
+  constexpr int kPieceElems = G / sizeof(T);
+  using Lane = Pack<T, V>;
+  extern __shared__ __align__(16) unsigned char smem[];
+
+  const int chunk = blockIdx.x % tl.nchunks, tile = blockIdx.x / tl.nchunks;
+  const int c0 = chunk * kCE;
+  const int w0 = tile * tl.tw, h0 = blockIdx.y * tl.th;
+  const int rows = min(tl.th, H - h0);
+  const int n_in = rows + 2;  // steps: x rows h0 − 1 … h0 + rows
+  const int cols = tl.warps * kWarpCols;  // staged columns (≥ tw; the rest read zero)
+  const int slot = slot_bytes(cols);
+  const long long img = static_cast<long long>(blockIdx.z) * H * W * C;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+
+  // step i's slot: x row h0 − 1 + i in columns w0 − 1 …, then g row h0 + i − 2
+  auto stage = [&](int i) {
+    if (i < n_in) {
+      unsigned char* dst = smem + (i % kStages) * slot;
+      const int hx = h0 - 1 + i, hg = h0 + i - 2;
+      const bool x_ok = hx >= 0 && hx < H, g_ok = i >= 2 && i - 2 < rows;
+      const int n = (2 * cols + 2) * kPieces;
+      for (int idx = tid; idx < n; idx += blockDim.x) {
+        const int col = idx / kPieces, c = c0 + (idx % kPieces) * kPieceElems;
+        const T* src = x;
+        bool ok;
+        if (col < cols + 2) {
+          const int ww = w0 - 1 + col;
+          ok = x_ok && ww >= 0 && ww < W && c < C;
+          if (ok) src = x + img + (static_cast<long long>(hx) * W + ww) * C + c;
+        } else {
+          const int j = col - (cols + 2), ww = w0 + j;
+          ok = g_ok && j < tl.tw && ww < W && c < C;
+          if (ok) src = g + img + (static_cast<long long>(hg) * W + ww) * C + c;
+        }
+        copy_async_or_zero<G>(dst + idx * G, src, ok);
+      }
+    }
+    cp_async_commit();
+  };
+
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) stage(i);
 
   float acc[9][V];
 #pragma unroll
@@ -72,103 +153,123 @@ __global__ void __launch_bounds__(256) dw3x3_wgrad_partial_kernel(
 #pragma unroll
     for (int v = 0; v < V; ++v) acc[t][v] = 0.f;
 
-  if (active) {
-    for (int k = 0; k < kItems; ++k) {
-      const long long item =
-          (static_cast<long long>(blockIdx.y) * kItems + k) * kSlots + threadIdx.y;
-      if (item >= n_items) break;
-      const int seg = static_cast<int>(item % nseg);
-      const long long row = item / nseg;  // b·H + h
-      const int h = static_cast<int>(row % H);
-      const int b = static_cast<int>(row / H);
-      const int w0 = seg * kSeg;
-      const int w1 = min(w0 + kSeg, W);
-      // win[r][j]: x at row h+r−1, column w+j−1 of the current w
-      Pack<T, V> win[3][3];
-#pragma unroll
-      for (int r = 0; r < 3; ++r) {
-        win[r][1] = load_or_zero<T, V>(x, b, h + r - 1, w0 - 1, H, W, C, c0);
-        win[r][2] = load_or_zero<T, V>(x, b, h + r - 1, w0, H, W, C, c0);
-      }
-      for (int w = w0; w < w1; ++w) {
-#pragma unroll
-        for (int r = 0; r < 3; ++r) {
-          win[r][0] = win[r][1];
-          win[r][1] = win[r][2];
-          win[r][2] = load_or_zero<T, V>(x, b, h + r - 1, w + 1, H, W, C, c0);
-        }
-        const Pack<T, V> gv = *reinterpret_cast<const Pack<T, V>*>(
-            g + ((static_cast<long long>(b) * H + h) * W + w) * C + c0);
-#pragma unroll
-        for (int r = 0; r < 3; ++r)
-#pragma unroll
-          for (int j = 0; j < 3; ++j)
-#pragma unroll
-            for (int v = 0; v < V; ++v)
-              acc[r * 3 + j][v] += to_f32(win[r][j].v[v]) * to_f32(gv.v[v]);
-      }
-    }
-  }
-
-  // add the kSlots row slots in order, one tap at a time
-  __shared__ float red[kSlots][32 * 8];
-  const int ty = threadIdx.y, tx = threadIdx.x;
-#pragma unroll
-  for (int t = 0; t < 9; ++t) {
-#pragma unroll
-    for (int v = 0; v < V; ++v) red[ty][tx * V + v] = acc[t][v];
+  // step i: `now` takes x row i of the band's walk; `prev` holds row i − 1
+  // and `old` row i − 2, the three rows around g row h0 + i − 2
+  auto step = [&](int i, float (&now)[kWarpCols + 2][V], float (&prev)[kWarpCols + 2][V],
+                  float (&old)[kWarpCols + 2][V]) {
+    cp_async_wait<kStages - 2>();
     __syncthreads();
-    if (ty == 0 && active) {
+    stage(i + kStages - 1);
+    const unsigned char* s = smem + (i % kStages) * slot;
+    const Lane* xs = reinterpret_cast<const Lane*>(s) + warp * kWarpCols * 32 + lane;
+#pragma unroll
+    for (int j = 0; j < kWarpCols + 2; ++j) {
+      const Lane xv = xs[j * 32];
+#pragma unroll
+      for (int v = 0; v < V; ++v) now[j][v] = to_f32(xv.v[v]);
+    }
+    if (i < 2) return;
+    const Lane* gs = reinterpret_cast<const Lane*>(s) + (cols + 2 + warp * kWarpCols) * 32 + lane;
+#pragma unroll
+    for (int j = 0; j < kWarpCols; ++j) {
+      const Lane gv = gs[j * 32];
 #pragma unroll
       for (int v = 0; v < V; ++v) {
-        float s = red[0][tx * V + v];
-        for (int y = 1; y < kSlots; ++y) s += red[y][tx * V + v];
-        partial[(static_cast<long long>(blockIdx.y) * 9 + t) * C + c0 + v] = s;
+        const float gf = to_f32(gv.v[v]);
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) {
+          acc[dx][v] += old[j + dx][v] * gf;
+          acc[3 + dx][v] += prev[j + dx][v] * gf;
+          acc[6 + dx][v] += now[j + dx][v] * gf;
+        }
       }
     }
-    __syncthreads();
+  };
+
+  float r0[kWarpCols + 2][V], r1[kWarpCols + 2][V], r2[kWarpCols + 2][V];
+  for (int i = 0; i < n_in; i += 3) {  // unrolled by 3 so the rows rotate without copies
+    step(i, r0, r2, r1);
+    if (i + 1 < n_in) step(i + 1, r1, r0, r2);
+    if (i + 2 < n_in) step(i + 2, r2, r1, r0);
+  }
+
+  // add the warps' sums in order, one (tap, channel) entry per thread
+  cp_async_wait<0>();
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem);  // [warps][9][kCE]
+#pragma unroll
+  for (int t = 0; t < 9; ++t)
+#pragma unroll
+    for (int v = 0; v < V; ++v) red[(warp * 9 + t) * kCE + lane * V + v] = acc[t][v];
+  __syncthreads();
+  const long long p =
+      (static_cast<long long>(blockIdx.z) * tl.nbands + blockIdx.y) * tl.ntw + tile;
+  for (int e = tid; e < 9 * kCE; e += blockDim.x) {
+    const int t = e / kCE, ch = e % kCE;
+    if (c0 + ch >= C) continue;
+    float s = red[t * kCE + ch];
+    for (int wp = 1; wp < tl.warps; ++wp) s += red[(wp * 9 + t) * kCE + ch];
+    partial[(p * 9 + t) * C + c0 + ch] = s;
   }
 }
 
-__global__ void __launch_bounds__(256) dw3x3_wgrad_finish_kernel(
+__global__ void __launch_bounds__(kFinishCols * kFinishSegs) dw3x3_wgrad_finish_kernel(
     const float* __restrict__ partial, float* __restrict__ dk, int P, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  __shared__ float seg_sum[kFinishSegs][kFinishCols];
+  const int col = threadIdx.x % kFinishCols, seg = threadIdx.x / kFinishCols;
+  const int i = blockIdx.x * kFinishCols + col;
+  const int per = (P + kFinishSegs - 1) / kFinishSegs;
+  const int p1 = min(P, (seg + 1) * per);
   float s = 0.f;
+  if (i < n) {
 #pragma unroll 8
-  for (int p = 0; p < P; ++p) s += partial[static_cast<long long>(p) * n + i];
-  dk[i] = s;
+    for (int p = seg * per; p < p1; ++p) s += partial[static_cast<long long>(p) * n + i];
+  }
+  seg_sum[seg][col] = s;
+  __syncthreads();
+  if (seg == 0 && i < n) {
+#pragma unroll
+    for (int q = 1; q < kFinishSegs; ++q) s += seg_sum[q][col];
+    dk[i] = s;
+  }
 }
 
-template <typename T, int V>
+template <typename T, int G>
 cudaError_t launch(const void* x, const void* g, void* partial, void* dk, int B, int H,
-                   int W, int C, int P, cudaStream_t stream) {
-  const int CV = C / V;
-  const int groups = (CV + 31) / 32;
-  const int cvb = (CV + groups - 1) / groups;  // ≤ 32 channel vectors per block
-  const dim3 block(cvb, kSlots);
-  const dim3 grid(groups, P);
-  dw3x3_wgrad_partial_kernel<T, V><<<grid, block, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g), static_cast<float*>(partial), B,
-      H, W, C, cvb);
+                   int W, int C, const Tile& tl, int P, cudaStream_t stream) {
+  const int ce = kChunkBytes / sizeof(T);
+  const size_t ring = static_cast<size_t>(kStages) * slot_bytes(tl.warps * kWarpCols);
+  const size_t red = static_cast<size_t>(tl.warps) * 9 * ce * sizeof(float);
+  const size_t smem = ring > red ? ring : red;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(dw3x3_wgrad_partial_kernel<T, G>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid(tl.nchunks * tl.ntw, tl.nbands, B);
+  dw3x3_wgrad_partial_kernel<T, G><<<grid, tl.warps * 32, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(g), static_cast<float*>(partial), H, W,
+      C, tl);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int n = 9 * C;
-  dw3x3_wgrad_finish_kernel<<<blocks_for(n, 256), 256, 0, stream>>>(
-      static_cast<const float*>(partial), static_cast<float*>(dk), P, n);
+  dw3x3_wgrad_finish_kernel<<<blocks_for(n, kFinishCols), kFinishCols * kFinishSegs, 0,
+                              stream>>>(static_cast<const float*>(partial),
+                                        static_cast<float*>(dk), P, n);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch_vec(int vec, const void* x, const void* g, void* partial, void* dk,
-                         int B, int H, int W, int C, int P, cudaStream_t s) {
-  switch (vec) {
-    case 1: return launch<T, 1>(x, g, partial, dk, B, H, W, C, P, s);
-    case 2: return launch<T, 2>(x, g, partial, dk, B, H, W, C, P, s);
-    case 4: return launch<T, 4>(x, g, partial, dk, B, H, W, C, P, s);
-    case 8:
-      if constexpr (sizeof(T) * 8 <= 16) return launch<T, 8>(x, g, partial, dk, B, H, W, C, P, s);
+cudaError_t dispatch_copy(int vec, const void* x, const void* g, void* partial, void* dk,
+                          int B, int H, int W, int C, const Tile& tl, int P, cudaStream_t s) {
+  switch (vec * static_cast<int>(sizeof(T))) {
+    case 2:
+      if constexpr (sizeof(T) == 2) return launch<T, 2>(x, g, partial, dk, B, H, W, C, tl, P, s);
       return cudaErrorInvalidValue;
+    case 4: return launch<T, 4>(x, g, partial, dk, B, H, W, C, tl, P, s);
+    case 8: return launch<T, 8>(x, g, partial, dk, B, H, W, C, tl, P, s);
+    case 16: return launch<T, 16>(x, g, partial, dk, B, H, W, C, tl, P, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -177,11 +278,13 @@ cudaError_t dispatch_vec(int vec, const void* x, const void* g, void* partial, v
 }  // namespace seghiero
 
 // x, g: [B, H, W, C] contiguous, both of `dtype`; partial: [P, 9, C] f32
-// scratch with P = ceil(B·H·ceil(W/32) / 16) (the wrapper allocates it);
-// dk: [9, C] f32, taps in (dy, dx) row-major order. `vec` channels per
-// thread must divide C and the wrapper guarantees the vec·itemsize
-// alignment of x and g. Returns cudaGetLastError() (cudaErrorInvalidValue
-// for an unsupported dtype or vec, or a P that does not match the shape).
+// scratch with P = B · ceil(H / SEGHIERO_DWG_ROWS) · ceil(W / kTileCols)
+// (the wrapper allocates it); dk: [9, C] f32, taps in (dy, dx) row-major
+// order. Each copy moves `vec` elements: vec must divide C and the wrapper
+// guarantees the vec·itemsize alignment of x and g. Returns
+// cudaGetLastError() (cudaErrorInvalidValue for an unsupported dtype or
+// vec, a P that does not match the shape, or a shape past the grid's
+// limits).
 extern "C" int seghiero_dw3x3_wgrad(const void* x, const void* g, void* partial, void* dk,
                                     int B, int H, int W, int C, int dtype, int vec, int P,
                                     int device, void* stream) {
@@ -189,13 +292,16 @@ extern "C" int seghiero_dw3x3_wgrad(const void* x, const void* g, void* partial,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (C == 0) return cudaSuccess;
-  const long long items = static_cast<long long>(B) * H * ((W + kSeg - 1) / kSeg);
-  if (P != (items + kSlots * kItems - 1) / (kSlots * kItems) || P > 65535)
-    return cudaErrorInvalidValue;
-  if (P == 0) return cudaMemsetAsync(dk, 0, sizeof(float) * 9 * C, static_cast<cudaStream_t>(stream));
+  if (vec <= 0 || C % vec || B > 65535) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32) return dispatch_vec<float>(vec, x, g, partial, dk, B, H, W, C, P, s);
+  if (B == 0 || H == 0 || W == 0)  // no pixels: dk is 0 and there is no scratch
+    return P == 0 ? cudaMemsetAsync(dk, 0, sizeof(float) * 9 * C, s) : cudaErrorInvalidValue;
+  const Tile tl = make_tile(H, W, C, dtype == kBFloat16 ? 2 : 4);
+  if (static_cast<long long>(P) != static_cast<long long>(B) * tl.nbands * tl.ntw ||
+      tl.nbands > 65535)
+    return cudaErrorInvalidValue;
+  if (dtype == kFloat32) return dispatch_copy<float>(vec, x, g, partial, dk, B, H, W, C, tl, P, s);
   if (dtype == kBFloat16)
-    return dispatch_vec<__nv_bfloat16>(vec, x, g, partial, dk, B, H, W, C, P, s);
+    return dispatch_copy<__nv_bfloat16>(vec, x, g, partial, dk, B, H, W, C, tl, P, s);
   return cudaErrorInvalidValue;
 }

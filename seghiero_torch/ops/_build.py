@@ -149,15 +149,20 @@ def library() -> ctypes.CDLL:
                 )
             else:
                 _build(path)
-            lib = ctypes.CDLL(str(path))
-            for name, argtypes in SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            lib.seghiero_error_string.argtypes = [ctypes.c_int]
-            lib.seghiero_error_string.restype = ctypes.c_char_p
-            _lib = lib
+            _lib = bind(ctypes.CDLL(str(path)))
         return _lib
+
+
+def bind(lib: ctypes.CDLL, names=SIGNATURES) -> ctypes.CDLL:
+    """Set the argument and return types of ``names`` (all entry points by
+    default) and of the error-text function on a loaded kernel library."""
+    for name in names:
+        fn = getattr(lib, name)
+        fn.argtypes = SIGNATURES[name]
+        fn.restype = ctypes.c_int
+    lib.seghiero_error_string.argtypes = [ctypes.c_int]
+    lib.seghiero_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

@@ -29,21 +29,46 @@ def _card():
     return torch.device("cuda")
 
 
+# shapes that cut the depthwise kernels' tiles raggedly (32-row bands,
+# 32-column tiles at 128-byte channel chunks): H and W of 1, of a tile and
+# one past it, config 4's W = 193, C of 1 … 560 (ragged chunks, vectors
+# narrower than 16 bytes), B of 1 to 3
+DW_RAGGED = ((1, 1, 1, 1), (2, 1, 33, 3), (3, 32, 1, 8), (1, 33, 32, 77),
+             (2, 32, 33, 130), (1, 33, 193, 560), (3, 5, 193, 8), (2, 64, 65, 560),
+             (1, 31, 193, 130))
+
+
+def _randn_misaligned(shape, gen, dev, dtype):
+    """A contiguous tensor whose data starts one element into its storage,
+    so no vector wider than one element is aligned (the vec = 1 paths)."""
+    n = int(np.prod(shape))
+    t = torch.randn((n + 1,), generator=gen, device=dev).to(dtype)[1:].view(shape)
+    assert t.is_contiguous() and t.data_ptr() % (2 * t.element_size()) != 0
+    return t
+
+
 @pytest.mark.gpu
 def test_cuda_kernels_equal_plain_versions():
     """Card-only: each CUDA kernel against its plain version, bit for bit,
-    at odd sizes (vector-width fallbacks, partial blocks) and one serving
-    shape; a non-contiguous input raises instead of being copied."""
+    at odd sizes (vector-width fallbacks, partial blocks, ragged tiles,
+    misaligned pointers) and one serving shape; a non-contiguous input
+    raises instead of being copied."""
     dev = _card()
     gen = torch.Generator(device=dev).manual_seed(0)
     for dtype in (torch.float32, torch.bfloat16):
-        for shape in ((2, 13, 11, 3), (1, 9, 20, 130), (3, 17, 5, 6), (2, 128, 128, 560)):
-            x = torch.randn(shape, generator=gen, device=dev).to(dtype)
-            k9 = torch.randn((9, shape[-1]), generator=gen, device=dev).to(dtype)
-            before = port_dw.launches
-            got = port_dw.depthwise3x3(x, k9)
-            assert port_dw.launches == before + 1
-            assert torch.equal(got, port_dw.depthwise3x3_plain(x, k9)), (dtype, shape)
+        for shape in ((2, 13, 11, 3), (1, 9, 20, 130), (3, 17, 5, 6), (2, 128, 128, 560),
+                      *DW_RAGGED):
+            for misaligned in (False, True):
+                if misaligned:
+                    x = _randn_misaligned(shape, gen, dev, dtype)
+                else:
+                    x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+                k9 = torch.randn((9, shape[-1]), generator=gen, device=dev).to(dtype)
+                before = port_dw.launches
+                got = port_dw.depthwise3x3(x, k9)
+                assert port_dw.launches == before + 1
+                assert torch.equal(got, port_dw.depthwise3x3_plain(x, k9)), (dtype, shape,
+                                                                              misaligned)
         for shape, slices in (((2, 13, 6, 10), [(0, 9), (9, 13)]),
                               ((1, 15, 7, 9), [(0, 9), (9, 13), (13, 15)]),
                               ((8, 13, 128, 128), [(0, 9), (9, 13)])):
@@ -63,26 +88,44 @@ def test_cuda_kernels_equal_plain_versions():
 def test_depthwise_gradient_kernels_equal_plain_versions():
     """Card-only: the input gradient (#1b, bit for bit: the forward kernel
     with reversed taps) and the weight gradient (#2, within 1e-5·Σ|x·g| per
-    entry: another summation order) at odd sizes — C not a multiple of 8,
-    H and W not multiples of the kernel's 32-column segments."""
+    entry: another summation order; the same bits twice) at odd sizes — C
+    not a multiple of 8, H and W not multiples of the kernels' 32-row bands
+    and 32-column tiles, misaligned pointers — and the weight gradient's C
+    entry refuses a scratch that does not match the shape."""
     dev = _card()
     gen = torch.Generator(device=dev).manual_seed(1)
     for dtype in (torch.float32, torch.bfloat16):
-        for shape in ((2, 13, 11, 3), (1, 9, 37, 130), (3, 17, 5, 6), (2, 33, 70, 77)):
-            x = torch.randn(shape, generator=gen, device=dev).to(dtype)
-            g = torch.randn(shape, generator=gen, device=dev).to(dtype)
-            k9 = torch.randn((9, shape[-1]), generator=gen, device=dev).to(dtype)
-            before = (port_dw.dgrad_launches, port_dw.wgrad_launches)
-            dx = port_dw.depthwise3x3_dgrad(g, k9)
-            dk = port_dw.depthwise3x3_wgrad(x, g)
-            assert (port_dw.dgrad_launches, port_dw.wgrad_launches) == (before[0] + 1,
-                                                                        before[1] + 1)
-            assert torch.equal(dx, port_dw.depthwise3x3_plain(g, k9.flip(0))), (dtype, shape)
-            want = port_dw.depthwise3x3_wgrad_plain(x, g)
-            mag = port_dw.depthwise3x3_wgrad_plain(x.float().abs(), g.float().abs())
-            assert dk.dtype == torch.float32 and dk.shape == want.shape
-            assert ((dk - want).abs() <= 1e-5 * mag + 1e-30).all(), (dtype, shape)
-            assert torch.equal(dk, port_dw.depthwise3x3_wgrad(x, g))  # deterministic
+        for shape in ((2, 13, 11, 3), (1, 9, 37, 130), (3, 17, 5, 6), (2, 33, 70, 77),
+                      *DW_RAGGED):
+            for misaligned in (False, True):
+                make = _randn_misaligned if misaligned else (
+                    lambda s, gen, dev, dt: torch.randn(s, generator=gen, device=dev).to(dt))
+                x, g = make(shape, gen, dev, dtype), make(shape, gen, dev, dtype)
+                k9 = torch.randn((9, shape[-1]), generator=gen, device=dev).to(dtype)
+                before = (port_dw.dgrad_launches, port_dw.wgrad_launches)
+                dx = port_dw.depthwise3x3_dgrad(g, k9)
+                dk = port_dw.depthwise3x3_wgrad(x, g)
+                assert (port_dw.dgrad_launches, port_dw.wgrad_launches) == (before[0] + 1,
+                                                                            before[1] + 1)
+                case = (dtype, shape, misaligned)
+                assert torch.equal(dx, port_dw.depthwise3x3_plain(g, k9.flip(0))), case
+                want = port_dw.depthwise3x3_wgrad_plain(x, g)
+                mag = port_dw.depthwise3x3_wgrad_plain(x.float().abs(), g.float().abs())
+                assert dk.dtype == torch.float32 and dk.shape == want.shape
+                assert ((dk - want).abs() <= 1e-5 * mag + 1e-30).all(), case
+                assert torch.equal(dk, port_dw.depthwise3x3_wgrad(x, g)), case  # deterministic
+    # the C entry checks the scratch rows against the shape
+    B, H, W, C = 2, 33, 70, 64
+    x = torch.randn((B, H, W, C), device=dev)
+    lib = port_dw._build.library()
+    P = port_dw.wgrad_partials(B, H, W)
+    partial = torch.empty((P + 1, 9, C), device=dev)
+    dk = torch.empty((9, C), device=dev)
+    for rows in (P - 1, P + 1):
+        err = lib.seghiero_dw3x3_wgrad(x.data_ptr(), x.data_ptr(), partial.data_ptr(),
+                                       dk.data_ptr(), B, H, W, C, 0, 4, rows, dev.index or 0,
+                                       torch.cuda.current_stream(dev).cuda_stream)
+        assert err != 0, rows
 
 
 @pytest.mark.gpu
