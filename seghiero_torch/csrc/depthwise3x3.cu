@@ -46,33 +46,19 @@
 // version in seghiero_torch/ops/depthwise.py: the kernel equals the plain
 // version bit for bit, for #1 and for #1b.
 //
-// Tile sizes are macros so that variants can be built from this file with
-// -D flags and timed against each other on the card
-// (seghiero_torch/ops/depthwise_variants.py); the defaults are the
-// fastest measured at the head's shapes.
+// The tile sizes below are the fastest of the variants timed against each
+// other at the head's shapes on an H100 (PERF.md, PR 5).
 
 #include "common.cuh"
-
-#ifndef SEGHIERO_DW_ROWS
-#define SEGHIERO_DW_ROWS 32  // output rows per band (balanced over the image)
-#endif
-#ifndef SEGHIERO_DW_STAGES
-#define SEGHIERO_DW_STAGES 4  // ring slots: input rows in flight + 1
-#endif
-#ifndef SEGHIERO_DW_THREADS
-#define SEGHIERO_DW_THREADS 128  // threads per block, at most
-#endif
-#ifndef SEGHIERO_DW_MIN_BLOCKS
-#define SEGHIERO_DW_MIN_BLOCKS 4  // resident blocks per SM asked of ptxas
-#endif
 
 namespace seghiero {
 namespace {
 
-constexpr int kThreads = SEGHIERO_DW_THREADS;
+constexpr int kThreads = 128;     // threads per block, at most
+constexpr int kMinBlocks = 4;     // resident blocks per SM asked of ptxas
 constexpr int kChunkBytes = 128;  // bytes of each pixel per channel chunk
-constexpr int kRows = SEGHIERO_DW_ROWS;
-constexpr int kStages = SEGHIERO_DW_STAGES;
+constexpr int kRows = 32;         // output rows per band (balanced over the image)
+constexpr int kStages = 4;        // ring slots: input rows in flight + 1
 static_assert(kStages >= 2, "the ring needs a slot to compute from and one to fill");
 
 // launch geometry: channel chunks of cvb vectors, column tiles of tw,
@@ -95,7 +81,7 @@ Tile make_tile(int H, int W, int CV, int vec_bytes) {
 }
 
 template <typename T, int V>
-__global__ void __launch_bounds__(kThreads, SEGHIERO_DW_MIN_BLOCKS) dw3x3_fwd_kernel(
+__global__ void __launch_bounds__(kThreads, kMinBlocks) dw3x3_fwd_kernel(
     const T* __restrict__ x, const T* __restrict__ k9, T* __restrict__ out, int H, int W,
     int C, Tile tl) {
   using P = Pack<T, V>;

@@ -43,43 +43,37 @@
 // seghiero_torch/ops/depthwise.py is compared within 1e-5 · Σ|x·g| per
 // entry, not bit for bit; the order is fixed, so two runs agree bit for bit.
 //
-// Tile sizes are macros so that variants can be built from this file with
-// -D flags and timed against each other on the card
-// (seghiero_torch/ops/depthwise_variants.py); the defaults are the
-// fastest measured at the head's shapes that need no opt-in to more than
-// 48 KB of shared memory. The wrapper's WGRAD_BAND_H and
-// WGRAD_TILE_W mirror SEGHIERO_DWG_ROWS and kTileCols.
+// The tile sizes below are the fastest of the variants timed against each
+// other at the head's shapes on an H100 that need no opt-in to more than
+// 48 KB of shared memory (PERF.md, PR 5). The partition is known only
+// here: the wrapper asks seghiero_dw3x3_wgrad_partials for the scratch
+// rows it must allocate.
 
 #include "common.cuh"
-
-#ifndef SEGHIERO_DWG_ROWS
-#define SEGHIERO_DWG_ROWS 32  // rows per band (balanced over the image)
-#endif
-#ifndef SEGHIERO_DWG_COLS
-#define SEGHIERO_DWG_COLS 4  // columns per warp
-#endif
-#ifndef SEGHIERO_DWG_STAGES
-#define SEGHIERO_DWG_STAGES 4  // ring slots: rows in flight + 1
-#endif
-#ifndef SEGHIERO_DWG_MIN_BLOCKS
-#define SEGHIERO_DWG_MIN_BLOCKS 2  // asked of ptxas (its 79 registers still fit 3)
-#endif
 
 namespace seghiero {
 namespace {
 
 constexpr int kChunkBytes = 128;  // bytes of each pixel per channel chunk (32 lanes × 4)
-constexpr int kRows = SEGHIERO_DWG_ROWS;
-constexpr int kWarpCols = SEGHIERO_DWG_COLS;
+constexpr int kRows = 32;      // rows per band (balanced over the image)
+constexpr int kWarpCols = 4;   // columns per warp
 constexpr int kMaxWarps = 8;
 constexpr int kTileCols = kMaxWarps * kWarpCols;
-constexpr int kStages = SEGHIERO_DWG_STAGES;
+constexpr int kStages = 4;     // ring slots: rows in flight + 1
+constexpr int kMinBlocks = 2;  // asked of ptxas (its 79 registers still fit 3)
 static_assert(kStages >= 2, "the ring needs a slot to compute from and one to fill");
 constexpr int kFinishCols = 32, kFinishSegs = 8;  // pass 2: entries × segments per block
 
 struct Tile {
   int ntw, tw, warps, nbands, th, nchunks;
 };
+
+// pass 1's blocks per channel chunk, one per (image, row band, column
+// tile): the rows of the partial-sum scratch (H, W > 0)
+long long partials(int B, int H, int W) {
+  return static_cast<long long>(B) * ((H + kRows - 1) / kRows) *
+         ((W + kTileCols - 1) / kTileCols);
+}
 
 Tile make_tile(int H, int W, int C, int itemsize) {
   Tile t;
@@ -98,7 +92,7 @@ __host__ __device__ constexpr int slot_bytes(int cols) { return (2 * cols + 2) *
 
 // G: bytes per copy (16 where C·itemsize and the pointers allow)
 template <typename T, int G>
-__global__ void __launch_bounds__(kMaxWarps * 32, SEGHIERO_DWG_MIN_BLOCKS)
+__global__ void __launch_bounds__(kMaxWarps * 32, kMinBlocks)
     dw3x3_wgrad_partial_kernel(const T* __restrict__ x, const T* __restrict__ g,
                                float* __restrict__ partial, int H, int W, int C, Tile tl) {
   constexpr int V = 4 / sizeof(T);                // channels per lane
@@ -277,9 +271,17 @@ cudaError_t dispatch_copy(int vec, const void* x, const void* g, void* partial, 
 }  // namespace
 }  // namespace seghiero
 
+// Rows P of the partial-sum scratch that seghiero_dw3x3_wgrad needs for x of
+// shape [B, H, W, ·]: 0 when there are no pixels, −1 past an int.
+extern "C" int seghiero_dw3x3_wgrad_partials(int B, int H, int W) {
+  if (B <= 0 || H <= 0 || W <= 0) return 0;
+  const long long P = seghiero::partials(B, H, W);
+  return P > 0x7fffffff ? -1 : static_cast<int>(P);
+}
+
 // x, g: [B, H, W, C] contiguous, both of `dtype`; partial: [P, 9, C] f32
-// scratch with P = B · ceil(H / SEGHIERO_DWG_ROWS) · ceil(W / kTileCols)
-// (the wrapper allocates it); dk: [9, C] f32, taps in (dy, dx) row-major
+// scratch with P = seghiero_dw3x3_wgrad_partials(B, H, W) (the wrapper
+// allocates it); dk: [9, C] f32, taps in (dy, dx) row-major
 // order. Each copy moves `vec` elements: vec must divide C and the wrapper
 // guarantees the vec·itemsize alignment of x and g. Returns
 // cudaGetLastError() (cudaErrorInvalidValue for an unsupported dtype or
@@ -297,8 +299,7 @@ extern "C" int seghiero_dw3x3_wgrad(const void* x, const void* g, void* partial,
   if (B == 0 || H == 0 || W == 0)  // no pixels: dk is 0 and there is no scratch
     return P == 0 ? cudaMemsetAsync(dk, 0, sizeof(float) * 9 * C, s) : cudaErrorInvalidValue;
   const Tile tl = make_tile(H, W, C, dtype == kBFloat16 ? 2 : 4);
-  if (static_cast<long long>(P) != static_cast<long long>(B) * tl.nbands * tl.ntw ||
-      tl.nbands > 65535)
+  if (static_cast<long long>(P) != partials(B, H, W) || tl.nbands > 65535)
     return cudaErrorInvalidValue;
   if (dtype == kFloat32) return dispatch_copy<float>(vec, x, g, partial, dk, B, H, W, C, tl, P, s);
   if (dtype == kBFloat16)

@@ -53,6 +53,8 @@ SIGNATURES = {
     "seghiero_upsample_argmax": [_P] + [_I] * 12 + [_P, _P, _P, _I, _P],
     # x, g, partial, dk, B, H, W, C, dtype, vec, P, device, stream
     "seghiero_dw3x3_wgrad": [_P] * 4 + [_I] * 8 + [_P],
+    # B, H, W -> rows of seghiero_dw3x3_wgrad's partial-sum scratch
+    "seghiero_dw3x3_wgrad_partials": [_I] * 3,
     # lo, t_fine, t_coarse, f2c, partial, sums, B, C, h, w, nf, nc, device, stream
     "seghiero_hiera2_fwd": [_P] * 6 + [_I] * 7 + [_P],
     # lo, t_fine, t_coarse, f2c, gsum, dlo, B, C, h, w, nf, nc, device, stream
@@ -149,20 +151,15 @@ def library() -> ctypes.CDLL:
                 )
             else:
                 _build(path)
-            _lib = bind(ctypes.CDLL(str(path)))
+            lib = ctypes.CDLL(str(path))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.seghiero_error_string.argtypes = [ctypes.c_int]
+            lib.seghiero_error_string.restype = ctypes.c_char_p
+            _lib = lib
         return _lib
-
-
-def bind(lib: ctypes.CDLL, names=SIGNATURES) -> ctypes.CDLL:
-    """Set the argument and return types of ``names`` (all entry points by
-    default) and of the error-text function on a loaded kernel library."""
-    for name in names:
-        fn = getattr(lib, name)
-        fn.argtypes = SIGNATURES[name]
-        fn.restype = ctypes.c_int
-    lib.seghiero_error_string.argtypes = [ctypes.c_int]
-    lib.seghiero_error_string.restype = ctypes.c_char_p
-    return lib
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

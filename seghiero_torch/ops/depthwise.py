@@ -32,10 +32,6 @@ wgrad_launches = 0
 # cotangents the backward had to copy to NHWC-contiguous before its kernels
 backward_copies = 0
 
-# csrc/depthwise3x3_wgrad.cu's pass-1 partition: one block per channel chunk,
-# image, band of WGRAD_BAND_H rows and tile of WGRAD_TILE_W columns
-WGRAD_BAND_H, WGRAD_TILE_W = 32, 32
-
 
 def depthwise3x3_plain(x: torch.Tensor, k9: torch.Tensor) -> torch.Tensor:
     """The kernel's arithmetic in plain PyTorch: 9 shifted multiply-adds
@@ -103,15 +99,13 @@ def _check_nhwc(x: torch.Tensor, other: torch.Tensor, other_shape, what: str) ->
         )
 
 
-def _launch_forward(x: torch.Tensor, k9: torch.Tensor, lib=None) -> torch.Tensor:
-    """Kernel #1 on x (``lib``: the kernel library, by default the
-    checkout's build)."""
+def _launch_forward(x: torch.Tensor, k9: torch.Tensor) -> torch.Tensor:
     B, H, W, C = x.shape
     _check_nhwc(x, k9, (9, C), "depthwise3x3")
     code = _build.dtype_code(x.dtype)
     out = torch.empty_like(x, memory_format=torch.contiguous_format)
     vec = _vector_width(C, x.element_size(), x, k9, out)
-    lib = lib or _build.library()
+    lib = _build.library()
     err = lib.seghiero_dw3x3_fwd(
         x.data_ptr(), k9.data_ptr(), out.data_ptr(), B, H, W, C, code, vec,
         x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
@@ -145,31 +139,13 @@ def depthwise3x3_dgrad(g: torch.Tensor, k9: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def wgrad_partials(B: int, H: int, W: int, band_h: int = WGRAD_BAND_H,
-                   tile_w: int = WGRAD_TILE_W) -> int:
-    """Rows of the kernel's partial-sum scratch: one per (image, row band,
-    column tile) of pass 1, each covering all channel chunks."""
-    return B * -(-H // band_h) * -(-W // tile_w)
-
-
-def _launch_wgrad(x: torch.Tensor, g: torch.Tensor, lib=None, band_h: int = WGRAD_BAND_H,
-                  tile_w: int = WGRAD_TILE_W) -> torch.Tensor:
-    """Kernel #2 on x and g (``lib`` and the partition: those of the
-    checkout's build unless a variant build is given)."""
-    _check_nhwc(x, g, x.shape, "depthwise3x3_wgrad")
-    B, H, W, C = x.shape
-    code = _build.dtype_code(x.dtype)
-    P = wgrad_partials(B, H, W, band_h, tile_w)
-    partial = torch.empty((P, 9, C), dtype=torch.float32, device=x.device)
-    dk = torch.empty((9, C), dtype=torch.float32, device=x.device)
-    vec = _vector_width(C, x.element_size(), x, g)
-    lib = lib or _build.library()
-    err = lib.seghiero_dw3x3_wgrad(
-        x.data_ptr(), g.data_ptr(), partial.data_ptr(), dk.data_ptr(), B, H, W, C,
-        code, vec, P, x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    _build.check(lib, err, "depthwise3x3_wgrad")
-    return dk
+def wgrad_partials(B: int, H: int, W: int) -> int:
+    """Rows of the kernel's partial-sum scratch for x of shape
+    ``[B, H, W, ·]``, as the kernel's own partition gives them."""
+    P = _build.library().seghiero_dw3x3_wgrad_partials(B, H, W)
+    if P < 0:
+        raise ValueError(f"depthwise3x3_wgrad: shape {(B, H, W)} is past the kernel's grid")
+    return P
 
 
 def depthwise3x3_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -178,7 +154,19 @@ def depthwise3x3_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     version on the CPU."""
     if not _on_card(x, "depthwise3x3_wgrad"):
         return depthwise3x3_wgrad_plain(x, g)
-    dk = _launch_wgrad(x, g)
+    _check_nhwc(x, g, x.shape, "depthwise3x3_wgrad")
+    B, H, W, C = x.shape
+    code = _build.dtype_code(x.dtype)
+    P = wgrad_partials(B, H, W)
+    partial = torch.empty((P, 9, C), dtype=torch.float32, device=x.device)
+    dk = torch.empty((9, C), dtype=torch.float32, device=x.device)
+    vec = _vector_width(C, x.element_size(), x, g)
+    lib = _build.library()
+    err = lib.seghiero_dw3x3_wgrad(
+        x.data_ptr(), g.data_ptr(), partial.data_ptr(), dk.data_ptr(), B, H, W, C,
+        code, vec, P, x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(lib, err, "depthwise3x3_wgrad")
     global wgrad_launches
     wgrad_launches += 1
     return dk
