@@ -13,12 +13,14 @@ printed as one line, any failure exits non-zero:
    (seconds, and ``-Xptxas -v``'s registers and spills per kernel);
 3. kernels — each kernel against its plain PyTorch version at the shapes
    its path gives it (TF32 off; the tolerance stated beside each check;
-   the Gram kernels also run twice for the same bits),
+   the Gram and fused loss kernels also run twice for the same bits),
    then timed with CUDA events against the plain version, the PyTorch
    library call computing the same function (for the fused loss and the
    RMI Gram kernels, which have none, the port's library-op path of the
    same loss term), and the least time the card could take; the
-   depthwise kernels also at config 4's shapes (193², odd); the RMI Gram
+   depthwise kernels also at config 4's shapes (193², odd); the fused
+   loss kernels also at the 150-class config's (``[8, 165, 128, 128]``);
+   the RMI Gram
    kernels at config 3's shapes (f32) and their bf16-view variants at
    config 4's (beside the f32 kernels' times there), then the RMI term at
    config 4's shapes on four routes (fast kernels, parity kernels,
@@ -40,6 +42,10 @@ printed as one line, any failure exits non-zero:
    step 1 a finite gradient for every parameter — the evaluation pass and
    a checkpoint, restored into a fresh ``Trainer`` whose eval loss must be
    the same bits;
+5b. train150 — ``configs/example-train-150-hopper.yaml`` (config 2 with
+   the 150 + 15 classes of ``example-many-classes.yaml``), the same checks
+   as ``train`` against its library path (``pallas_fused_loss: false``),
+   each ``fit`` step with exactly 2/2/2/1/1 launches;
 6. train3  — ``configs/example-train-3level-hopper.yaml`` (BASELINE config
    3: ResNet-50, 3-level hierarchy of 15 classes, 512², batch 4, bf16), the
    same checks against the library path (``depthwise_backend: xla``,
@@ -307,12 +313,14 @@ def phase_kernels(seed: int):
     return results
 
 
-def phase_train_kernels(seed: int, sm_mhz: float):
-    """The training path's loss kernels: the fused upsample + hierarchy-BCE
-    + CE forward and backward at config 2's shapes (``[8, 13, 128, 128]``
-    logits with the synthetic dataset's 512² label maps), then the RMI
-    Gram kernels (``rmi_kernel_checks``, ``rmi_fast_checks``). The
-    depthwise gradients are checked with the forward (``depthwise_checks``)."""
+def fused_loss_checks(gen, config: str, sm_mhz: float):
+    """The fused upsample + hierarchy-BCE + CE forward (#4) and backward
+    (#5) at one config's shapes: random low-res logits ``[8, C, 128, 128]``
+    f32 with the training split's first 8 label maps (512², ~2 % ignore),
+    each kernel against its plain version (and run twice for the same
+    bits), then timed against the plain version, the port's unfused path
+    (``F.interpolate`` + the PyTorch loss ops), forward and forward +
+    backward, and the bound."""
     import torch
 
     from seghiero_torch.config import load_config
@@ -322,15 +330,8 @@ def phase_train_kernels(seed: int, sm_mhz: float):
     from seghiero_torch.ops import hiera2_fused as fused
     from seghiero_torch.ops.resize import resize_bilinear
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(seed + 1)
-    results = {}
-
-    # fused loss at config 2: low-res logits [8, 13, 128, 128] f32 and the
-    # training split's first 8 label maps (512², ~2 % ignore)
-    cfg = load_config(str(ROOT / "configs" / "example-train-hopper.yaml"))
+    cfg = load_config(str(ROOT / "configs" / config))
     hier = cfg.hierarchy
     ds = build_dataset(cfg, "train", seed=cfg.training.seed)
     labels = torch.from_numpy(np.stack([ds[i]["fine"] for i in range(8)])).to(dev)
@@ -341,13 +342,16 @@ def phase_train_kernels(seed: int, sm_mhz: float):
     nf, nc = hier.n_fine, hier.n_coarse
 
     # #4: stated tolerance 1e-5 relative per sum (f32 sums of 2.1 M terms
-    # in another order; the counts exact)
+    # in another order; the counts exact); the same bits twice
     got = fused.fused_hiera2_sums_kernel(lo, tf, tc, hier)
     want = fused.fused_hiera2_sums_plain(lo, tf, tc, hier)
     err = (got - want).abs()
+    again = torch.equal(got, fused.fused_hiera2_sums_kernel(lo, tf, tc, hier))
     torch.cuda.synchronize()
-    if not bool((err <= 1e-5 * want.abs()).all()) or not torch.equal(got[2:4], want[2:4]):
-        raise AssertionError(f"hiera2_fused_fwd: sums {got.tolist()} vs plain {want.tolist()}")
+    if (not bool((err <= 1e-5 * want.abs()).all()) or not torch.equal(got[2:4], want[2:4])
+            or not again):
+        raise AssertionError(f"hiera2_fused_fwd ({config}): sums {got.tolist()} vs plain "
+                             f"{want.tolist()}, same bits twice: {again}")
     nvf, nvc = int(want[2].item()), int(want[3].item())
     # #5 with the cotangents the loss assembly passes (losses/fast.py);
     # stated tolerance rtol 2e-4, atol 1e-7 (tests/test_pallas_fused.py)
@@ -357,10 +361,12 @@ def phase_train_kernels(seed: int, sm_mhz: float):
     dlo = fused.fused_hiera2_grad_kernel(lo, tf, tc, hier, gsum)
     dwant = fused.fused_hiera2_grad_plain(lo, tf, tc, hier, gsum)
     derr = (dlo - dwant).abs()
+    dagain = torch.equal(dlo, fused.fused_hiera2_grad_kernel(lo, tf, tc, hier, gsum))
     torch.cuda.synchronize()
-    if not bool((derr <= 1e-7 + 2e-4 * dwant.abs()).all()):
-        raise AssertionError(f"hiera2_fused_bwd: max |Δ| {derr.max().item()} beyond "
-                             "rtol 2e-4, atol 1e-7")
+    if not bool((derr <= 1e-7 + 2e-4 * dwant.abs()).all()) or not dagain:
+        raise AssertionError(f"hiera2_fused_bwd ({config}): max |Δ| {derr.max().item()} beyond "
+                             f"rtol 2e-4, atol 1e-7, or not the same bits twice ({dagain})")
+    del dwant
 
     def unfused(x):  # the port's own path without the kernels
         lf = resize_bilinear(x, (4 * h, 4 * w))
@@ -388,13 +394,18 @@ def phase_train_kernels(seed: int, sm_mhz: float):
                   + (g_l[4] + g_l[5]) / total)
     with torch.no_grad():
         unfused_fwd_ms = time_ms(lambda: unfused(lo), iters=10)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     unfused_both_ms = time_ms(unfused_fwd_bwd, iters=10)
+    unfused_peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    torch.cuda.reset_peak_memory_stats()
     fused_both_ms = time_ms(fused_fwd_bwd, iters=10)
+    fused_peak = (torch.cuda.max_memory_allocated() - base) / 2**20
     # least work: each input byte read and each output byte written once;
     # per valid pixel the transcendentals the kernels evaluate (forward
     # 5·n+1 per level of n classes: 4 per BCE term, n exp + 1 log for CE;
-    # backward 9·n: 7 per BCE derivative, an exp and a division per softmax
-    # entry) and the 4-tap blend (9 flop per channel)
+    # backward 9·n: 7 per BCE derivative, n exps for the log-sum-exp and one
+    # a softmax entry) and the 4-tap blend (9 flop per channel)
     px = total
     fwd_mufu = nvf * (5 * nf + 1) + nvc * (5 * nc + 1)
     bwd_mufu = nvf * 9 * nf + nvc * 9 * nc
@@ -409,18 +420,36 @@ def phase_train_kernels(seed: int, sm_mhz: float):
          lambda: fused.fused_hiera2_grad_plain(lo, tf, tc, hier, gsum), bwd_mufu,
          lo.nbytes + tf.nbytes + tc.nbytes + dlo.nbytes, derr.max().item(),
          {"unfused_ms": unfused_both_ms, "unfused_what": "the same, forward + backward",
-          "fused_fwd_bwd_ms": fused_both_ms}),
+          "fused_fwd_bwd_ms": fused_both_ms, "unfused_fwd_bwd_peak_mb": unfused_peak,
+          "fused_fwd_bwd_peak_mb": fused_peak}),
     ):
         t = {"ms": time_ms(fn), "plain_ms": time_ms(plain, iters=3)}
         b_ms, b_by = bound(nbytes, 9 * C * px, mufu, sm_mhz)
         entries[name] = dict(t, library_ms=None, bound_ms=b_ms, bound_by=b_by,
-                             max_abs_err=e, shapes=[[B, C, h, w]], **extra)
-        say("kernels", kernel=name, shape=[B, C, h, w], dtype="float32", bytes=nbytes,
-            mufu_ops=mufu, sm_clock_mhz=sm_mhz, valid_pixels=[nvf, nvc],
-            share_of_bound=b_ms / t["ms"], **entries[name])
-    results.update(entries)
-    del lo, dlo, dwant, lo_req
+                             max_abs_err=e, shapes=[[B, C, h, w]], same_bits_twice=True,
+                             share_of_bound=b_ms / t["ms"], **extra)
+        say("kernels", kernel=name, config=config, shape=[B, C, h, w], dtype="float32",
+            bytes=nbytes, mufu_ops=mufu, sm_clock_mhz=sm_mhz, valid_pixels=[nvf, nvc],
+            **entries[name])
+    del lo, dlo, lo_req
     torch.cuda.empty_cache()
+    return entries
+
+
+def phase_train_kernels(seed: int, sm_mhz: float):
+    """The training path's loss kernels: the fused upsample + hierarchy-BCE
+    + CE forward and backward (``fused_loss_checks``) at config 2's shapes
+    (``[8, 13, 128, 128]``) and at the 150-class config's (``[8, 165, 128,
+    128]``), then the RMI Gram kernels (``rmi_kernel_checks``,
+    ``rmi_fast_checks``). The depthwise gradients are checked with the
+    forward (``depthwise_checks``)."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    results = fused_loss_checks(gen, "example-train-hopper.yaml", sm_mhz)
+    results["config150"] = fused_loss_checks(gen, "example-train-150-hopper.yaml", sm_mhz)
     results.update(rmi_kernel_checks(seed))
     results.update(rmi_fast_checks(seed))
     return results
@@ -1085,6 +1114,17 @@ TRAIN_PHASES = {
         "compare": (("kernel", "library"),),
         "launches": dict(_DW, hiera2_fused_fwd=1, hiera2_fused_bwd=1, **_NO_RMI),
     },
+    "train150": {
+        "config": "example-train-150-hopper.yaml", "what": "the 150-class config",
+        "model": (50, (512, 512)),
+        "selects": lambda m, t, h: (t.pallas_fused_loss, t.hiera_precision, t.batch_size,
+                                    h.has_super, h.total_classes)
+        == (True, "parity", 8, False, 165),
+        "library": {"pallas_fused_loss": False},
+        "paths": {},
+        "compare": (("kernel", "library"),),
+        "launches": dict(_DW, hiera2_fused_fwd=1, hiera2_fused_bwd=1, **_NO_RMI),
+    },
     "train3": {
         "config": "example-train-3level-hopper.yaml", "what": "config 3",
         "model": (50, (512, 512)),
@@ -1455,8 +1495,11 @@ def main(argv=None) -> int:
             "shapes": k["shapes"],
             **{x: k[x] for x in ("unfused_ms", "unfused_what", "kernel_path_ms",
                                  "kernel_over_library") if x in k},
-            # the depthwise kernels also at config 4's shapes (train4's path)
+            # the depthwise kernels also at config 4's shapes (train4's path),
+            # the fused loss at the 150-class config's (train150's)
             **({"config4": kernels["config4"][kname]} if kname in kernels["config4"] else {}),
+            **({"config150": kernels["config150"][kname]}
+               if kname in kernels["config150"] else {}),
         })
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)

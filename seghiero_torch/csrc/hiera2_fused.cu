@@ -1,58 +1,74 @@
 // Fused 4× bilinear upsample + 2-level hierarchy BCE + per-level CE:
-// forward (six loss sums) and backward (gradient onto the low-res logits).
+// forward (six loss sums, #4) and backward (gradient onto the low-res
+// logits, #5), for any 2-level hierarchy.
 //
 // Replaces: seghiero_tpu/ops/pallas/hiera2_fused.py — the forward
 // `_core_fwd_impl` (the pl.pallas_call at :322, kernel body `_fwd_kernel`
 // :105-169) and the backward `_core_bwd_rule` (the pl.pallas_call at :348,
 // kernel body `_bwd_kernel` :177-271), reached from
 // `FastHieraTripletLoss` (seghiero_tpu/losses/fast.py:462-479) with
-// `training.pallas_fused_loss: true`.
+// `training.pallas_fused_loss: true`. The TPU kernel is specialised on the
+// hierarchy and has no class bound; neither have these.
 //
 // Inputs: C-major f32 logits lo [B, C, h, w] (C = nf fine + nc coarse),
-// int32 labels t_fine and t_coarse [B, 4h, 4w] (255 = ignore), and the
-// fine→coarse table f2c [nf] on the device. The upsampled logits of a
-// high-res pixel are rebuilt in registers from its 4 low-res taps (edge
-// clamp in the index arithmetic, phase weights of `upsample4_phase`, the
-// multiply-add order of upsample_argmax.cu), so nothing full-resolution but
-// the labels is ever read or written. The TPU kernel's nine shifted views
-// and phase-split labels exist for Mosaic's block-local access and have no
-// counterpart here.
-//
-// Forward, per valid pixel (exactly the terms of `_fwd_kernel`; where the
-// TPU kernel evaluates both sides of a `where`, this kernel evaluates the
-// side it keeps):
+// int32 labels t_fine and t_coarse [B, 4h, 4w] (255 = ignore), and a table
+// of the hierarchy built by the wrapper (ops/hiera2_fused.py
+// `hierarchy_table`):
+//   goff[nc + 1]  start of coarse group g in the walk order;
+//   walk[C]       the channels by group: coarse channel nf + g, then its
+//                 fine children in id order (groups need not be contiguous);
+//   bsched[2C]    each group's walk entries twice (the backward's passes).
+// Per valid pixel (exactly the terms of `_fwd_kernel`):
 //   s_f  += Σ_f [f = t_f] −log(σ(min(l_f, l_coarse(f))) + ε) + [f ≠ t_f] −log(1 − σ(l_f) + ε)
 //   s_c  += Σ_c [c = t_c] −log(σ(l_c) + ε) + [c ≠ t_c] −log(1 − σ(max(l_c, l_f∈c)) + ε)
 //   nv_f, nv_c += 1;  ce_f, ce_c += logsumexp − l[label]
 // with the logit-space forms log(σ(m) + ε) = logaddexp(−softplus(−m), log ε)
-// (ε = 1e-8). One thread per high-res pixel; each block adds its 256
-// pixels' six sums in a fixed shuffle tree and writes one partial row; a
-// second one-block pass adds the partials in a fixed order (in double).
-// No float atomics: two runs give the same bits.
+// (ε = 1e-8).
 //
-// Backward: the cotangents of sums 0, 1, 4 and 5 (the counts carry none).
-// Per pixel the gradient routes ties as the TPU kernel does: the fine
-// positive goes wholly to the fine channel when l_f <= l_coarse, the
-// coarse negative to the first maximum of (own channel, then its fine
-// children in id order), CE is softmax − one-hot. Design: one thread per
-// low-res pixel (b, i, j) gathers from the ≤ 8×8 high-res pixels
-// (rows 4i−2 … 4i+5, columns likewise) whose taps reach it, recomputing
-// their per-pixel gradients, weighted by (tap weights that land on i) ×
-// (those that land on j). Deterministic and scratch-free; the price is that
-// each high-res pixel's gradient is computed 4 times. The alternative, a
-// full-res f32 gradient scratch (109 MB at [8,13,128,128]) and a gather
-// pass, moves 218 MB more; which is faster is left to measurement.
+// Design: the per-pixel state is O(1) whatever the hierarchy, because a
+// block walks the channels group by group. Every term splits by group but
+// the two log-sum-exps: the fine positive min(l_t_f, l_parent) has both
+// channels in t_f's group, the coarse negative is the group's maximum, the
+// CE numerators are per channel. A block stages one channel at a time of
+// its low-res tile (with a one-pixel halo, edge-clamped) in a 4-slot
+// cp.async ring, three channels ahead, and every high-res pixel is rebuilt
+// from its 4 taps in shared memory (the multiply-add order of
+// upsample_argmax.cu, no FMA contraction: the plain version's bits).
 //
-// What bounds them on an H100: operations (transcendentals), not bytes.
-// The forward reads 6.8 MB of logits and 16.8 MB of labels at
-// [8,13,128,128] (7 µs at 3.35 TB/s) but evaluates 5·(nf+nc)+2 = 67
-// exp/log per valid pixel (2.1 M pixels, 16 per clock per SM on 132 SMs:
-// ≈ 35 µs at 1.98 GHz); the backward needs 7·(nf+nc) = 91 per pixel.
+// #4, forward: a block owns 2 low-res rows × 32 columns, one thread per
+// high-res column and low-res row (4 pixels each, state in registers:
+// running max and sum of each level's exponentials, the group's running
+// maximum and its own coarse logit). Each block adds its six sums in a
+// fixed shuffle tree and writes one partial row (seghiero_hiera2_fwd_partials
+// sizes the scratch); a second one-block pass adds the partials in a fixed
+// order in double. No float atomics: two runs give the same bits.
 //
-// Numerics: the upsampled logits equal the plain version's bit for bit (same
-// f32 operations in the same order, no FMA contraction); the transcendental
-// library calls and the summation order differ, so sums are compared within
-// 1e-5 relative and the gradient within rtol 2e-4, atol 1e-7.
+// #5, backward: a block owns 4 × 32 low-res outputs. It computes the
+// gradient of every high-res pixel whose taps reach them — 20 × 132
+// pixels, 1.29× the tile, each once — in three sweeps over the channels:
+// (1) the two log-sum-exps; then per group (2) its maximum, the first
+// channel holding it (own, then children in id order) and the logits of
+// the own channel and of t_f; (3) per channel the pixels' gradients into a
+// shared plane, a barrier, and each pair of threads gathers one output's
+// 8 × 8 weighted terms from the plane in a fixed order. Per-pixel state
+// (8 words) lives in shared memory. Deterministic, no atomics, no
+// full-resolution scratch. Tie routing is the TPU kernel's: the fine
+// positive goes wholly to the fine channel when l_f <= l_parent, the coarse
+// negative to the group's first maximum; CE is softmax − one-hot, with the
+// softmax as exp(l − logsumexp).
+//
+// What bounds them on an H100: transcendentals (MUFU), not bytes. Per valid
+// pixel and level of n classes the forward evaluates 5·n + 1 and the
+// backward 9·n (n for the log-sum-exp, 7 per BCE derivative, 1 for the
+// softmax). Forms used: the CUDA library's expf, logf and log1pf and f32
+// division (no MUFU-direct intrinsics), the forms of PR 2's kernels.
+//
+// Numerics: the upsampled logits equal the plain version's bit for bit;
+// the transcendental forms and the summation orders differ, so sums are
+// compared within 1e-5 relative and the gradient within rtol 2e-4, atol
+// 1e-7.
+
+#include <math.h>
 
 #include "common.cuh"
 
@@ -61,8 +77,24 @@ namespace {
 
 constexpr float kLogEps = -18.420680743952367f;  // log(1e-8)
 constexpr int kIgnore = 255;
-constexpr int kFwdThreads = 256;
-constexpr int kBwdThreads = 128;
+constexpr int kCols = 32;     // low-res columns a block owns (both kernels)
+constexpr int kTileW = kCols + 2;
+constexpr int kRing = 4;      // staged channels; loads run kRing − 1 ahead
+// forward: 2 low-res rows a block, one thread per high-res column and row
+constexpr int kFwdRows = 2;
+constexpr int kFwdThreads = 4 * kCols * kFwdRows;
+constexpr int kFwdTile = (kFwdRows + 2) * kTileW;
+// backward: 4 × 32 low-res outputs a block, the 20 × 132 high-res pixels
+// whose taps reach them
+constexpr int kBwdRows = 4;
+constexpr int kBwdThreads = 256;
+constexpr int kBwdTile = (kBwdRows + 2) * kTileW;
+constexpr int kRegH = 4 * kBwdRows + 4, kRegW = 4 * kCols + 4;
+constexpr int kRegPx = kRegH * kRegW;
+constexpr int kBwdStateWords = 8;  // per pixel, see hiera2_bwd_kernel
+constexpr size_t kBwdSmem =
+    sizeof(float) * (static_cast<size_t>(kBwdStateWords + 2) * kRegPx + kRing * kBwdTile);
+static_assert(kFwdThreads % 32 == 0 && kBwdThreads == 2 * kBwdRows * kCols, "geometry");
 
 __device__ __forceinline__ float logaddexp(float a, float b) {
   return fmaxf(a, b) + log1pf(expf(-fabsf(a - b)));
@@ -83,246 +115,149 @@ __device__ __forceinline__ float dneg_log1m_sig_eps(float m) {
   return expf(u - logaddexp(u, kLogEps)) * sigmoid(m);
 }
 
-// The 4 taps and weights of high-res pixel (y, x) on a [h, w] grid.
-struct Taps {
-  int o00, o01, o10, o11;
-  float ay, by, ax, bx;
-  int r0, r1, c0, c1;
-};
-
-__device__ __forceinline__ Taps taps_of(int y, int x, int h, int w) {
-  Taps t;
-  int ro, co;
-  upsample4_phase(y & 3, ro, t.ay, t.by);
-  upsample4_phase(x & 3, co, t.ax, t.bx);
-  t.r0 = min(max((y >> 2) + ro - 1, 0), h - 1);
-  t.r1 = min(max((y >> 2) + ro, 0), h - 1);
-  t.c0 = min(max((x >> 2) + co - 1, 0), w - 1);
-  t.c1 = min(max((x >> 2) + co, 0), w - 1);
-  t.o00 = t.r0 * w + t.c0;
-  t.o01 = t.r0 * w + t.c1;
-  t.o10 = t.r1 * w + t.c0;
-  t.o11 = t.r1 * w + t.c1;
-  return t;
-}
-
-__device__ __forceinline__ float blend(const float* __restrict__ p, const Taps& t) {
-  const float u = __fadd_rn(__fmul_rn(t.ax, p[t.o00]), __fmul_rn(t.bx, p[t.o01]));
-  const float v = __fadd_rn(__fmul_rn(t.ax, p[t.o10]), __fmul_rn(t.bx, p[t.o11]));
-  return __fadd_rn(__fmul_rn(t.ay, u), __fmul_rn(t.by, v));
-}
-
-// Upsampled logits of one pixel: fine channels lf[0, nf), coarse lc[0, nc).
-// CF / CC bound nf / nc at compile time so the arrays stay in registers.
-template <int CF, int CC>
-__device__ __forceinline__ void pixel_logits(const float* __restrict__ lo_b, long long plane,
-                                             const Taps& t, int nf, int nc, float (&lf)[CF],
-                                             float (&lc)[CC]) {
-#pragma unroll
-  for (int f = 0; f < CF; ++f) lf[f] = f < nf ? blend(lo_b + f * plane, t) : 0.f;
-#pragma unroll
-  for (int c = 0; c < CC; ++c) lc[c] = c < nc ? blend(lo_b + (nf + c) * plane, t) : 0.f;
-}
-
-// coarse logit of the parent of fine label `tf` (0 when tf is out of range)
-template <int CF, int CC>
-__device__ __forceinline__ float parent_logit(const float (&lc)[CC], const int (&pf)[CF],
-                                              int tf, int& parent) {
-  parent = -1;
-#pragma unroll
-  for (int f = 0; f < CF; ++f)
-    if (f == tf) parent = pf[f];
-  float v = 0.f;
-#pragma unroll
-  for (int c = 0; c < CC; ++c)
-    if (c == parent) v = lc[c];
-  return v;
-}
-
-// The six per-pixel terms (s_f, s_c, nv_f, nv_c, ce_f, ce_c).
-template <int CF, int CC>
-__device__ __forceinline__ void pixel_sums(const float (&lf)[CF], const float (&lc)[CC],
-                                           const int (&pf)[CF], int nf, int nc, int tf, int tc,
-                                           float (&out)[6]) {
-  if (tf != kIgnore) {
-    int parent;
-    const float lpar = parent_logit<CF, CC>(lc, pf, tf, parent);
-    float acc = 0.f, mx = lf[0];
-#pragma unroll
-    for (int f = 0; f < CF; ++f) {
-      if (f >= nf) break;
-      acc += f == tf ? -log_sig_eps(fminf(lf[f], lpar)) : -log1m_sig_eps(lf[f]);
-      mx = fmaxf(mx, lf[f]);
-    }
-    float se = 0.f, picked = 0.f;
-#pragma unroll
-    for (int f = 0; f < CF; ++f) {
-      if (f >= nf) break;
-      se += expf(lf[f] - mx);
-      if (f == tf) picked = lf[f];
-    }
-    out[0] = acc;
-    out[2] = 1.f;
-    out[4] = logf(se) + mx - picked;
-  }
-  if (tc != kIgnore) {
-    float acc = 0.f, mx = lc[0];
-#pragma unroll
-    for (int c = 0; c < CC; ++c) {
-      if (c >= nc) break;
-      if (c == tc) {
-        acc += -log_sig_eps(lc[c]);
-      } else {
-        float bmax = lc[c];
-#pragma unroll
-        for (int f = 0; f < CF; ++f)
-          if (f < nf && pf[f] == c) bmax = fmaxf(bmax, lf[f]);
-        acc += -log1m_sig_eps(bmax);
-      }
-      mx = fmaxf(mx, lc[c]);
-    }
-    float se = 0.f, picked = 0.f;
-#pragma unroll
-    for (int c = 0; c < CC; ++c) {
-      if (c >= nc) break;
-      se += expf(lc[c] - mx);
-      if (c == tc) picked = lc[c];
-    }
-    out[1] = acc;
-    out[3] = 1.f;
-    out[5] = logf(se) + mx - picked;
+// running log-sum-exp: max m and Σ exp(x − m), one exp per element
+__device__ __forceinline__ void lse_add(float& m, float& s, float x) {
+  const float d = x - m;
+  const float e = expf(-fabsf(d));
+  if (d > 0.f) {
+    s = s * e + 1.f;
+    m = x;
+  } else {
+    s += e;
   }
 }
 
-// Per-pixel gradient of g_sf·s_f + g_sc·s_c + g_cef·ce_f + g_cec·ce_c with
-// respect to the upsampled logits, accumulated as w·dl into (af, ac).
-template <int CF, int CC>
-__device__ __forceinline__ void pixel_grad_acc(const float (&lf)[CF], const float (&lc)[CC],
-                                               const int (&pf)[CF], int nf, int nc, int tf,
-                                               int tc, float g_sf, float g_sc, float g_cef,
-                                               float g_cec, float wgt, float (&af)[CF],
-                                               float (&ac)[CC]) {
-  float dlf[CF], dlc[CC];
-#pragma unroll
-  for (int f = 0; f < CF; ++f) dlf[f] = 0.f;
-#pragma unroll
-  for (int c = 0; c < CC; ++c) dlc[c] = 0.f;
-
-  if (tf != kIgnore) {
-    int parent;
-    const float lpar = parent_logit<CF, CC>(lc, pf, tf, parent);
-    // fine BCE: the positive through min(l_f, l_parent), ties to the fine
-    // channel; the negatives at every other fine channel
-#pragma unroll
-    for (int f = 0; f < CF; ++f) {
-      if (f >= nf) break;
-      if (f == tf) {
-        const float m = fminf(lf[f], lpar);
-        const float gpos = -dlog_sig_eps(m) * g_sf;
-        if (lf[f] <= lpar) {
-          dlf[f] += gpos;
-        } else {
-#pragma unroll
-          for (int c = 0; c < CC; ++c)
-            if (c == parent) dlc[c] += gpos;
-        }
-      } else {
-        dlf[f] += dneg_log1m_sig_eps(lf[f]) * g_sf;
-      }
-    }
-  }
-  if (tc != kIgnore) {
-    // coarse BCE: the positive at the own channel; the negative through the
-    // bucket max, routed to the first maximum of (own, children in id order)
-#pragma unroll
-    for (int c = 0; c < CC; ++c) {
-      if (c >= nc) break;
-      if (c == tc) {
-        dlc[c] += -dlog_sig_eps(lc[c]) * g_sc;
-      } else {
-        float bmax = lc[c];
-        int winner = -1;
-#pragma unroll
-        for (int f = 0; f < CF; ++f) {
-          if (f < nf && pf[f] == c && lf[f] > bmax) {
-            bmax = lf[f];
-            winner = f;
-          }
-        }
-        const float rem = dneg_log1m_sig_eps(bmax) * g_sc;
-        if (winner < 0) dlc[c] += rem;
-#pragma unroll
-        for (int f = 0; f < CF; ++f)
-          if (f == winner) dlf[f] += rem;
-      }
-    }
-  }
-  if (tf != kIgnore) {  // fine CE: softmax − one-hot
-    float mx = lf[0], e[CF], se = 0.f;
-#pragma unroll
-    for (int f = 0; f < CF; ++f)
-      if (f < nf) mx = fmaxf(mx, lf[f]);
-#pragma unroll
-    for (int f = 0; f < CF; ++f) {
-      e[f] = f < nf ? expf(lf[f] - mx) : 0.f;
-      se += e[f];
-    }
-#pragma unroll
-    for (int f = 0; f < CF; ++f)
-      if (f < nf) dlf[f] += (e[f] / se - (f == tf ? 1.f : 0.f)) * g_cef;
-  }
-  if (tc != kIgnore) {  // coarse CE
-    float mx = lc[0], e[CC], se = 0.f;
-#pragma unroll
-    for (int c = 0; c < CC; ++c)
-      if (c < nc) mx = fmaxf(mx, lc[c]);
-#pragma unroll
-    for (int c = 0; c < CC; ++c) {
-      e[c] = c < nc ? expf(lc[c] - mx) : 0.f;
-      se += e[c];
-    }
-#pragma unroll
-    for (int c = 0; c < CC; ++c)
-      if (c < nc) dlc[c] += (e[c] / se - (c == tc ? 1.f : 0.f)) * g_cec;
-  }
-#pragma unroll
-  for (int f = 0; f < CF; ++f) af[f] += wgt * dlf[f];
-#pragma unroll
-  for (int c = 0; c < CC; ++c) ac[c] += wgt * dlc[c];
+__device__ __forceinline__ float lerp2(float a, float b, float t0, float t1) {
+  return __fadd_rn(__fmul_rn(a, t0), __fmul_rn(b, t1));
 }
 
-template <int CF>
-__device__ __forceinline__ void load_parents(const int* __restrict__ f2c, int nf, int (&pf)[CF]) {
-#pragma unroll
-  for (int f = 0; f < CF; ++f) pf[f] = f < nf ? f2c[f] : -1;
+// Stage channel `ch` of the (rows + 2) × kTileW low-res tile whose top-left
+// is (i0 − 1, j0 − 1), edge-clamped, into `slot`; every thread commits one
+// cp.async group per call (empty past the schedule's end).
+template <int TileElems, int Threads>
+__device__ __forceinline__ void stage(float* slot, const float* __restrict__ lo_b, int ch,
+                                      bool live, int i0, int j0, int h, int w) {
+  if (live) {
+    const float* plane = lo_b + static_cast<long long>(ch) * h * w;
+    for (int e = threadIdx.x; e < TileElems; e += Threads) {
+      const int r = min(max(i0 - 1 + e / kTileW, 0), h - 1);
+      const int c = min(max(j0 - 1 + e % kTileW, 0), w - 1);
+      copy_async_or_zero<4>(slot + e, plane + static_cast<long long>(r) * w + c, true);
+    }
+  }
+  cp_async_commit();
 }
 
-template <int CF, int CC>
 __global__ void __launch_bounds__(kFwdThreads) hiera2_fwd_kernel(
     const float* __restrict__ lo, const int* __restrict__ t_fine,
-    const int* __restrict__ t_coarse, const int* __restrict__ f2c,
-    float* __restrict__ partial, int B, int C, int h, int w, int nf, int nc) {
-  // grid: x walks an output row, y the rows, z the images
+    const int* __restrict__ t_coarse, const int* __restrict__ tab,
+    float* __restrict__ partial, int C, int h, int w, int nf, int nc) {
+  __shared__ __align__(16) float ring[kRing][kFwdTile];
+  __shared__ float warp_sums[kFwdThreads / 32][6];
+  const int* walk = tab + nc + 1;
+  const int j0 = blockIdx.x * kCols, i0 = blockIdx.y * kFwdRows, b = blockIdx.z;
   const int H = 4 * h, W = 4 * w;
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y;
-  const int b = blockIdx.z;
-  float s[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  if (x < W) {
-    const long long i = (static_cast<long long>(b) * H + y) * W + x;
-    const int tf = t_fine[i], tc = t_coarse[i];
-    if (tf != kIgnore || tc != kIgnore) {
-      int pf[CF];
-      load_parents<CF>(f2c, nf, pf);
-      float lf[CF], lc[CC];
-      const long long plane = static_cast<long long>(h) * w;
-      pixel_logits<CF, CC>(lo + static_cast<long long>(b) * C * plane, plane,
-                           taps_of(y, x, h, w), nf, nc, lf, lc);
-      pixel_sums<CF, CC>(lf, lc, pf, nf, nc, tf, tc, s);
+  const int xl = threadIdx.x % (4 * kCols), li = threadIdx.x / (4 * kCols);
+  const int x = 4 * j0 + xl, i = i0 + li;
+  const bool active = x < W && i < h;
+  const float* lo_b = lo + static_cast<long long>(b) * C * h * w;
+
+  // column taps (tile columns ct, ct + 1) and the four rows' phases
+  int co;
+  float ax, bx;
+  upsample4_phase(x & 3, co, ax, bx);
+  const int ct = (xl >> 2) + co;
+  int tf[4], tc[4];
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    tf[p] = tc[p] = kIgnore;
+    if (active) {
+      const long long q = (static_cast<long long>(b) * H + 4 * i + p) * W + x;
+      tf[p] = t_fine[q];
+      tc[p] = t_coarse[q];
     }
   }
+  float mf[4], sf[4], mc[4], sc[4], gm[4], lown[4];
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    mf[p] = mc[p] = -INFINITY;
+    sf[p] = sc[p] = 0.f;
+    gm[p] = lown[p] = 0.f;
+  }
+  float s[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+
+  // the coarse terms of group g, once its maximum is known
+  auto close_group = [&](int grp) {
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      if (tc[p] == kIgnore) continue;
+      s[1] += tc[p] == grp ? -log_sig_eps(lown[p]) : -log1m_sig_eps(gm[p]);
+    }
+  };
+
+  for (int k = 0; k < kRing - 1; ++k)
+    stage<kFwdTile, kFwdThreads>(ring[k], lo_b, k < C ? walk[k] : 0, k < C, i0, j0, h, w);
+  int g = -1;
+  for (int q = 0; q < C; ++q) {
+    cp_async_wait<kRing - 2>();
+    __syncthreads();
+    const int nxt = q + kRing - 1;
+    stage<kFwdTile, kFwdThreads>(ring[nxt % kRing], lo_b, nxt < C ? walk[nxt] : 0, nxt < C, i0,
+                                 j0, h, w);
+    const int ch = walk[q];
+    const bool coarse = ch >= nf;
+    if (coarse) {
+      if (g >= 0 && active) close_group(g);
+      g = ch - nf;
+    }
+    if (!active) continue;
+    const float* T = ring[q % kRing];
+    float u[3];
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+      const float* row = T + (li + r) * kTileW + ct;
+      u[r] = lerp2(row[0], row[1], ax, bx);
+    }
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      int ro;
+      float ay, by;
+      upsample4_phase(p, ro, ay, by);
+      const float l = lerp2(u[ro], u[ro + 1], ay, by);
+      if (coarse) {
+        gm[p] = l;
+        lown[p] = l;
+        if (tc[p] != kIgnore) {
+          lse_add(mc[p], sc[p], l);
+          if (tc[p] == g) s[5] -= l;
+        }
+      } else {
+        if (tf[p] != kIgnore) {
+          s[0] += ch == tf[p] ? -log_sig_eps(fminf(l, lown[p])) : -log1m_sig_eps(l);
+          lse_add(mf[p], sf[p], l);
+          if (ch == tf[p]) s[4] -= l;
+        }
+        gm[p] = fmaxf(gm[p], l);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  if (active) {
+    close_group(g);
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      if (tf[p] != kIgnore) {
+        s[2] += 1.f;
+        s[4] += logf(sf[p]) + mf[p];
+      }
+      if (tc[p] != kIgnore) {
+        s[3] += 1.f;
+        s[5] += logf(sc[p]) + mc[p];
+      }
+    }
+  }
+
   // fixed-order block sum: shuffle tree inside each warp, then warps in order
-  __shared__ float warp_sums[kFwdThreads / 32][6];
 #pragma unroll
   for (int k = 0; k < 6; ++k)
 #pragma unroll
@@ -362,132 +297,262 @@ __global__ void __launch_bounds__(256) hiera2_finish_kernel(const float* __restr
   if (threadIdx.x < 6) sums[threadIdx.x] = static_cast<float>(red[0][threadIdx.x]);
 }
 
-template <int CF, int CC>
-__global__ void __launch_bounds__(kBwdThreads) hiera2_bwd_kernel(
-    const float* __restrict__ lo, const int* __restrict__ t_fine,
-    const int* __restrict__ t_coarse, const int* __restrict__ f2c,
-    const float* __restrict__ gsum, float* __restrict__ dlo, int B, int C, int h, int w,
-    int nf, int nc) {
-  // grid: x walks a low-res row, y the low-res rows, z the images
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= w) return;
-  const int i = blockIdx.y;
-  const int b = blockIdx.z;
-  const int H = 4 * h, W = 4 * w;
-  const float g_sf = gsum[0], g_sc = gsum[1], g_cef = gsum[4], g_cec = gsum[5];
-  int pf[CF];
-  load_parents<CF>(f2c, nf, pf);
-  const long long plane = static_cast<long long>(h) * w;
-  const float* lo_b = lo + static_cast<long long>(b) * C * plane;
-  float af[CF], ac[CC];
-#pragma unroll
-  for (int f = 0; f < CF; ++f) af[f] = 0.f;
-#pragma unroll
-  for (int c = 0; c < CC; ++c) ac[c] = 0.f;
+// A region pixel's blend: tile offset of its top-left tap (bits 0-15) and
+// its row and column phases (bits 16-17, 18-19).
+__device__ __forceinline__ float blend_px(const float* T, int desc) {
+  const int o = desc & 0xffff;
+  int ro, co;
+  float ay, by, ax, bx;
+  upsample4_phase((desc >> 16) & 3, ro, ay, by);
+  upsample4_phase((desc >> 18) & 3, co, ax, bx);
+  return lerp2(lerp2(T[o], T[o + 1], ax, bx), lerp2(T[o + kTileW], T[o + kTileW + 1], ax, bx),
+               ay, by);
+}
 
-  const int y_lo = max(4 * i - 2, 0), y_hi = min(4 * i + 5, H - 1);
-  const int x_lo = max(4 * j - 2, 0), x_hi = min(4 * j + 5, W - 1);
-  for (int y = y_lo; y <= y_hi; ++y) {
-    for (int x = x_lo; x <= x_hi; ++x) {
-      const Taps t = taps_of(y, x, h, w);
-      const float wy = (t.r0 == i ? t.ay : 0.f) + (t.r1 == i ? t.by : 0.f);
-      const float wx = (t.c0 == j ? t.ax : 0.f) + (t.c1 == j ? t.bx : 0.f);
-      if (wy == 0.f || wx == 0.f) continue;
-      const long long p = (static_cast<long long>(b) * H + y) * W + x;
-      const int tf = t_fine[p], tc = t_coarse[p];
-      if (tf == kIgnore && tc == kIgnore) continue;
-      float lf[CF], lc[CC];
-      pixel_logits<CF, CC>(lo_b, plane, t, nf, nc, lf, lc);
-      pixel_grad_acc<CF, CC>(lf, lc, pf, nf, nc, tf, tc, g_sf, g_sc, g_cef, g_cec, wy * wx,
-                             af, ac);
+// weight of high-res row (or column) y on low-res row i (edge clamp of the
+// taps included; 0 for a y outside the image)
+__device__ __forceinline__ float tap_weight(int y, int i, int h) {
+  if (y < 0 || y >= 4 * h) return 0.f;
+  int ro;
+  float a, bw;
+  upsample4_phase(y & 3, ro, a, bw);
+  const int r0 = min(max((y >> 2) + ro - 1, 0), h - 1);
+  const int r1 = min(max((y >> 2) + ro, 0), h - 1);
+  return (r0 == i ? a : 0.f) + (r1 == i ? bw : 0.f);
+}
+
+__global__ void __launch_bounds__(kBwdThreads, 2) hiera2_bwd_kernel(
+    const float* __restrict__ lo, const int* __restrict__ t_fine,
+    const int* __restrict__ t_coarse, const int* __restrict__ tab,
+    const float* __restrict__ gsum, float* __restrict__ dlo, int C, int h, int w, int nf,
+    int nc) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* ring = reinterpret_cast<float*>(smem_raw);  // [kRing][kBwdTile]
+  float* plane = ring + kRing * kBwdTile;             // [kRegPx] this channel's gradient
+  int* desc = reinterpret_cast<int*>(plane + kRegPx);  // [kRegPx] blend descriptor
+  // per-pixel state, kRegPx each: labels; after sweep 1 the two
+  // log-sum-exps (during it: running max and sum); per group its maximum,
+  // the channel holding it first (−1: the own channel), the own logit, and
+  // l_{t_f} when t_f is in the group (else −inf)
+  int* s_tf = desc + kRegPx;
+  int* s_tc = s_tf + kRegPx;
+  float* s_lsef = reinterpret_cast<float*>(s_tc + kRegPx);
+  float* s_lsec = s_lsef + kRegPx;
+  float* s_gm = s_lsec + kRegPx;  // during sweep 1: the fine running sum
+  float* s_own = s_gm + kRegPx;   // during sweep 1: the coarse running sum
+  int* s_win = reinterpret_cast<int*>(s_own + kRegPx);
+  float* s_ltf = reinterpret_cast<float*>(s_win + kRegPx);
+
+  const int* goff = tab;
+  const int* walk = tab + nc + 1;
+  const int* bsched = walk + C;
+  const int j0 = blockIdx.x * kCols, i0 = blockIdx.y * kBwdRows, b = blockIdx.z;
+  const int H = 4 * h, W = 4 * w;
+  const float* lo_b = lo + static_cast<long long>(b) * C * h * w;
+  const float g_sf = gsum[0], g_sc = gsum[1], g_cef = gsum[4], g_cec = gsum[5];
+
+  // region pixel p = yl·kRegW + xl is high-res (4·i0 − 2 + yl, 4·j0 − 2 + xl)
+  for (int p = threadIdx.x; p < kRegPx; p += kBwdThreads) {
+    const int yl = p / kRegW, xl = p % kRegW;
+    const int y = 4 * i0 - 2 + yl, x = 4 * j0 - 2 + xl;
+    int tf = kIgnore, tc = kIgnore;
+    if (y >= 0 && y < H && x >= 0 && x < W) {
+      const long long q = (static_cast<long long>(b) * H + y) * W + x;
+      tf = t_fine[q];
+      tc = t_coarse[q];
+    }
+    const int py = (yl + 2) & 3, px = (xl + 2) & 3;
+    const int rt = ((yl + 2) >> 2) - 1 + (py >= 2), cl = ((xl + 2) >> 2) - 1 + (px >= 2);
+    desc[p] = (rt * kTileW + cl) | (py << 16) | (px << 18);
+    s_tf[p] = tf;
+    s_tc[p] = tc;
+    s_lsef[p] = s_lsec[p] = -INFINITY;
+    s_gm[p] = s_own[p] = 0.f;
+  }
+  // this thread's output (i0 + oi, j0 + oj), rows 4·half … 4·half + 3 of
+  // its 8 × 8 terms
+  const int oi = (threadIdx.x >> 1) / kCols, oj = (threadIdx.x >> 1) % kCols;
+  const int half = threadIdx.x & 1;
+  float wy[4], wx[8];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) wy[r] = tap_weight(4 * (i0 + oi) - 2 + 4 * half + r, i0 + oi, h);
+#pragma unroll
+  for (int c = 0; c < 8; ++c) wx[c] = tap_weight(4 * (j0 + oj) - 2 + c, j0 + oj, w);
+  const bool writes = half == 0 && i0 + oi < h && j0 + oj < w;
+  const int obase = (4 * oi + 4 * half) * kRegW + 4 * oj;
+
+  // the channel schedule: sweep 1 over walk, then each group twice
+  const int steps = 3 * C;
+  auto chan = [&](int k) { return k < C ? walk[k] : bsched[k - C]; };
+  for (int k = 0; k < kRing - 1; ++k)
+    stage<kBwdTile, kBwdThreads>(ring + k * kBwdTile, lo_b, k < steps ? chan(k) : 0, k < steps,
+                                 i0, j0, h, w);
+  int k = 0;
+  auto next = [&]() -> const float* {  // wait for step k's channel, stage k + 3
+    cp_async_wait<kRing - 2>();
+    __syncthreads();
+    const int n = k + kRing - 1;
+    stage<kBwdTile, kBwdThreads>(ring + (n % kRing) * kBwdTile, lo_b, n < steps ? chan(n) : 0,
+                                 n < steps, i0, j0, h, w);
+    return ring + (k++ % kRing) * kBwdTile;
+  };
+
+  // (1) the log-sum-exp of each level
+  for (int q = 0; q < C; ++q) {
+    const float* T = next();
+    const bool coarse = walk[q] >= nf;
+    for (int p = threadIdx.x; p < kRegPx; p += kBwdThreads) {
+      if ((coarse ? s_tc[p] : s_tf[p]) == kIgnore) continue;
+      const float l = blend_px(T, desc[p]);
+      if (coarse) lse_add(s_lsec[p], s_own[p], l);
+      else lse_add(s_lsef[p], s_gm[p], l);
     }
   }
-  float* d_b = dlo + static_cast<long long>(b) * C * plane + static_cast<long long>(i) * w + j;
+  for (int p = threadIdx.x; p < kRegPx; p += kBwdThreads) {
+    if (s_tf[p] != kIgnore) s_lsef[p] += logf(s_gm[p]);
+    if (s_tc[p] != kIgnore) s_lsec[p] += logf(s_own[p]);
+  }
+
+  float* d_b = dlo + static_cast<long long>(b) * C * h * w;
+  for (int g = 0; g < nc; ++g) {
+    const int q0 = goff[g], q1 = goff[g + 1];
+    // (2) the group's maximum and the first channel holding it
+    for (int q = q0; q < q1; ++q) {
+      const float* T = next();
+      const int ch = walk[q];
+      for (int p = threadIdx.x; p < kRegPx; p += kBwdThreads) {
+        const int tf = s_tf[p];
+        if (tf == kIgnore && s_tc[p] == kIgnore) continue;
+        const float l = blend_px(T, desc[p]);
+        if (q == q0) {
+          s_gm[p] = l;
+          s_own[p] = l;
+          s_win[p] = -1;
+          s_ltf[p] = -INFINITY;
+        } else {
+          if (l > s_gm[p]) {
+            s_gm[p] = l;
+            s_win[p] = ch;
+          }
+          if (ch == tf) s_ltf[p] = l;
+        }
+      }
+    }
+    // (3) each channel's gradient: the pixels once, then the gather
+    for (int q = q0; q < q1; ++q) {
+      const float* T = next();
+      const int ch = walk[q];
+      for (int p = threadIdx.x; p < kRegPx; p += kBwdThreads) {
+        const int tf = s_tf[p], tc = s_tc[p];
+        float d = 0.f;
+        if (tf != kIgnore || tc != kIgnore) {
+          const float l = blend_px(T, desc[p]);
+          if (q == q0) {  // the own coarse channel
+            if (tc != kIgnore) {
+              if (tc == g) d += -dlog_sig_eps(l) * g_sc;
+              else if (s_win[p] < 0) d += dneg_log1m_sig_eps(s_gm[p]) * g_sc;
+              d += (expf(l - s_lsec[p]) - (tc == g ? 1.f : 0.f)) * g_cec;
+            }
+            // the fine positive min(l_t_f, l) taken by the parent: t_f > l
+            if (tf != kIgnore && s_ltf[p] > l) d += -dlog_sig_eps(l) * g_sf;
+          } else {
+            if (tf != kIgnore) {
+              if (ch != tf) d += dneg_log1m_sig_eps(l) * g_sf;
+              else if (l <= s_own[p]) d += -dlog_sig_eps(l) * g_sf;
+              d += (expf(l - s_lsef[p]) - (ch == tf ? 1.f : 0.f)) * g_cef;
+            }
+            if (tc != kIgnore && tc != g && s_win[p] == ch)
+              d += dneg_log1m_sig_eps(s_gm[p]) * g_sc;
+          }
+        }
+        plane[p] = d;
+      }
+      __syncthreads();
+      float acc = 0.f;
 #pragma unroll
-  for (int f = 0; f < CF; ++f)
-    if (f < nf) d_b[f * plane] = af[f];
+      for (int r = 0; r < 4; ++r) {
+        const float* row = plane + obase + r * kRegW;
+        float v = 0.f;
 #pragma unroll
-  for (int c = 0; c < CC; ++c)
-    if (c < nc) d_b[(nf + c) * plane] = ac[c];
+        for (int c = 0; c < 8; ++c) v += wx[c] * row[c];
+        acc += wy[r] * v;
+      }
+      const float other = __shfl_xor_sync(0xffffffffu, acc, 1);
+      if (writes)
+        d_b[(static_cast<long long>(ch) * h + i0 + oi) * w + j0 + oj] = acc + other;
+    }
+  }
+  cp_async_wait<0>();
 }
 
-template <int CF, int CC>
-cudaError_t launch_fwd(const float* lo, const int* tf, const int* tc, const int* f2c,
-                       float* partial, float* sums, int B, int C, int h, int w, int nf, int nc,
-                       cudaStream_t s) {
-  const dim3 grid(blocks_for(4LL * w, kFwdThreads), 4 * h, B);
-  hiera2_fwd_kernel<CF, CC><<<grid, kFwdThreads, 0, s>>>(lo, tf, tc, f2c, partial, B, C, h, w,
-                                                         nf, nc);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const long long P = static_cast<long long>(grid.x) * grid.y * grid.z;
-  hiera2_finish_kernel<<<1, 256, 0, s>>>(partial, sums, P);
-  return cudaGetLastError();
+long long fwd_partials(int B, int h, int w) {
+  return static_cast<long long>(B) * ((h + kFwdRows - 1) / kFwdRows) * ((w + kCols - 1) / kCols);
 }
 
-template <int CF, int CC>
-cudaError_t launch_bwd(const float* lo, const int* tf, const int* tc, const int* f2c,
-                       const float* gsum, float* dlo, int B, int C, int h, int w, int nf, int nc,
-                       cudaStream_t s) {
-  const dim3 grid(blocks_for(w, kBwdThreads), h, B);
-  hiera2_bwd_kernel<CF, CC><<<grid, kBwdThreads, 0, s>>>(lo, tf, tc, f2c, gsum, dlo, B, C, h,
-                                                         w, nf, nc);
-  return cudaGetLastError();
-}
-
-// compile-time class bounds, which cover the repo's 2-level configs
-// (ops/hiera2_fused.py MAX_FINE, MAX_COARSE)
-constexpr int kMaxFine = 16;
-constexpr int kMaxCoarse = 8;
-bool classes_ok(int nf, int nc, int C) {
-  return nf >= 1 && nc >= 1 && nf <= kMaxFine && nc <= kMaxCoarse && nf + nc == C;
-}
+bool classes_ok(int nf, int nc, int C) { return nf >= 1 && nc >= 1 && nf + nc == C; }
 
 }  // namespace
 }  // namespace seghiero
 
+// Rows of seghiero_hiera2_fwd's partial-sum scratch ([P, 6] f32) for
+// logits of B × h × w; −1 past the int range.
+extern "C" int seghiero_hiera2_fwd_partials(int B, int h, int w) {
+  if (B <= 0 || h <= 0 || w <= 0) return 0;
+  const long long P = seghiero::fwd_partials(B, h, w);
+  return P > 0x7fffffff ? -1 : static_cast<int>(P);
+}
+
 // lo: [B, C, h, w] f32 contiguous; t_fine, t_coarse: [B, 4h, 4w] int32
-// contiguous; f2c: [nf] int32 (coarse id of each fine id); partial: f32
-// scratch of B·4h·ceil(4w/256)·6 floats; sums: f32 [6] (s_f, s_c, nv_f,
-// nv_c, ce_f, ce_c). Returns cudaGetLastError() (cudaErrorInvalidValue for
-// class counts the kernel does not take).
+// contiguous; tab: the hierarchy table of the header (int32, on the card);
+// partial: [P, 6] f32 scratch, P = seghiero_hiera2_fwd_partials(B, h, w);
+// sums: f32 [6] (s_f, s_c, nv_f, nv_c, ce_f, ce_c). Returns
+// cudaGetLastError() (cudaErrorInvalidValue for class counts that do not
+// add up to C, a P that does not match the shape, or a shape past the
+// grid's limits).
 extern "C" int seghiero_hiera2_fwd(const void* lo, const void* t_fine, const void* t_coarse,
-                                   const void* f2c, void* partial, void* sums, int B, int C,
-                                   int h, int w, int nf, int nc, int device, void* stream) {
+                                   const void* tab, void* partial, void* sums, int B, int C,
+                                   int h, int w, int nf, int nc, int P, int device,
+                                   void* stream) {
   using namespace seghiero;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (!classes_ok(nf, nc, C)) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B == 0 || h == 0 || w == 0) return cudaMemsetAsync(sums, 0, 6 * sizeof(float), s);
-  if (B > 65535 || 4 * h > 65535) return cudaErrorInvalidValue;  // grid y/z limits
-  const auto* l = static_cast<const float*>(lo);
-  const auto* tf = static_cast<const int*>(t_fine);
-  const auto* tc = static_cast<const int*>(t_coarse);
-  const auto* fc = static_cast<const int*>(f2c);
-  auto* pp = static_cast<float*>(partial);
-  auto* out = static_cast<float*>(sums);
-  return launch_fwd<kMaxFine, kMaxCoarse>(l, tf, tc, fc, pp, out, B, C, h, w, nf, nc, s);
+  if (static_cast<long long>(P) != fwd_partials(B, h, w) || B > 65535 ||
+      (h + kFwdRows - 1) / kFwdRows > 65535)
+    return cudaErrorInvalidValue;
+  const dim3 grid((w + kCols - 1) / kCols, (h + kFwdRows - 1) / kFwdRows, B);
+  hiera2_fwd_kernel<<<grid, kFwdThreads, 0, s>>>(
+      static_cast<const float*>(lo), static_cast<const int*>(t_fine),
+      static_cast<const int*>(t_coarse), static_cast<const int*>(tab),
+      static_cast<float*>(partial), C, h, w, nf, nc);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  hiera2_finish_kernel<<<1, 256, 0, s>>>(static_cast<const float*>(partial),
+                                         static_cast<float*>(sums), P);
+  return cudaGetLastError();
 }
 
-// lo, t_fine, t_coarse, f2c as above; gsum: f32 [6] cotangents of the six
+// lo, t_fine, t_coarse, tab as above; gsum: f32 [6] cotangents of the six
 // sums (entries 2 and 3 are not read); dlo: [B, C, h, w] f32, every entry
 // written.
 extern "C" int seghiero_hiera2_bwd(const void* lo, const void* t_fine, const void* t_coarse,
-                                   const void* f2c, const void* gsum, void* dlo, int B, int C,
+                                   const void* tab, const void* gsum, void* dlo, int B, int C,
                                    int h, int w, int nf, int nc, int device, void* stream) {
   using namespace seghiero;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (!classes_ok(nf, nc, C)) return cudaErrorInvalidValue;
   if (B == 0 || h == 0 || w == 0) return cudaSuccess;
-  if (B > 65535 || h > 65535) return cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* l = static_cast<const float*>(lo);
-  const auto* tf = static_cast<const int*>(t_fine);
-  const auto* tc = static_cast<const int*>(t_coarse);
-  const auto* fc = static_cast<const int*>(f2c);
-  const auto* g = static_cast<const float*>(gsum);
-  auto* d = static_cast<float*>(dlo);
-  return launch_bwd<kMaxFine, kMaxCoarse>(l, tf, tc, fc, g, d, B, C, h, w, nf, nc, s);
+  if (B > 65535 || (h + kBwdRows - 1) / kBwdRows > 65535) return cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(hiera2_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kBwdSmem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((w + kCols - 1) / kCols, (h + kBwdRows - 1) / kBwdRows, B);
+  hiera2_bwd_kernel<<<grid, kBwdThreads, kBwdSmem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(lo), static_cast<const int*>(t_fine),
+      static_cast<const int*>(t_coarse), static_cast<const int*>(tab),
+      static_cast<const float*>(gsum), static_cast<float*>(dlo), C, h, w, nf, nc);
+  return cudaGetLastError();
 }

@@ -9,8 +9,10 @@
 The port takes its model's outputs as they come: logits ``[B, C, h, w]``
 and embedding ``[B, D, h', w']`` (NCHW, any memory format). The logits
 are made C-major contiguous once at low resolution — the JAX package's
-transpose. All loss math runs in f32 (``training.hiera_precision`` has
-no effect here: it sets a TPU storage dtype).
+transpose. All loss math runs in f32. ``training.hiera_precision: fast``
+stores the logits and their upsample in bf16 where JAX does
+(``ops/resize.py`` ``resize_bilinear_bf16``: the same bits), and every
+consumer upcasts to f32; ``parity`` upsamples in f32.
 
 With ``use_kernel`` (``training.pallas_fused_loss: true``) the upsample,
 hierarchy BCE and both CE terms go through the fused kernels
@@ -44,7 +46,7 @@ from seghiero_torch.losses.tree_triplet import (
     triplet_schedule_factor,
 )
 from seghiero_torch.ops.hiera2_fused import SCALE, fused_hiera2_loss_sums
-from seghiero_torch.ops.resize import resize_bilinear
+from seghiero_torch.ops.resize import resize_bilinear, resize_bilinear_bf16
 
 
 def _pick_channel(x: torch.Tensor, t_safe: torch.Tensor) -> torch.Tensor:
@@ -135,6 +137,18 @@ def hiera_bce_three_level_cmajor(lf, t_f, t_m, t_h, h: Hierarchy, clip_min: floa
     return 5.0 * (loss_f + loss_m + loss_h)
 
 
+def _upsample(lo: torch.Tensor, out_hw, hiera_precision: str) -> torch.Tensor:
+    """The C-major low-res logits upsampled to ``out_hw``: f32 under
+    ``parity``; under ``fast`` rounded to bf16 first and resized in bf16,
+    as the JAX package stores them (``lo.astype(bfloat16)`` +
+    ``_resize_cmajor``)."""
+    if hiera_precision == "fast":
+        return resize_bilinear_bf16(lo.to(torch.bfloat16), out_hw)
+    if hiera_precision != "parity":
+        raise ValueError(f"hiera_precision must be 'parity' or 'fast', got {hiera_precision!r}")
+    return resize_bilinear(lo, out_hw)
+
+
 def _not_yet_ported(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not yet ported to seghiero_torch (ROADMAP queue 1)")
 
@@ -149,11 +163,17 @@ class FastHieraTripletLoss:
     ``label`` int ``[B, H, W]``. The triplet term stays in the graph
     behind the readiness ``where`` — a Python branch would leave the
     projection head without a gradient, and SGD would then skip its weight
-    decay and momentum where the JAX step applies them."""
+    decay and momentum where the JAX step applies them. ``hiera_precision``
+    (``parity`` or ``fast``) sets the unfused path's storage type; the fused
+    kernels are f32 only (``fast`` with ``use_kernel`` raises, as the config
+    does)."""
 
     def __init__(self, hierarchy: Hierarchy, loss_weight: float = 1.0,
                  schedule_total_steps: int = 80_000, use_kernel: bool = False,
-                 hiera_variant: str = "bce", ohem=None, selection: str = "auto"):
+                 hiera_variant: str = "bce", ohem=None, selection: str = "auto",
+                 hiera_precision: str = "parity"):
+        if use_kernel and hiera_precision == "fast":
+            raise ValueError("hiera_precision: fast and pallas_fused_loss are mutually exclusive")
         if hiera_variant != "bce":
             raise _not_yet_ported(f"training.hiera_variant: {hiera_variant}")
         if ohem is not None:
@@ -163,6 +183,7 @@ class FastHieraTripletLoss:
         self.schedule_total_steps = schedule_total_steps
         self.use_kernel = use_kernel
         self.selection = selection
+        self.hiera_precision = hiera_precision
 
     def __call__(self, step, embedding, cls_score_before, cls_score, label):
         h = self.h
@@ -185,7 +206,7 @@ class FastHieraTripletLoss:
                           + s_c / (torch.clamp(nvc, min=1.0) * h.n_coarse))
             loss = loss + ce_f / total + ce_c / total
         else:
-            lf = resize_bilinear(lo, out_hw)
+            lf = _upsample(lo, out_hw, self.hiera_precision)
             loss = hiera_bce_two_level_cmajor(lf, t_fine, t_coarse, h)
             loss = loss + _ce_cmajor(lf[:, : h.n_fine], t_fine, h.ignore_index)
             loss = loss + _ce_cmajor(lf[:, h.n_fine : h.n_fine + h.n_coarse], t_coarse,
@@ -202,8 +223,9 @@ class FastRMIHieraTripletLoss:
     + CE_mid + CE_high + ready · schedule(step) · triplet_groups)`` from
     low-res logits, called as :class:`FastHieraTripletLoss` is.
 
-    The logits are upsampled to the label size in f32 (all
-    ``n_fine + n_coarse + n_super`` channels); RMI runs on the concatenated
+    The logits are upsampled to the label size (all ``n_fine + n_coarse +
+    n_super`` channels; in bf16 under ``hiera_precision: fast``, else f32);
+    RMI runs on the concatenated
     one-hots [fine | mid | high] against ``sigmoid(logits)`` zeroed at each
     level's ignored pixels and floored at ``_CLIP_MIN``, through
     ``rmi_lower_bound_cmajor`` (``rmi_backend``: ``pallas`` = the CUDA Gram
@@ -218,7 +240,8 @@ class FastRMIHieraTripletLoss:
                  upper_ids=None, lower_ids=None, use_float64: bool = False,
                  rmi_streaming: str = "auto", rmi_backend: str = "auto",
                  rmi_precision: str = "parity", hiera_variant: str = "bce", ohem=None,
-                 selection: str = "auto", use_kernel: bool = False):
+                 selection: str = "auto", use_kernel: bool = False,
+                 hiera_precision: str = "parity"):
         if hiera_variant != "bce":
             raise _not_yet_ported(f"training.hiera_variant: {hiera_variant}")
         if ohem is not None:
@@ -235,6 +258,7 @@ class FastRMIHieraTripletLoss:
         self.rmi_precision = rmi_precision
         self.selection = selection
         self.use_kernel = use_kernel
+        self.hiera_precision = hiera_precision
 
     @property
     def schedule_total_steps(self) -> int:
@@ -248,11 +272,11 @@ class FastRMIHieraTripletLoss:
             raise ValueError(
                 "training.pallas_fused_loss: there is no fused 3-level loss kernel "
                 "(the fused loss is 2-level only); set it to false")
-        lf = resize_bilinear(lo, tuple(label.shape[1:3]))
+        lf = _upsample(lo, tuple(label.shape[1:3]), self.hiera_precision)
         t_f, t_m, t_h = prepare_targets_three_level(label, h)
         hiera = hiera_bce_three_level_cmajor(lf, t_f, t_m, t_h, h)
 
-        probs = torch.sigmoid(lf)
+        probs = torch.sigmoid(lf.to(torch.float32))
         levels = [_one_hot_valid(t, n, h.ignore_index, dim=1)
                   for t, n in ((t_f, nf), (t_m, nm), (t_h, nh))]
         oh_all = torch.cat([oh for oh, _ in levels], dim=1)
@@ -277,9 +301,11 @@ class FastRMIHieraTripletLoss:
         return (loss + torch.where(ready, factor * t, 0.0)) * self.loss_weight
 
 
-def aux_ce_fast(aux_logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = 255):
+def aux_ce_fast(aux_logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = 255,
+                hiera_precision: str = "parity"):
     """Aux CE: the aux logits ``[B, n_fine, h, w]`` bilinearly upsampled to
-    the label size, CE averaged over valid pixels."""
+    the label size (in bf16 under ``hiera_precision: fast``), CE averaged
+    over valid pixels."""
     lo = aux_logits.to(torch.float32).contiguous()
-    lf = resize_bilinear(lo, tuple(labels.shape[1:3]))
+    lf = _upsample(lo, tuple(labels.shape[1:3]), hiera_precision)
     return _ce_cmajor(lf, labels, ignore_index, divide_by="valid")

@@ -55,9 +55,11 @@ SIGNATURES = {
     "seghiero_dw3x3_wgrad": [_P] * 4 + [_I] * 8 + [_P],
     # B, H, W -> rows of seghiero_dw3x3_wgrad's partial-sum scratch
     "seghiero_dw3x3_wgrad_partials": [_I] * 3,
-    # lo, t_fine, t_coarse, f2c, partial, sums, B, C, h, w, nf, nc, device, stream
-    "seghiero_hiera2_fwd": [_P] * 6 + [_I] * 7 + [_P],
-    # lo, t_fine, t_coarse, f2c, gsum, dlo, B, C, h, w, nf, nc, device, stream
+    # lo, t_fine, t_coarse, tab, partial, sums, B, C, h, w, nf, nc, P, device, stream
+    "seghiero_hiera2_fwd": [_P] * 6 + [_I] * 8 + [_P],
+    # B, h, w -> rows of seghiero_hiera2_fwd's partial-sum scratch
+    "seghiero_hiera2_fwd_partials": [_I] * 3,
+    # lo, t_fine, t_coarse, tab, gsum, dlo, B, C, h, w, nf, nc, device, stream
     "seghiero_hiera2_bwd": [_P] * 6 + [_I] * 7 + [_P],
     # la, pr, partial, g18, BC, H, W, nblk, bf16, device, stream
     "seghiero_rmi_gram18": [_P] * 4 + [_I] * 6 + [_P],

@@ -29,14 +29,12 @@ from seghiero_torch.ops.upsample_argmax import PHASE, SCALE
 
 LOG_EPS = float(np.log(1e-8))  # the 2-level BCE eps (hiera_triplet_loss.py:46)
 IGNORE = 255
-FWD_THREADS = 256  # csrc/hiera2_fused.cu kFwdThreads
-MAX_FINE, MAX_COARSE = 16, 8  # csrc/hiera2_fused.cu kMaxFine, kMaxCoarse
 
 # kernel launches in this process (set to 0 to count a run)
 fwd_launches = 0
 bwd_launches = 0
 
-_f2c_cache: Dict[Tuple[torch.device, Tuple[int, ...]], torch.Tensor] = {}
+_table_cache: Dict[Tuple[torch.device, Tuple[int, ...]], torch.Tensor] = {}
 
 
 # ---------------------------------------------------------------------------
@@ -185,11 +183,25 @@ def fused_hiera2_grad_plain(lo, t_fine, t_coarse, hierarchy: Hierarchy,
 
 # ---------------------------------------------------------------------------
 # kernel wrappers
-def _f2c_on(device: torch.device, hierarchy: Hierarchy) -> torch.Tensor:
+def hierarchy_table(hierarchy: Hierarchy) -> np.ndarray:
+    """The kernels' int32 view of the hierarchy (csrc/hiera2_fused.cu):
+    ``goff [nc + 1]`` (where coarse group g starts in the walk),
+    ``walk [C]`` (each group's coarse channel ``nf + g``, then its fine
+    children in id order) and ``bsched [2C]`` (each group's walk entries
+    twice: the backward's two passes over it)."""
+    nf = hierarchy.n_fine
+    groups = [[nf + g, *ids] for g, ids in enumerate(hierarchy.fine_by_coarse)]
+    goff = np.cumsum([0] + [len(grp) for grp in groups])
+    walk = [c for grp in groups for c in grp]
+    bsched = [c for grp in groups for c in grp + grp]
+    return np.concatenate([goff, walk, bsched]).astype(np.int32)
+
+
+def _table_on(device: torch.device, hierarchy: Hierarchy) -> torch.Tensor:
     key = (device, tuple(int(c) for c in hierarchy.fine_to_coarse))
-    if key not in _f2c_cache:
-        _f2c_cache[key] = torch.tensor(key[1], dtype=torch.int32, device=device)
-    return _f2c_cache[key]
+    if key not in _table_cache:
+        _table_cache[key] = torch.from_numpy(hierarchy_table(hierarchy)).to(device)
+    return _table_cache[key]
 
 
 def _check(lo, t_fine, t_coarse, hierarchy: Hierarchy) -> Tuple[int, int, int, int]:
@@ -202,11 +214,8 @@ def _check(lo, t_fine, t_coarse, hierarchy: Hierarchy) -> Tuple[int, int, int, i
         )
     B, C, h, w = lo.shape
     nf, nc = hierarchy.n_fine, hierarchy.n_coarse
-    if C != nf + nc or nf > MAX_FINE or nc > MAX_COARSE:
-        raise ValueError(
-            f"fused_hiera2 takes {nf} + {nc} = C channels with at most {MAX_FINE} fine "
-            f"and {MAX_COARSE} coarse; got C={C}"
-        )
+    if C != nf + nc:
+        raise ValueError(f"fused_hiera2 takes {nf} + {nc} = C channels; got C={C}")
     for t in (t_fine, t_coarse):
         if (tuple(t.shape) != (B, SCALE * h, SCALE * w) or t.dtype != torch.int32
                 or t.device != lo.device or not t.is_contiguous()):
@@ -220,14 +229,16 @@ def _check(lo, t_fine, t_coarse, hierarchy: Hierarchy) -> Tuple[int, int, int, i
 def fused_hiera2_sums_kernel(lo, t_fine, t_coarse, hierarchy: Hierarchy) -> torch.Tensor:
     """Kernel #4: the six sums ``[6]`` f32 on the card."""
     B, C, h, w = _check(lo, t_fine, t_coarse, hierarchy)
-    n_partial = B * SCALE * h * -(-(SCALE * w) // FWD_THREADS)
+    lib = _build.library()
+    n_partial = lib.seghiero_hiera2_fwd_partials(B, h, w)
+    if n_partial < 0:
+        raise ValueError(f"fused_hiera2: logits {tuple(lo.shape)} past the kernel's limits")
     partial = torch.empty((max(n_partial, 1), 6), dtype=torch.float32, device=lo.device)
     sums = torch.empty((6,), dtype=torch.float32, device=lo.device)
-    lib = _build.library()
     err = lib.seghiero_hiera2_fwd(
         lo.data_ptr(), t_fine.data_ptr(), t_coarse.data_ptr(),
-        _f2c_on(lo.device, hierarchy).data_ptr(), partial.data_ptr(), sums.data_ptr(),
-        B, C, h, w, hierarchy.n_fine, hierarchy.n_coarse, lo.device.index,
+        _table_on(lo.device, hierarchy).data_ptr(), partial.data_ptr(), sums.data_ptr(),
+        B, C, h, w, hierarchy.n_fine, hierarchy.n_coarse, n_partial, lo.device.index,
         torch.cuda.current_stream(lo.device).cuda_stream,
     )
     _build.check(lib, err, "hiera2_fused forward")
@@ -248,7 +259,7 @@ def fused_hiera2_grad_kernel(lo, t_fine, t_coarse, hierarchy: Hierarchy,
     lib = _build.library()
     err = lib.seghiero_hiera2_bwd(
         lo.data_ptr(), t_fine.data_ptr(), t_coarse.data_ptr(),
-        _f2c_on(lo.device, hierarchy).data_ptr(), g.data_ptr(), dlo.data_ptr(),
+        _table_on(lo.device, hierarchy).data_ptr(), g.data_ptr(), dlo.data_ptr(),
         B, C, h, w, hierarchy.n_fine, hierarchy.n_coarse, lo.device.index,
         torch.cuda.current_stream(lo.device).cuda_stream,
     )

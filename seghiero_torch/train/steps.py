@@ -63,10 +63,12 @@ def make_composite_loss(cfg: SegHieroConfig):
             rmi_precision=t.rmi_precision, hiera_variant=t.hiera_variant, ohem=ohem,
             upper_ids=t.triplet_upper_ids, lower_ids=t.triplet_lower_ids,
             selection=t.triplet_selection, use_kernel=t.pallas_fused_loss,
+            hiera_precision=t.hiera_precision,
         )
     return FastHieraTripletLoss(
         h, loss_weight=t.fine_weight, use_kernel=t.pallas_fused_loss,
         hiera_variant=t.hiera_variant, ohem=ohem, selection=t.triplet_selection,
+        hiera_precision=t.hiera_precision,
     )
 
 
@@ -98,7 +100,8 @@ def forward_losses(model: nn.Module, composite, cfg: SegHieroConfig,
         out = model(images.permute(0, 3, 1, 2))
     logits = out["logits"]
     main = composite(sched_step, out["embedding"], logits, logits, fine)
-    aux = aux_ce_fast(out["aux_logits"], fine, cfg.hierarchy.ignore_index)
+    aux = aux_ce_fast(out["aux_logits"], fine, cfg.hierarchy.ignore_index,
+                      hiera_precision=cfg.training.hiera_precision)
     return main + cfg.training.aux_weight * aux, main, aux, logits
 
 

@@ -152,59 +152,78 @@ def test_depthwise_weight_gets_a_gradient_on_the_card():
 
 CLASSES = {"coarse_to_fine_map": [[0, 3], [4, 6], [7], [8]],
            "fine_names": {i: f"f{i}" for i in range(9)}}
+# hierarchies beyond config 2's, each with the (B, h, w) it runs at: 18 + 2
+# classes whose groups are not contiguous (the second range overwrites part
+# of the first, so fine_to_coarse is not sorted); the 150 + 15 of
+# configs/example-many-classes.yaml; one group holding all fine classes
+# but one
+FUSED_CASES = (
+    (CLASSES, ((2, 5, 7), (1, 9, 70), (3, 16, 33))),
+    ({"coarse_to_fine_map": [[0, 17], [4, 9]], "fine_names": {i: f"f{i}" for i in range(18)}},
+     ((2, 5, 7), (1, 13, 35))),
+    ({"coarse_to_fine_map": [[10 * g, 10 * g + 9] for g in range(15)],
+      "fine_names": {i: f"f{i}" for i in range(150)}}, ((2, 6, 10), (1, 5, 33))),
+    ({"coarse_to_fine_map": [[0, 10], [11]], "fine_names": {i: f"f{i}" for i in range(12)}},
+     ((1, 9, 70),)),
+)
 
 
 @pytest.mark.gpu
 def test_fused_loss_kernels_equal_plain_versions():
     """Card-only: the fused forward (#4: six sums within 1e-5 relative) and
     backward (#5: d lo within rtol 2e-4, atol 1e-7) against their plain
-    versions at odd sizes (h, w not multiples of 8 or of the block),
-    with ignore pixels, saturated logits and planted ties."""
+    versions for the hierarchies of ``FUSED_CASES``, at odd sizes (h, w not
+    multiples of the kernels' 2- and 4-row, 32-column tiles), with ignore
+    pixels, saturated logits and planted ties (l_f = l_parent on even rows;
+    two children of a group equal on odd rows); two runs give the same
+    bits."""
     dev = _card()
-    h = Hierarchy.from_class_config(CLASSES)
     rng = np.random.default_rng(0)
-    for B, hh, ww in ((2, 5, 7), (1, 9, 70), (3, 16, 33)):
-        lo = (rng.standard_normal((B, 13, hh, ww)) * 3).astype(np.float32)
-        lo = np.where(rng.random(lo.shape) < 0.03, np.sign(lo) * 40.0, lo).astype(np.float32)
+    for classes, shapes in FUSED_CASES:
+        h = Hierarchy.from_class_config(classes)
+        nf, nc = h.n_fine, h.n_coarse
         f2c = np.asarray(h.fine_to_coarse)
-        for f in range(9):
-            lo[:, f, ::2] = lo[:, 9 + f2c[f], ::2]
-        labels = rng.integers(0, 9, (B, 4 * hh, 4 * ww)).astype(np.int32)
-        labels[:, :3, :5] = 255
-        lo_t = torch.from_numpy(lo).to(dev)
-        tf, tc = prepare_targets_two_level(torch.from_numpy(labels).to(dev), h)
-        tf, tc = tf.contiguous(), tc.contiguous()
-        before = (port_fused.fwd_launches, port_fused.bwd_launches)
-        got = port_fused.fused_hiera2_sums_kernel(lo_t, tf, tc, h)
-        want = port_fused.fused_hiera2_sums_plain(lo_t, tf, tc, h)
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
-        # the cotangents the loss assembly passes (losses/fast.py), so the
-        # gradient has the scale the tolerance was set for
-        nvf, nvc, n = float(want[2]), float(want[3]), labels.size
-        g = torch.tensor([5 / (max(nvf, 1) * 9), 5 / (max(nvc, 1) * 4), 0.0, 0.0, 1 / n, 1 / n],
-                         device=dev)
-        dgot = port_fused.fused_hiera2_grad_kernel(lo_t, tf, tc, h, g)
-        dwant = port_fused.fused_hiera2_grad_plain(lo_t, tf, tc, h, g)
-        torch.testing.assert_close(dgot, dwant, rtol=2e-4, atol=1e-7)
-        assert (port_fused.fwd_launches, port_fused.bwd_launches) == (before[0] + 1,
-                                                                      before[1] + 1)
-        assert torch.equal(got, port_fused.fused_hiera2_sums_kernel(lo_t, tf, tc, h))
-        # unit cotangents: each d lo entry adds up to 64 weighted per-pixel
-        # gradients of order 1 in another order than the plain version, so
-        # the absolute tolerance is 64 f32 roundings at 1 (64 · 2^-24 ≈ 4e-6)
-        g1 = torch.ones(6, device=dev)
-        torch.testing.assert_close(port_fused.fused_hiera2_grad_kernel(lo_t, tf, tc, h, g1),
-                                   port_fused.fused_hiera2_grad_plain(lo_t, tf, tc, h, g1),
-                                   rtol=2e-4, atol=4e-6)
+        pair = next(ids for ids in h.fine_by_coarse if len(ids) >= 2)
+        for B, hh, ww in shapes:
+            case = (nf, nc, B, hh, ww)
+            lo = (rng.standard_normal((B, nf + nc, hh, ww)) * 3).astype(np.float32)
+            lo = np.where(rng.random(lo.shape) < 0.03, np.sign(lo) * 40.0, lo).astype(np.float32)
+            for f in range(nf):
+                lo[:, f, ::2] = lo[:, nf + f2c[f], ::2]
+            lo[:, pair[1], 1::2] = lo[:, pair[0], 1::2]
+            labels = rng.integers(0, nf, (B, 4 * hh, 4 * ww)).astype(np.int32)
+            labels[:, :3, :5] = 255
+            lo_t = torch.from_numpy(lo).to(dev)
+            tf, tc = prepare_targets_two_level(torch.from_numpy(labels).to(dev), h)
+            tf, tc = tf.contiguous(), tc.contiguous()
+            before = (port_fused.fwd_launches, port_fused.bwd_launches)
+            got = port_fused.fused_hiera2_sums_kernel(lo_t, tf, tc, h)
+            want = port_fused.fused_hiera2_sums_plain(lo_t, tf, tc, h)
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6, msg=str(case))
+            # the cotangents the loss assembly passes (losses/fast.py), so the
+            # gradient has the scale the tolerance was set for
+            nvf, nvc, n = float(want[2]), float(want[3]), labels.size
+            g = torch.tensor([5 / (max(nvf, 1) * nf), 5 / (max(nvc, 1) * nc), 0.0, 0.0,
+                              1 / n, 1 / n], device=dev)
+            dgot = port_fused.fused_hiera2_grad_kernel(lo_t, tf, tc, h, g)
+            dwant = port_fused.fused_hiera2_grad_plain(lo_t, tf, tc, h, g)
+            torch.testing.assert_close(dgot, dwant, rtol=2e-4, atol=1e-7, msg=str(case))
+            assert (port_fused.fwd_launches, port_fused.bwd_launches) == (before[0] + 1,
+                                                                          before[1] + 1)
+            assert torch.equal(got, port_fused.fused_hiera2_sums_kernel(lo_t, tf, tc, h)), case
+            assert torch.equal(dgot, port_fused.fused_hiera2_grad_kernel(lo_t, tf, tc, h, g)), case
+            # unit cotangents: each d lo entry adds up to 64 weighted
+            # per-pixel gradients of order 1 in another order than the plain
+            # version, so the absolute tolerance is 64 f32 roundings at 1
+            # (64 · 2^-24 ≈ 4e-6)
+            g1 = torch.ones(6, device=dev)
+            torch.testing.assert_close(port_fused.fused_hiera2_grad_kernel(lo_t, tf, tc, h, g1),
+                                       port_fused.fused_hiera2_grad_plain(lo_t, tf, tc, h, g1),
+                                       rtol=2e-4, atol=4e-6, msg=str(case))
     with pytest.raises(ValueError, match="refusing to copy"):
         port_fused.fused_hiera2_sums_kernel(lo_t.transpose(2, 3), tf, tc, h)
-    # class counts above the kernels' compile-time bounds raise
-    big = Hierarchy.from_class_config({"coarse_to_fine_map": [[0, 16], [17]],
-                                       "fine_names": {i: f"f{i}" for i in range(18)}})
-    t_big = torch.zeros((1, 16, 16), dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="at most 16 fine"):
-        port_fused.fused_hiera2_sums_kernel(torch.zeros((1, 20, 4, 4), device=dev), t_big,
-                                            t_big, big)
+    with pytest.raises(ValueError, match="C channels"):
+        port_fused.fused_hiera2_sums_kernel(lo_t[:, 1:].contiguous(), tf, tc, h)
     # the loss asked for the kernels on the card raises for labels that are
     # not 4x the logits, instead of taking the library path
     labels8 = torch.zeros((lo_t.shape[0], 8 * lo_t.shape[2], 8 * lo_t.shape[3]),

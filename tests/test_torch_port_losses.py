@@ -199,3 +199,57 @@ def test_unported_loss_options_raise(option):
     kw = {"hiera_variant": "focal"} if option == "hiera_variant" else {"ohem": (0.7, 100)}
     with pytest.raises(NotImplementedError, match="not yet ported"):
         port_fast.FastHieraTripletLoss(PH, **kw)
+
+
+def _many_classes(port: bool, scattered: bool):
+    """150 fine classes in 15 coarse groups: the ADE20K-scale hierarchy of
+    configs/example-many-classes.yaml (groups of 10 contiguous ids), or
+    the same sizes with fine class f in group f mod 15 (no group
+    contiguous: ``fine_to_coarse`` not sorted)."""
+    H = PortHierarchy if port else JaxHierarchy
+    if not scattered:
+        return H.from_class_config({
+            "coarse_to_fine_map": [[10 * g, 10 * g + 9] for g in range(15)],
+            "fine_names": {i: f"c{i}" for i in range(150)}})
+    f2c = np.arange(150, dtype=np.int32) % 15
+    return H(n_fine=150, n_coarse=15, n_super=0, fine_to_coarse=f2c,
+             fine_by_coarse=tuple(tuple(range(g, 150, 15)) for g in range(15)),
+             coarse_ranges=None)
+
+
+@pytest.mark.parametrize("scattered", [False, True], ids=["ade150", "scattered"])
+def test_fused_loss_sums_at_150_classes_match_jax_unfused(scattered):
+    """The port's ``fused_hiera2_loss_sums`` (the plain versions of kernels
+    #4 / #5 on the CPU) at 150 + 15 channels, in the loss assembly of
+    ``FastHieraTripletLoss``, against JAX's unfused C-major path at parity
+    precision (``_resize_cmajor`` + ``hiera_bce_two_level_cmajor`` + two
+    ``_ce_cmajor``: the function tests/test_pallas_fused.py holds the
+    Pallas kernel to). Random logits (no ties), a tenth of the pixels
+    ignored; value within 1e-5 relative, d lo within rtol 2e-4, atol 1e-7
+    (the 13-class tolerances above)."""
+    from seghiero_torch.ops.hiera2_fused import fused_hiera2_loss_sums
+
+    jh, ph = _many_classes(False, scattered), _many_classes(True, scattered)
+    rng = np.random.default_rng(12)
+    lo = (rng.standard_normal((1, 165, 8, 8)) * 3).astype(np.float32)
+    labels = rng.integers(0, 150, (1, 32, 32)).astype(np.int32)
+    labels[rng.random(labels.shape) < 0.1] = 255
+
+    def f(x):
+        tf, tc = jax_hiera.prepare_targets_two_level(jnp.asarray(labels), jh)
+        lf = jax_fast._resize_cmajor(x, (32, 32))
+        return (jax_fast.hiera_bce_two_level_cmajor(lf, tf, tc, jh)
+                + jax_fast._ce_cmajor(lf[:, :150], tf, 255)
+                + jax_fast._ce_cmajor(lf[:, 150:], tc, 255))
+
+    v, g = jax.jit(jax.value_and_grad(f))(jnp.asarray(lo))
+    tf, tc = port_hiera.prepare_targets_two_level(torch.from_numpy(labels), ph)
+    lo_t = torch.from_numpy(lo).requires_grad_()
+    s_f, s_c, nvf, nvc, ce_f, ce_c = fused_hiera2_loss_sums(lo_t, tf.to(torch.int32),
+                                                            tc.to(torch.int32), ph)
+    total = labels.size
+    got = (5.0 * (s_f / (torch.clamp(nvf, min=1.0) * 150) + s_c / (torch.clamp(nvc, min=1.0) * 15))
+           + ce_f / total + ce_c / total)
+    got.backward()
+    np.testing.assert_allclose(got.item(), float(v), rtol=1e-5)
+    np.testing.assert_allclose(lo_t.grad.numpy(), np.asarray(g), rtol=2e-4, atol=1e-7)
