@@ -313,6 +313,30 @@ def phase_kernels(seed: int):
     return results
 
 
+def negative_bce_args(lo, tf, tc, hier) -> int:
+    """How many BCE terms of the fused forward have a negative argument x
+    in −log(σ(x) + ε) (the kernel takes a second log for those): the
+    positives min(l_t_f, l_parent) and l_t_c, the negatives −l_f and
+    −max(l_c, l_f∈c), over valid pixels, from the plain upsample."""
+    import torch
+
+    from seghiero_torch.ops import hiera2_fused as fused
+
+    with torch.no_grad():
+        lf = fused.upsample4_plain(lo)
+        la, lb = lf[:, :hier.n_fine], lf[:, hier.n_fine:]
+        f2c = torch.as_tensor(np.asarray(hier.fine_to_coarse, np.int64), device=lo.device)
+        n = 0
+        for t, x_pos, x_neg, k in ((tf, torch.minimum(la, lb[:, f2c]), -la, hier.n_fine),
+                                   (tc, lb, -fused._bucket_first_max(la, lb, hier)[0],
+                                    hier.n_coarse)):
+            oh = t.unsqueeze(1) == torch.arange(k, device=lo.device).view(1, k, 1, 1)
+            neg = torch.where(oh, x_pos, x_neg) < 0
+            n += int((neg & (t != hier.ignore_index).unsqueeze(1)).sum().item())
+            del oh, neg
+        return n
+
+
 def fused_loss_checks(gen, config: str, sm_mhz: float):
     """The fused upsample + hierarchy-BCE + CE forward (#4) and backward
     (#5) at one config's shapes: random low-res logits ``[8, C, 128, 128]``
@@ -402,13 +426,15 @@ def fused_loss_checks(gen, config: str, sm_mhz: float):
     fused_both_ms = time_ms(fused_fwd_bwd, iters=10)
     fused_peak = (torch.cuda.max_memory_allocated() - base) / 2**20
     # least work: each input byte read and each output byte written once;
-    # per valid pixel the transcendentals the kernels evaluate (forward
-    # 5·n+1 per level of n classes: 4 per BCE term, n exp + 1 log for CE;
-    # backward 9·n: 7 per BCE derivative, n exps for the log-sum-exp and one
-    # a softmax entry) and the 4-tap blend (9 flop per channel)
+    # per valid pixel the transcendentals the kernels evaluate (per level of
+    # n classes, forward 3·n+1+k: an exp and a log per BCE term, a second
+    # log for the k terms whose argument is negative, n exps + 1 log for
+    # CE; backward 5·n+1: an exp and two reciprocals per BCE derivative, n
+    # exps + 1 log for the log-sum-exp and one exp a softmax entry) and the
+    # 4-tap blend (9 flop per channel)
     px = total
-    fwd_mufu = nvf * (5 * nf + 1) + nvc * (5 * nc + 1)
-    bwd_mufu = nvf * 9 * nf + nvc * 9 * nc
+    fwd_mufu = nvf * (3 * nf + 1) + nvc * (3 * nc + 1) + negative_bce_args(lo, tf, tc, hier)
+    bwd_mufu = nvf * (5 * nf + 1) + nvc * (5 * nc + 1)
     entries = {}
     for name, fn, plain, mufu, nbytes, e, extra in (
         ("hiera2_fused_fwd", lambda: fused.fused_hiera2_sums_kernel(lo, tf, tc, hier),

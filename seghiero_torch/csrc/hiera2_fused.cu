@@ -22,8 +22,8 @@
 //   s_f  += Σ_f [f = t_f] −log(σ(min(l_f, l_coarse(f))) + ε) + [f ≠ t_f] −log(1 − σ(l_f) + ε)
 //   s_c  += Σ_c [c = t_c] −log(σ(l_c) + ε) + [c ≠ t_c] −log(1 − σ(max(l_c, l_f∈c)) + ε)
 //   nv_f, nv_c += 1;  ce_f, ce_c += logsumexp − l[label]
-// with the logit-space forms log(σ(m) + ε) = logaddexp(−softplus(−m), log ε)
-// (ε = 1e-8).
+// (ε = 1e-8; the TPU kernel evaluates the logs in logit space, these
+// kernels in the closed forms below).
 //
 // Design: the per-pixel state is O(1) whatever the hierarchy, because a
 // block walks the channels group by group. Every term splits by group but
@@ -58,10 +58,14 @@
 // softmax as exp(l − logsumexp).
 //
 // What bounds them on an H100: transcendentals (MUFU), not bytes. Per valid
-// pixel and level of n classes the forward evaluates 5·n + 1 and the
-// backward 9·n (n for the log-sum-exp, 7 per BCE derivative, 1 for the
-// softmax). Forms used: the CUDA library's expf, logf and log1pf and f32
-// division (no MUFU-direct intrinsics), the forms of PR 2's kernels.
+// pixel and level of n classes the forward evaluates 3·n + 1 + k (an exp
+// and a log per BCE term and a second log for the k terms at x < 0; n exps
+// and a log for the log-sum-exp) and the backward 5·n + 1 (n exps and a log
+// for the log-sum-exp, an exp and two reciprocals per BCE derivative, an
+// exp per softmax entry). Forms used: only the MUFU-direct __expf, __logf
+// and __fdividef (ex2, lg2, rcp); the closed forms below keep each factor
+// within 2e-6 relative of the library's expf / log1pf forms of PR 2's
+// kernels.
 //
 // Numerics: the upsampled logits equal the plain version's bit for bit;
 // the transcendental forms and the summation orders differ, so sums are
@@ -75,7 +79,7 @@
 namespace seghiero {
 namespace {
 
-constexpr float kLogEps = -18.420680743952367f;  // log(1e-8)
+constexpr float kEps = 1e-8f;
 constexpr int kIgnore = 255;
 constexpr int kCols = 32;     // low-res columns a block owns (both kernels)
 constexpr int kTileW = kCols + 2;
@@ -96,29 +100,47 @@ constexpr size_t kBwdSmem =
     sizeof(float) * (static_cast<size_t>(kBwdStateWords + 2) * kRegPx + kRing * kBwdTile);
 static_assert(kFwdThreads % 32 == 0 && kBwdThreads == 2 * kBwdRows * kCols, "geometry");
 
-__device__ __forceinline__ float logaddexp(float a, float b) {
-  return fmaxf(a, b) + log1pf(expf(-fabsf(a - b)));
+// The forward's BCE term −log(σ(x) + ε) from one exp and one or two logs
+// (−log(1 − σ(m) + ε) is the term at x = −m): with e = exp(−|x|),
+//   x ≥ 0:  log1p(e) − log1p(ε·(1 + e)) = log1p(e) − ε·(1 + e)
+//   x < 0:  log1p(e) − log(e + ε·(1 + e))
+// (ε·(1 + e) ≤ 2e-8, where log1p is the identity in f32), with log1p(e)
+// as __logf(1 + e). Each term is within 5e-7 absolute or 2e-6 relative of
+// the library forms, and every term is positive: the sums move by far less
+// than their 1e-5.
+__device__ __forceinline__ float neg_log_sig_eps(float x) {
+  const float e = __expf(-fabsf(x));
+  const float c = kEps * (1.f + e);
+  return __logf(1.f + e) - (x >= 0.f ? c : __logf(e + c));
 }
-__device__ __forceinline__ float softplus(float x) { return logaddexp(x, 0.f); }
-__device__ __forceinline__ float log_sig_eps(float m) { return logaddexp(-softplus(-m), kLogEps); }
-__device__ __forceinline__ float log1m_sig_eps(float m) { return logaddexp(-softplus(m), kLogEps); }
-__device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
-// d/dm log(σ(m) + ε) = wu·σ(−m) with wu = σ(m)/(σ(m)+ε), in the TPU
-// kernel's form
+// The backward's derivatives from one exp and two reciprocals (MUFU ex2
+// and rcp through __expf and __fdividef), no logarithm: with e = exp(−|m|)
+// and r = 1/(1 + e), σ(m) and σ(−m) are r and e·r (in the order of m's
+// sign), and
+//   d/dm log(σ(m) + ε)      = σ(m)·σ(−m) / (σ(m) + ε)
+//   d/dm −log(1 − σ(m) + ε) = σ(m)·σ(−m) / (σ(−m) + ε)
+// (the TPU kernel's wu·σ(−m) and wu2·σ(m), in closed form).
+__device__ __forceinline__ void sig_pair(float m, float& sp, float& sn) {
+  const float e = __expf(-fabsf(m));
+  const float r = __fdividef(1.f, 1.f + e);
+  sp = m >= 0.f ? r : e * r;
+  sn = m >= 0.f ? e * r : r;
+}
 __device__ __forceinline__ float dlog_sig_eps(float m) {
-  const float u = -softplus(-m);
-  return expf(u - logaddexp(u, kLogEps)) * sigmoid(-m);
+  float sp, sn;
+  sig_pair(m, sp, sn);
+  return __fdividef(sp * sn, sp + kEps);
 }
-// d/dm −log(1 − σ(m) + ε) = wu2·σ(m) with wu2 = σ(−m)/(σ(−m)+ε)
 __device__ __forceinline__ float dneg_log1m_sig_eps(float m) {
-  const float u = -softplus(m);
-  return expf(u - logaddexp(u, kLogEps)) * sigmoid(m);
+  float sp, sn;
+  sig_pair(m, sp, sn);
+  return __fdividef(sp * sn, sn + kEps);
 }
 
 // running log-sum-exp: max m and Σ exp(x − m), one exp per element
 __device__ __forceinline__ void lse_add(float& m, float& s, float x) {
   const float d = x - m;
-  const float e = expf(-fabsf(d));
+  const float e = __expf(-fabsf(d));
   if (d > 0.f) {
     s = s * e + 1.f;
     m = x;
@@ -191,7 +213,7 @@ __global__ void __launch_bounds__(kFwdThreads) hiera2_fwd_kernel(
 #pragma unroll
     for (int p = 0; p < 4; ++p) {
       if (tc[p] == kIgnore) continue;
-      s[1] += tc[p] == grp ? -log_sig_eps(lown[p]) : -log1m_sig_eps(gm[p]);
+      s[1] += neg_log_sig_eps(tc[p] == grp ? lown[p] : -gm[p]);
     }
   };
 
@@ -233,7 +255,7 @@ __global__ void __launch_bounds__(kFwdThreads) hiera2_fwd_kernel(
         }
       } else {
         if (tf[p] != kIgnore) {
-          s[0] += ch == tf[p] ? -log_sig_eps(fminf(l, lown[p])) : -log1m_sig_eps(l);
+          s[0] += neg_log_sig_eps(ch == tf[p] ? fminf(l, lown[p]) : -l);
           lse_add(mf[p], sf[p], l);
           if (ch == tf[p]) s[4] -= l;
         }
@@ -248,11 +270,11 @@ __global__ void __launch_bounds__(kFwdThreads) hiera2_fwd_kernel(
     for (int p = 0; p < 4; ++p) {
       if (tf[p] != kIgnore) {
         s[2] += 1.f;
-        s[4] += logf(sf[p]) + mf[p];
+        s[4] += __logf(sf[p]) + mf[p];
       }
       if (tc[p] != kIgnore) {
         s[3] += 1.f;
-        s[5] += logf(sc[p]) + mc[p];
+        s[5] += __logf(sc[p]) + mc[p];
       }
     }
   }
@@ -297,14 +319,21 @@ __global__ void __launch_bounds__(256) hiera2_finish_kernel(const float* __restr
   if (threadIdx.x < 6) sums[threadIdx.x] = static_cast<float>(red[0][threadIdx.x]);
 }
 
+// upsample4_phase's weight of the first tap, by selects (a switch on a
+// phase known only at run time compiles to branches); the second is 1 − a,
+// exactly
+__device__ __forceinline__ float phase_a(int p) {
+  const float odd = (p & 2) ? 0.625f : 0.125f;
+  const float even = (p & 2) ? 0.875f : 0.375f;
+  return (p & 1) ? odd : even;
+}
+
 // A region pixel's blend: tile offset of its top-left tap (bits 0-15) and
 // its row and column phases (bits 16-17, 18-19).
 __device__ __forceinline__ float blend_px(const float* T, int desc) {
   const int o = desc & 0xffff;
-  int ro, co;
-  float ay, by, ax, bx;
-  upsample4_phase((desc >> 16) & 3, ro, ay, by);
-  upsample4_phase((desc >> 18) & 3, co, ax, bx);
+  const float ay = phase_a((desc >> 16) & 3), ax = phase_a((desc >> 18) & 3);
+  const float by = 1.f - ay, bx = 1.f - ax;
   return lerp2(lerp2(T[o], T[o + 1], ax, bx), lerp2(T[o + kTileW], T[o + kTileW + 1], ax, bx),
                ay, by);
 }
@@ -313,12 +342,11 @@ __device__ __forceinline__ float blend_px(const float* T, int desc) {
 // taps included; 0 for a y outside the image)
 __device__ __forceinline__ float tap_weight(int y, int i, int h) {
   if (y < 0 || y >= 4 * h) return 0.f;
-  int ro;
-  float a, bw;
-  upsample4_phase(y & 3, ro, a, bw);
+  const int ro = (y & 3) >> 1;
+  const float a = phase_a(y & 3);
   const int r0 = min(max((y >> 2) + ro - 1, 0), h - 1);
   const int r1 = min(max((y >> 2) + ro, 0), h - 1);
-  return (r0 == i ? a : 0.f) + (r1 == i ? bw : 0.f);
+  return (r0 == i ? a : 0.f) + (r1 == i ? 1.f - a : 0.f);
 }
 
 __global__ void __launch_bounds__(kBwdThreads, 2) hiera2_bwd_kernel(
@@ -409,8 +437,8 @@ __global__ void __launch_bounds__(kBwdThreads, 2) hiera2_bwd_kernel(
     }
   }
   for (int p = threadIdx.x; p < kRegPx; p += kBwdThreads) {
-    if (s_tf[p] != kIgnore) s_lsef[p] += logf(s_gm[p]);
-    if (s_tc[p] != kIgnore) s_lsec[p] += logf(s_own[p]);
+    if (s_tf[p] != kIgnore) s_lsef[p] += __logf(s_gm[p]);
+    if (s_tc[p] != kIgnore) s_lsec[p] += __logf(s_own[p]);
   }
 
   float* d_b = dlo + static_cast<long long>(b) * C * h * w;
@@ -451,7 +479,7 @@ __global__ void __launch_bounds__(kBwdThreads, 2) hiera2_bwd_kernel(
             if (tc != kIgnore) {
               if (tc == g) d += -dlog_sig_eps(l) * g_sc;
               else if (s_win[p] < 0) d += dneg_log1m_sig_eps(s_gm[p]) * g_sc;
-              d += (expf(l - s_lsec[p]) - (tc == g ? 1.f : 0.f)) * g_cec;
+              d += (__expf(l - s_lsec[p]) - (tc == g ? 1.f : 0.f)) * g_cec;
             }
             // the fine positive min(l_t_f, l) taken by the parent: t_f > l
             if (tf != kIgnore && s_ltf[p] > l) d += -dlog_sig_eps(l) * g_sf;
@@ -459,7 +487,7 @@ __global__ void __launch_bounds__(kBwdThreads, 2) hiera2_bwd_kernel(
             if (tf != kIgnore) {
               if (ch != tf) d += dneg_log1m_sig_eps(l) * g_sf;
               else if (l <= s_own[p]) d += -dlog_sig_eps(l) * g_sf;
-              d += (expf(l - s_lsef[p]) - (ch == tf ? 1.f : 0.f)) * g_cef;
+              d += (__expf(l - s_lsef[p]) - (ch == tf ? 1.f : 0.f)) * g_cef;
             }
             if (tc != kIgnore && tc != g && s_win[p] == ch)
               d += dneg_log1m_sig_eps(s_gm[p]) * g_sc;
