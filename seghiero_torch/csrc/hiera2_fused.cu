@@ -51,7 +51,8 @@
 // the own channel and of t_f; (3) per channel the pixels' gradients into a
 // shared plane, a barrier, and each pair of threads gathers one output's
 // 8 × 8 weighted terms from the plane in a fixed order. Per-pixel state
-// (8 words) lives in shared memory. Deterministic, no atomics, no
+// (6 words with the plane, 65 KB a block: three blocks an SM) lives in
+// shared memory. Deterministic, no atomics, no
 // full-resolution scratch. Tie routing is the TPU kernel's: the fine
 // positive goes wholly to the fine channel when l_f <= l_parent, the coarse
 // negative to the group's first maximum; CE is softmax − one-hot, with the
@@ -95,9 +96,9 @@ constexpr int kBwdThreads = 256;
 constexpr int kBwdTile = (kBwdRows + 2) * kTileW;
 constexpr int kRegH = 4 * kBwdRows + 4, kRegW = 4 * kCols + 4;
 constexpr int kRegPx = kRegH * kRegW;
-constexpr int kBwdStateWords = 8;  // per pixel, see hiera2_bwd_kernel
+constexpr int kBwdStateWords = 6;  // per pixel, see hiera2_bwd_kernel
 constexpr size_t kBwdSmem =
-    sizeof(float) * (static_cast<size_t>(kBwdStateWords + 2) * kRegPx + kRing * kBwdTile);
+    sizeof(float) * (static_cast<size_t>(kBwdStateWords) * kRegPx + kRing * kBwdTile);
 static_assert(kFwdThreads % 32 == 0 && kBwdThreads == 2 * kBwdRows * kCols, "geometry");
 
 // The forward's BCE term −log(σ(x) + ε) from one exp and one or two logs
@@ -328,11 +329,14 @@ __device__ __forceinline__ float phase_a(int p) {
   return (p & 1) ? odd : even;
 }
 
-// A region pixel's blend: tile offset of its top-left tap (bits 0-15) and
-// its row and column phases (bits 16-17, 18-19).
-__device__ __forceinline__ float blend_px(const float* T, int desc) {
-  const int o = desc & 0xffff;
-  const float ay = phase_a((desc >> 16) & 3), ax = phase_a((desc >> 18) & 3);
+// A region pixel's blend: tile offset of its top-left tap (bits 0-7) and
+// its row and column phases (bits 8-9, 10-11).
+constexpr unsigned kBlendBits = 0xfff, kTfUp = 1u << 12;
+constexpr unsigned kBothIgnored = kIgnore | kIgnore << 16;
+static_assert((kBwdRows + 2) * kTileW <= 256, "tile offsets take 8 bits");
+__device__ __forceinline__ float blend_px(const float* T, unsigned desc) {
+  const int o = desc & 0xff;
+  const float ay = phase_a((desc >> 8) & 3), ax = phase_a((desc >> 10) & 3);
   const float by = 1.f - ay, bx = 1.f - ax;
   return lerp2(lerp2(T[o], T[o + 1], ax, bx), lerp2(T[o + kTileW], T[o + kTileW + 1], ax, bx),
                ay, by);
@@ -349,27 +353,28 @@ __device__ __forceinline__ float tap_weight(int y, int i, int h) {
   return (r0 == i ? a : 0.f) + (r1 == i ? 1.f - a : 0.f);
 }
 
-__global__ void __launch_bounds__(kBwdThreads, 2) hiera2_bwd_kernel(
+__global__ void __launch_bounds__(kBwdThreads, 3) hiera2_bwd_kernel(
     const float* __restrict__ lo, const int* __restrict__ t_fine,
     const int* __restrict__ t_coarse, const int* __restrict__ tab,
     const float* __restrict__ gsum, float* __restrict__ dlo, int C, int h, int w, int nf,
     int nc) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* ring = reinterpret_cast<float*>(smem_raw);  // [kRing][kBwdTile]
-  float* plane = ring + kRing * kBwdTile;             // [kRegPx] this channel's gradient
-  int* desc = reinterpret_cast<int*>(plane + kRegPx);  // [kRegPx] blend descriptor
-  // per-pixel state, kRegPx each: labels; after sweep 1 the two
-  // log-sum-exps (during it: running max and sum); per group its maximum,
-  // the channel holding it first (−1: the own channel), the own logit, and
-  // l_{t_f} when t_f is in the group (else −inf)
-  int* s_tf = desc + kRegPx;
-  int* s_tc = s_tf + kRegPx;
-  float* s_lsef = reinterpret_cast<float*>(s_tc + kRegPx);
+  // per region pixel (kRegPx each):
+  //   plane   this channel's gradient; during sweep 1 the coarse running
+  //           sum, during a group's pass (2) its own coarse logit
+  //   s_lsef, s_lsec  the log-sum-exps (during sweep 1: running maxima)
+  //   s_gm    the group's running maximum (during sweep 1: the fine sum)
+  //   s_lab   t_fine | t_coarse << 16
+  //   s_px    blend descriptor (bits 0-11, see blend_px), kTfUp (bit 12:
+  //           l_{t_f} > the own coarse logit, t_f in this group) and the
+  //           group's first maximum + 1 (bits 16-31; 0: the own channel)
+  float* plane = ring + kRing * kBwdTile;
+  float* s_lsef = plane + kRegPx;
   float* s_lsec = s_lsef + kRegPx;
-  float* s_gm = s_lsec + kRegPx;  // during sweep 1: the fine running sum
-  float* s_own = s_gm + kRegPx;   // during sweep 1: the coarse running sum
-  int* s_win = reinterpret_cast<int*>(s_own + kRegPx);
-  float* s_ltf = reinterpret_cast<float*>(s_win + kRegPx);
+  float* s_gm = s_lsec + kRegPx;
+  unsigned* s_lab = reinterpret_cast<unsigned*>(s_gm + kRegPx);
+  unsigned* s_px = s_lab + kRegPx;
 
   const int* goff = tab;
   const int* walk = tab + nc + 1;
@@ -391,11 +396,10 @@ __global__ void __launch_bounds__(kBwdThreads, 2) hiera2_bwd_kernel(
     }
     const int py = (yl + 2) & 3, px = (xl + 2) & 3;
     const int rt = ((yl + 2) >> 2) - 1 + (py >= 2), cl = ((xl + 2) >> 2) - 1 + (px >= 2);
-    desc[p] = (rt * kTileW + cl) | (py << 16) | (px << 18);
-    s_tf[p] = tf;
-    s_tc[p] = tc;
+    s_px[p] = (rt * kTileW + cl) | (py << 8) | (px << 10);
+    s_lab[p] = static_cast<unsigned>(tf) | static_cast<unsigned>(tc) << 16;
     s_lsef[p] = s_lsec[p] = -INFINITY;
-    s_gm[p] = s_own[p] = 0.f;
+    s_gm[p] = plane[p] = 0.f;
   }
   // this thread's output (i0 + oi, j0 + oj), rows 4·half … 4·half + 3 of
   // its 8 × 8 terms
@@ -403,7 +407,8 @@ __global__ void __launch_bounds__(kBwdThreads, 2) hiera2_bwd_kernel(
   const int half = threadIdx.x & 1;
   float wy[4], wx[8];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) wy[r] = tap_weight(4 * (i0 + oi) - 2 + 4 * half + r, i0 + oi, h);
+  for (int r = 0; r < 4; ++r)
+    wy[r] = tap_weight(4 * (i0 + oi) - 2 + 4 * half + r, i0 + oi, h);
 #pragma unroll
   for (int c = 0; c < 8; ++c) wx[c] = tap_weight(4 * (j0 + oj) - 2 + c, j0 + oj, w);
   const bool writes = half == 0 && i0 + oi < h && j0 + oj < w;
@@ -430,39 +435,44 @@ __global__ void __launch_bounds__(kBwdThreads, 2) hiera2_bwd_kernel(
     const float* T = next();
     const bool coarse = walk[q] >= nf;
     for (int p = threadIdx.x; p < kRegPx; p += kBwdThreads) {
-      if ((coarse ? s_tc[p] : s_tf[p]) == kIgnore) continue;
-      const float l = blend_px(T, desc[p]);
-      if (coarse) lse_add(s_lsec[p], s_own[p], l);
+      const unsigned lab = s_lab[p];
+      if ((coarse ? lab >> 16 : lab & 0xffff) == kIgnore) continue;
+      const float l = blend_px(T, s_px[p]);
+      if (coarse) lse_add(s_lsec[p], plane[p], l);
       else lse_add(s_lsef[p], s_gm[p], l);
     }
   }
   for (int p = threadIdx.x; p < kRegPx; p += kBwdThreads) {
-    if (s_tf[p] != kIgnore) s_lsef[p] += __logf(s_gm[p]);
-    if (s_tc[p] != kIgnore) s_lsec[p] += __logf(s_own[p]);
+    const unsigned lab = s_lab[p];
+    if ((lab & 0xffff) != kIgnore) s_lsef[p] += __logf(s_gm[p]);
+    if ((lab >> 16) != kIgnore) s_lsec[p] += __logf(plane[p]);
   }
 
   float* d_b = dlo + static_cast<long long>(b) * C * h * w;
   for (int g = 0; g < nc; ++g) {
     const int q0 = goff[g], q1 = goff[g + 1];
-    // (2) the group's maximum and the first channel holding it
+    // (2) the group's maximum, the first channel holding it, and whether
+    // the fine positive min(l_{t_f}, l_own) is the own channel's
     for (int q = q0; q < q1; ++q) {
       const float* T = next();
       const int ch = walk[q];
       for (int p = threadIdx.x; p < kRegPx; p += kBwdThreads) {
-        const int tf = s_tf[p];
-        if (tf == kIgnore && s_tc[p] == kIgnore) continue;
-        const float l = blend_px(T, desc[p]);
+        const unsigned lab = s_lab[p];
+        if (lab == kBothIgnored) continue;
+        const unsigned pd = s_px[p];
+        const float l = blend_px(T, pd);
         if (q == q0) {
           s_gm[p] = l;
-          s_own[p] = l;
-          s_win[p] = -1;
-          s_ltf[p] = -INFINITY;
+          plane[p] = l;
+          s_px[p] = pd & kBlendBits;
         } else {
+          unsigned nd = pd;
           if (l > s_gm[p]) {
             s_gm[p] = l;
-            s_win[p] = ch;
+            nd = (nd & 0xffff) | static_cast<unsigned>(ch + 1) << 16;
           }
-          if (ch == tf) s_ltf[p] = l;
+          if (ch == static_cast<int>(lab & 0xffff) && l > plane[p]) nd |= kTfUp;
+          if (nd != pd) s_px[p] = nd;
         }
       }
     }
@@ -471,26 +481,28 @@ __global__ void __launch_bounds__(kBwdThreads, 2) hiera2_bwd_kernel(
       const float* T = next();
       const int ch = walk[q];
       for (int p = threadIdx.x; p < kRegPx; p += kBwdThreads) {
-        const int tf = s_tf[p], tc = s_tc[p];
+        const unsigned lab = s_lab[p];
+        const int tf = lab & 0xffff, tc = lab >> 16;
         float d = 0.f;
-        if (tf != kIgnore || tc != kIgnore) {
-          const float l = blend_px(T, desc[p]);
+        if (lab != kBothIgnored) {
+          const unsigned pd = s_px[p];
+          const float l = blend_px(T, pd);
+          const int win = static_cast<int>(pd >> 16) - 1;  // −1: the own channel
           if (q == q0) {  // the own coarse channel
             if (tc != kIgnore) {
               if (tc == g) d += -dlog_sig_eps(l) * g_sc;
-              else if (s_win[p] < 0) d += dneg_log1m_sig_eps(s_gm[p]) * g_sc;
+              else if (win < 0) d += dneg_log1m_sig_eps(s_gm[p]) * g_sc;
               d += (__expf(l - s_lsec[p]) - (tc == g ? 1.f : 0.f)) * g_cec;
             }
-            // the fine positive min(l_t_f, l) taken by the parent: t_f > l
-            if (tf != kIgnore && s_ltf[p] > l) d += -dlog_sig_eps(l) * g_sf;
+            // the fine positive min(l_t_f, l) taken by the parent
+            if (tf != kIgnore && (pd & kTfUp)) d += -dlog_sig_eps(l) * g_sf;
           } else {
             if (tf != kIgnore) {
               if (ch != tf) d += dneg_log1m_sig_eps(l) * g_sf;
-              else if (l <= s_own[p]) d += -dlog_sig_eps(l) * g_sf;
+              else if (!(pd & kTfUp)) d += -dlog_sig_eps(l) * g_sf;
               d += (__expf(l - s_lsef[p]) - (ch == tf ? 1.f : 0.f)) * g_cef;
             }
-            if (tc != kIgnore && tc != g && s_win[p] == ch)
-              d += dneg_log1m_sig_eps(s_gm[p]) * g_sc;
+            if (tc != kIgnore && tc != g && win == ch) d += dneg_log1m_sig_eps(s_gm[p]) * g_sc;
           }
         }
         plane[p] = d;
@@ -517,7 +529,11 @@ long long fwd_partials(int B, int h, int w) {
   return static_cast<long long>(B) * ((h + kFwdRows - 1) / kFwdRows) * ((w + kCols - 1) / kCols);
 }
 
-bool classes_ok(int nf, int nc, int C) { return nf >= 1 && nc >= 1 && nf + nc == C; }
+// the backward packs a channel id + 1 and the labels into 16 bits
+constexpr int kMaxChannels = 0xffff;
+bool classes_ok(int nf, int nc, int C) {
+  return nf >= 1 && nc >= 1 && nf + nc == C && C <= kMaxChannels;
+}
 
 }  // namespace
 }  // namespace seghiero

@@ -29,6 +29,7 @@ from seghiero_torch.ops.upsample_argmax import PHASE, SCALE
 
 LOG_EPS = float(np.log(1e-8))  # the 2-level BCE eps (hiera_triplet_loss.py:46)
 IGNORE = 255
+MAX_CHANNELS = 0xFFFF  # csrc/hiera2_fused.cu kMaxChannels: 16-bit channel ids
 
 # kernel launches in this process (set to 0 to count a run)
 fwd_launches = 0
@@ -216,6 +217,8 @@ def _check(lo, t_fine, t_coarse, hierarchy: Hierarchy) -> Tuple[int, int, int, i
     nf, nc = hierarchy.n_fine, hierarchy.n_coarse
     if C != nf + nc:
         raise ValueError(f"fused_hiera2 takes {nf} + {nc} = C channels; got C={C}")
+    if C > MAX_CHANNELS:
+        raise ValueError(f"fused_hiera2 takes at most {MAX_CHANNELS} channels; got C={C}")
     for t in (t_fine, t_coarse):
         if (tuple(t.shape) != (B, SCALE * h, SCALE * w) or t.dtype != torch.int32
                 or t.device != lo.device or not t.is_contiguous()):

@@ -196,3 +196,19 @@ def test_cpu_wrappers_count_no_launches_and_other_devices_raise():
     with pytest.raises(ValueError, match="cuda or cpu"):
         port_dw.depthwise3x3_wgrad(torch.zeros(1, 4, 4, 3, device="meta"),
                                    torch.zeros(1, 4, 4, 3, device="meta"))
+
+
+def test_hierarchy_table_walks_each_group_in_id_order():
+    """The fused kernels' view of the hierarchy: where each coarse group
+    starts in the walk, the walk (each group's coarse channel, then its
+    fine children in id order, for groups that are not contiguous too)
+    and the backward's schedule (each group's walk twice)."""
+    h = PortHierarchy.from_class_config({"coarse_to_fine_map": [[0, 5], [2, 3], [5]],
+                                         "fine_names": {i: f"f{i}" for i in range(6)}})
+    assert h.fine_by_coarse == ((0, 1, 4), (2, 3), (5,))
+    tab = port_fused.hierarchy_table(h)
+    assert tab.dtype == np.int32
+    goff, walk, bsched = tab[:4], tab[4:13], tab[13:]
+    assert goff.tolist() == [0, 4, 7, 9]
+    assert walk.tolist() == [6, 0, 1, 4, 7, 2, 3, 8, 5]
+    assert bsched.tolist() == [6, 0, 1, 4, 6, 0, 1, 4, 7, 2, 3, 7, 2, 3, 8, 5, 8, 5]
