@@ -242,13 +242,17 @@ def test_fused_loss_sums_at_150_classes_match_jax_unfused(scattered):
                 + jax_fast._ce_cmajor(lf[:, :150], tf, 255)
                 + jax_fast._ce_cmajor(lf[:, 150:], tc, 255))
 
-    v, g = jax.jit(jax.value_and_grad(f))(jnp.asarray(lo))
+    # LLVM's backend optimizations only lengthen this compile
+    v, g = jax.jit(jax.value_and_grad(f), compiler_options={
+        "xla_backend_optimization_level": 0,
+        "xla_llvm_disable_expensive_passes": True})(jnp.asarray(lo))
     tf, tc = port_hiera.prepare_targets_two_level(torch.from_numpy(labels), ph)
     lo_t = torch.from_numpy(lo).requires_grad_()
     s_f, s_c, nvf, nvc, ce_f, ce_c = fused_hiera2_loss_sums(lo_t, tf.to(torch.int32),
                                                             tc.to(torch.int32), ph)
     total = labels.size
-    got = (5.0 * (s_f / (torch.clamp(nvf, min=1.0) * 150) + s_c / (torch.clamp(nvc, min=1.0) * 15))
+    got = (5.0 * (s_f / (torch.clamp(nvf, min=1.0) * 150)
+                  + s_c / (torch.clamp(nvc, min=1.0) * 15))
            + ce_f / total + ce_c / total)
     got.backward()
     np.testing.assert_allclose(got.item(), float(v), rtol=1e-5)

@@ -10,6 +10,8 @@ gradients. No Pallas kernel runs here (the fused loss is f32 only, and the
 config refuses ``fast`` with it).
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +26,10 @@ from seghiero_torch.ops.resize import resize_bilinear_bf16
 from seghiero_tpu.losses import fast as jax_fast
 
 DTYPES = ["float32", "bfloat16"]
+# the JAX side's compile dominates these tests; LLVM's backend
+# optimizations only slow it down at these sizes (and halve their time off)
+FAST_COMPILE = {"xla_backend_optimization_level": 0,
+                "xla_llvm_disable_expensive_passes": True}
 
 
 def _jnp(x, dtype):
@@ -49,7 +55,8 @@ def _assert_grad_close(got, want):
     np.testing.assert_allclose(got, want, rtol=2.0 ** -7, atol=2.0 ** -8 * np.abs(want).max())
 
 
-@pytest.mark.parametrize("shape,size", [((2, 13, 8, 8), (32, 32)), ((1, 3, 193, 193), (769, 769)),
+@pytest.mark.parametrize("shape,size", [((2, 13, 8, 8), (32, 32)),
+                                        ((1, 3, 193, 193), (769, 769)),
                                         ((2, 15, 9, 7), (33, 29))],
                          ids=["4x", "config4", "ragged"])
 def test_bf16_upsample_equals_jax_bits(shape, size):
@@ -63,80 +70,98 @@ def test_bf16_upsample_equals_jax_bits(shape, size):
     np.testing.assert_array_equal(got.float().numpy(), _f32(want))
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-def test_two_level_loss_fast_precision_matches_jax(dtype):
-    """The 2-level unfused composite with ``hiera_precision: fast``:
-    value within 1e-5 relative (f32 sums over the same bf16 logits in
-    another order), gradients as ``_assert_grad_close`` states."""
-    lo, emb, labels = _inputs(3, saturate=True)
-    step = 1234
-    jloss = jax_fast.FastHieraTripletLoss(JH2, use_pallas=False, hiera_precision="fast")
+@functools.lru_cache(maxsize=None)
+def _jax_composite(levels: int):
+    """The JAX composite with ``hiera_precision: fast`` (3 levels:
+    ``rmi_backend: xla``), value and gradients in (logits, embedding),
+    jitted once for both dtypes of a test: f32 logits ``[B, C, h, w]``.
+    A bf16 model hands the loss bf16 logits, which the loss's first
+    operation (``astype(bfloat16)``) leaves as they are; the same call on
+    those values in f32 gives the same value, and the same gradient once
+    rounded to bf16 (the cotangent of that ``astype`` is the bf16 one)."""
+    if levels == 2:
+        loss = jax_fast.FastHieraTripletLoss(JH2, use_pallas=False, hiera_precision="fast")
+    else:
+        loss = jax_fast.FastRMIHieraTripletLoss(JH3, rmi_backend="xla", hiera_precision="fast")
 
-    def f(lo_, emb_):
-        return jloss(jnp.int32(step), jnp.transpose(emb_, (0, 2, 3, 1)), None,
-                     jnp.transpose(lo_, (0, 2, 3, 1)), jnp.asarray(labels))
+    def f(lo, emb, labels, step):
+        return loss(step, jnp.transpose(emb, (0, 2, 3, 1)), None,
+                    jnp.transpose(lo, (0, 2, 3, 1)), labels)
 
-    v, (g_lo, g_emb) = jax.jit(jax.value_and_grad(f, argnums=(0, 1)))(_jnp(lo, dtype),
-                                                                      jnp.asarray(emb))
-    ploss = port_fast.FastHieraTripletLoss(PH2, hiera_precision="fast")
-    lo_t = _torch(_f32(_jnp(lo, dtype)), dtype).requires_grad_()
+    return jax.jit(jax.value_and_grad(f, argnums=(0, 1)), compiler_options=FAST_COMPILE)
+
+
+def _check_composite(levels: int, dtype: str, lo, emb, labels, step, port_loss):
+    """The port's composite against ``_jax_composite`` on the same inputs,
+    the logits in ``dtype``: value within 1e-5 relative (f32 sums over the
+    same bf16 logits in another order), d(logits) as
+    ``_assert_grad_close`` states, d(embedding) within rtol 1e-4."""
+    lo_in = _f32(_jnp(lo, dtype))  # a bf16 model's logits are bf16 values
+    v, (g_lo, g_emb) = _jax_composite(levels)(jnp.asarray(lo_in), jnp.asarray(emb),
+                                              jnp.asarray(labels), jnp.int32(step))
+    lo_t = _torch(lo_in, dtype).requires_grad_()
     emb_t = torch.from_numpy(emb).requires_grad_()
-    got = ploss(step, emb_t, None, lo_t, torch.from_numpy(labels))
+    got = port_loss(step, emb_t, None, lo_t, torch.from_numpy(labels))
     got.backward()
     np.testing.assert_allclose(got.item(), float(v), rtol=1e-5)
     assert lo_t.grad.dtype == getattr(torch, dtype)
-    _assert_grad_close(lo_t.grad, g_lo)
+    _assert_grad_close(lo_t.grad, _jnp(g_lo, dtype))
     np.testing.assert_allclose(emb_t.grad.numpy(), np.asarray(g_emb), rtol=1e-4, atol=1e-7)
-    # the knob changes the value: the bf16 storage is not the f32 path
-    parity = port_fast.FastHieraTripletLoss(PH2)(step, emb_t, None, lo_t.detach(),
+    return got.item(), lo_t.detach(), emb_t.detach()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_two_level_loss_fast_precision_matches_jax(dtype):
+    """The 2-level unfused composite with ``hiera_precision: fast``
+    (``_check_composite``), saturated logits included; the f32 path gives
+    another value."""
+    lo, emb, labels = _inputs(3, saturate=True)
+    port = port_fast.FastHieraTripletLoss(PH2, hiera_precision="fast")
+    v, lo_t, emb_t = _check_composite(2, dtype, lo, emb, labels, 1234, port)
+    parity = port_fast.FastHieraTripletLoss(PH2)(1234, emb_t, None, lo_t,
                                                  torch.from_numpy(labels))
-    assert parity.item() != got.item()
+    assert parity.item() != v
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_three_level_loss_fast_precision_matches_jax(dtype):
     """The 3-level composite (``rmi_backend: xla``) with ``hiera_precision:
-    fast``: the hierarchy BCE, CE and RMI terms read the bf16 upsample.
-    Value within 1e-5 relative, gradients as ``_assert_grad_close``."""
+    fast``: the hierarchy BCE, CE and RMI terms read the bf16 upsample
+    (``_check_composite``)."""
     lo, emb, labels = _loss_inputs(8)
-    step = 30_000
-    jloss = jax_fast.FastRMIHieraTripletLoss(JH3, rmi_backend="xla", hiera_precision="fast")
+    port = port_fast.FastRMIHieraTripletLoss(PH3, rmi_backend="xla", hiera_precision="fast")
+    _check_composite(3, dtype, lo, emb, labels, 30_000, port)
 
-    def f(lo_, emb_):
-        return jloss(jnp.int32(step), jnp.transpose(emb_, (0, 2, 3, 1)), None,
-                     jnp.transpose(lo_, (0, 2, 3, 1)), jnp.asarray(labels))
 
-    v, (g_lo, g_emb) = jax.jit(jax.value_and_grad(f, argnums=(0, 1)))(_jnp(lo, dtype),
-                                                                      jnp.asarray(emb))
-    ploss = port_fast.FastRMIHieraTripletLoss(PH3, rmi_backend="xla", hiera_precision="fast")
-    lo_t = _torch(_f32(_jnp(lo, dtype)), dtype).requires_grad_()
-    emb_t = torch.from_numpy(emb).requires_grad_()
-    got = ploss(step, emb_t, None, lo_t, torch.from_numpy(labels))
-    got.backward()
-    np.testing.assert_allclose(got.item(), float(v), rtol=1e-5)
-    _assert_grad_close(lo_t.grad, g_lo)
-    np.testing.assert_allclose(emb_t.grad.numpy(), np.asarray(g_emb), rtol=1e-4, atol=1e-7)
+@functools.lru_cache(maxsize=None)
+def _jax_aux_ce():
+    def f(a, labels):
+        return jax_fast.aux_ce_fast(jnp.transpose(a, (0, 2, 3, 1)), labels,
+                                    hiera_precision="fast")
+
+    return jax.jit(jax.value_and_grad(f), compiler_options=FAST_COMPILE)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_aux_ce_fast_precision_matches_jax(dtype):
+    """``aux_ce_fast`` with ``hiera_precision: fast``: value within 1e-5
+    relative, gradient as ``_assert_grad_close``."""
     rng = np.random.default_rng(6)
     aux = rng.standard_normal((2, 9, 4, 4)).astype(np.float32) * 2
     labels = rng.integers(0, 9, (2, 64, 64)).astype(np.int32)
     labels[:, :10] = 255
 
-    def f(a):
-        return jax_fast.aux_ce_fast(jnp.transpose(a, (0, 2, 3, 1)), jnp.asarray(labels),
-                                    hiera_precision="fast")
-
-    v, g = jax.jit(jax.value_and_grad(f))(_jnp(aux, dtype))
-    a_t = _torch(_f32(_jnp(aux, dtype)), dtype).requires_grad_()
+    a_in = _f32(_jnp(aux, dtype))  # as _jax_composite: one compile for both dtypes
+    v, g = _jax_aux_ce()(jnp.asarray(a_in), jnp.asarray(labels))
+    a_t = _torch(a_in, dtype).requires_grad_()
     got = port_fast.aux_ce_fast(a_t, torch.from_numpy(labels), hiera_precision="fast")
     got.backward()
     np.testing.assert_allclose(got.item(), float(v), rtol=1e-5)
-    _assert_grad_close(a_t.grad, g)
+    _assert_grad_close(a_t.grad, _jnp(g, dtype))
 
 
 def test_fast_precision_with_the_fused_kernels_raises():
+    """The fused kernels are f32 only: asking for them with bf16 storage
+    raises, as the config does."""
     with pytest.raises(ValueError, match="mutually exclusive"):
         port_fast.FastHieraTripletLoss(PH2, use_kernel=True, hiera_precision="fast")
