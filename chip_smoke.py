@@ -158,6 +158,41 @@ def phase_build():
         library=Path(str(info.get("path"))).name)
     for line in ptxas:
         print(f"[build] ptxas {line}", flush=True)
+    say("build", sass=sass_loops(str(info.get("path"))))
+
+
+def sass_loops(lib_path: str, kernels=("hiera2_fwd_kernel", "hiera2_bwd_kernel")):
+    """Static SASS counts of the named kernels in the built library
+    (``cuobjdump -sass``): instructions and MUFU operations in all, and in
+    the innermost loop (a backward branch's span) holding the most MUFU
+    operations — the fused loss kernels' per-pixel loop, both sides of its
+    branches (the forward's covers its 4 pixels of one channel)."""
+    import re
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = Path(CUDA_HOME or "/usr/local/cuda") / "bin" / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", lib_path], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    out = {}
+    for func in re.split(r"\n\s*Function : ", text)[1:]:
+        name = next((k for k in kernels if k in func.split("\n", 1)[0]), None)
+        if name is None:
+            continue
+        ins = re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", func)
+        addr = [int(a, 16) for a, _ in ins]
+        ops = [o for _, o in ins]
+        best = (0, 0, 0)  # (MUFU, −instructions, branches): the innermost such loop
+        for i, op in enumerate(ops):
+            m = re.search(r"BRA (0x[0-9a-f]+)", op)
+            if m and int(m.group(1), 16) < addr[i] and int(m.group(1), 16) in addr:
+                body = ops[addr.index(int(m.group(1), 16)):i + 1]
+                mufu = sum("MUFU" in o for o in body)
+                best = max(best, (mufu, -len(body), sum("BRA" in o for o in body)))
+        out[name] = {"instructions": len(ops), "mufu": sum("MUFU" in o for o in ops),
+                     "loop_instructions": -best[1], "loop_mufu": best[0],
+                     "loop_branches": best[2]}
+    return out
 
 
 def _sum_entries(entries):

@@ -225,9 +225,9 @@ class FastRMIHieraTripletLoss:
 
     The logits are upsampled to the label size (all ``n_fine + n_coarse +
     n_super`` channels; in bf16 under ``hiera_precision: fast``, else f32);
-    RMI runs on the concatenated
-    one-hots [fine | mid | high] against ``sigmoid(logits)`` zeroed at each
-    level's ignored pixels and floored at ``_CLIP_MIN``, through
+    RMI runs on the concatenated one-hots [fine | mid | high] against
+    ``sigmoid(logits)`` (in f32) zeroed at each level's ignored pixels and
+    floored at ``_CLIP_MIN``, through
     ``rmi_lower_bound_cmajor`` (``rmi_backend``: ``pallas`` = the CUDA Gram
     kernels, ``xla`` = the materialized PyTorch op or, under
     ``rmi_streaming``, its row-chunked form; ``rmi_precision: fast`` = the

@@ -10,7 +10,9 @@ loss (``losses/fast.py``). It is a ``torch.autograd.Function``: forward
 versions below for tensors on the CPU; any other device raises.
 
 Layouts are the JAX ones: C-major f32 logits ``[B, C, h, w]``, int32
-labels ``[B, 4h, 4w]`` with 255 = ignore.
+labels ``[B, 4h, 4w]`` with 255 = ignore. The kernels take any 2-level
+hierarchy (:func:`hierarchy_table` is their view of it) of up to 65535
+channels (their channel ids take 16 bits; the C entries refuse more).
 """
 
 from __future__ import annotations
@@ -29,7 +31,6 @@ from seghiero_torch.ops.upsample_argmax import PHASE, SCALE
 
 LOG_EPS = float(np.log(1e-8))  # the 2-level BCE eps (hiera_triplet_loss.py:46)
 IGNORE = 255
-MAX_CHANNELS = 0xFFFF  # csrc/hiera2_fused.cu kMaxChannels: 16-bit channel ids
 
 # kernel launches in this process (set to 0 to count a run)
 fwd_launches = 0
@@ -217,8 +218,6 @@ def _check(lo, t_fine, t_coarse, hierarchy: Hierarchy) -> Tuple[int, int, int, i
     nf, nc = hierarchy.n_fine, hierarchy.n_coarse
     if C != nf + nc:
         raise ValueError(f"fused_hiera2 takes {nf} + {nc} = C channels; got C={C}")
-    if C > MAX_CHANNELS:
-        raise ValueError(f"fused_hiera2 takes at most {MAX_CHANNELS} channels; got C={C}")
     for t in (t_fine, t_coarse):
         if (tuple(t.shape) != (B, SCALE * h, SCALE * w) or t.dtype != torch.int32
                 or t.device != lo.device or not t.is_contiguous()):
