@@ -144,8 +144,6 @@ def _upsample(lo: torch.Tensor, out_hw, hiera_precision: str) -> torch.Tensor:
     ``_resize_cmajor``)."""
     if hiera_precision == "fast":
         return resize_bilinear_bf16(lo.to(torch.bfloat16), out_hw)
-    if hiera_precision != "parity":
-        raise ValueError(f"hiera_precision must be 'parity' or 'fast', got {hiera_precision!r}")
     return resize_bilinear(lo, out_hw)
 
 
@@ -165,15 +163,12 @@ class FastHieraTripletLoss:
     projection head without a gradient, and SGD would then skip its weight
     decay and momentum where the JAX step applies them. ``hiera_precision``
     (``parity`` or ``fast``) sets the unfused path's storage type; the fused
-    kernels are f32 only (``fast`` with ``use_kernel`` raises, as the config
-    does)."""
+    kernels are f32 only, and the config refuses ``fast`` with them."""
 
     def __init__(self, hierarchy: Hierarchy, loss_weight: float = 1.0,
                  schedule_total_steps: int = 80_000, use_kernel: bool = False,
                  hiera_variant: str = "bce", ohem=None, selection: str = "auto",
                  hiera_precision: str = "parity"):
-        if use_kernel and hiera_precision == "fast":
-            raise ValueError("hiera_precision: fast and pallas_fused_loss are mutually exclusive")
         if hiera_variant != "bce":
             raise _not_yet_ported(f"training.hiera_variant: {hiera_variant}")
         if ohem is not None:

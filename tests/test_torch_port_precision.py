@@ -21,8 +21,10 @@ import torch
 from test_torch_port_losses import JH as JH2, PH as PH2, _inputs
 from test_torch_port_rmi import JH as JH3, PH as PH3, _loss_inputs
 from test_torch_port_threads import one_torch_thread  # noqa: F401  (autouse)
+from seghiero_torch import config as port_config
 from seghiero_torch.losses import fast as port_fast
 from seghiero_torch.ops.resize import resize_bilinear_bf16
+from seghiero_tpu import config as jax_config
 from seghiero_tpu.losses import fast as jax_fast
 
 DTYPES = ["float32", "bfloat16"]
@@ -161,7 +163,12 @@ def test_aux_ce_fast_precision_matches_jax(dtype):
 
 
 def test_fast_precision_with_the_fused_kernels_raises():
-    """The fused kernels are f32 only: asking for them with bf16 storage
-    raises, as the config does."""
-    with pytest.raises(ValueError, match="mutually exclusive"):
-        port_fast.FastHieraTripletLoss(PH2, use_kernel=True, hiera_precision="fast")
+    """The fused kernels are f32 only: a config asking for them with bf16
+    storage raises in both packages, and one that leaves the knob unset
+    resolves it to ``parity``."""
+    for config in (port_config, jax_config):
+        with pytest.raises(ValueError, match="mutually exclusive"):
+            config.TrainingConfig.from_dict({"hiera_precision": "fast",
+                                             "pallas_fused_loss": True})
+        t = config.TrainingConfig.from_dict({"pallas_fused_loss": True})
+        assert t.hiera_precision == "parity"
