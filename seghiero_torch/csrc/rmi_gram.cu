@@ -9,6 +9,10 @@
 //  * seghiero_rmi_grad_maps (#8) dpr[bc, r', c'] = Σ_k u_k(r'−dy, c'−dx) over
 //                                the k whose output pixel is valid, u = P·z
 //                                (P [BC, 9, 18])                  [BC, H, W]
+//                                Inside the 2-pixel frame every k is valid,
+//                                and dpr is a 5×5 correlation of each map
+//                                with taps folded from P:
+//                                T_m[2+ey−dy][2+ex−dx] += P[3dy+dx, 9m+3ey+ex]
 //
 // Each entry takes `bf16`: 0 runs the f32 kernels (#6, #7, #8,
 // `rmi_precision: parity`), 1 their bf16-view variants (#6f, #7f, #8f,
@@ -39,8 +43,8 @@
 //  * #7 reads the same bytes and needs the residual y per pixel: 81 + 45
 //    FMAs (0.061 ms). Bound by operations.
 //  * #8 reads both maps and writes dpr (188.8 MB, 0.056 ms). Inside the
-//    frame dpr is a 5×5 correlation of each map with taps folded from P:
-//    50 FMAs per pixel (0.023 ms). Bound by bytes; it does 162 FMAs.
+//    frame, 50 FMAs per pixel on the folded taps (0.023 ms). Bound by
+//    bytes; it does those 50 (up to 162 on the frame, 1.6 % of the pixels).
 // The bf16 variants at config 4 (BC = 30 maps of 769², 71.0 MB each) read
 // and write the same f32 bytes (141.9, 141.9, 212.9 MB: 0.042, 0.042,
 // 0.064 ms); their products, on bf16 operands, count at the tensor cores'
@@ -50,9 +54,9 @@
 //
 // Design. No tensor cores, no TF32: the logdet downstream needs f32 Grams
 // (the TPU kernels pin precision=HIGHEST), so every product is an f32 FMA.
-// A thread owns one column of a band of kRows rows and walks down it,
-// keeping the 3×3 (for #8: 5×5) windows of both maps in registers: per row
-// it loads one new window row, coalesced across the warp (neighbouring
+// In #6 and #7 a thread owns one column of a band of kRows rows and walks
+// down it, keeping the 3×3 windows of both maps in registers: per row it
+// loads one new window row, coalesced across the warp (neighbouring
 // threads own neighbouring columns), one row ahead of its use.
 //  * #6 keeps all 171 unique entries of the 18×18 Gram as register sums
 //    (171 FMAs per 18 values loaded); #7 keeps W (81 values) and the 45
@@ -60,9 +64,23 @@
 //    fixed order (a warp shuffle tree, then the warps in order) and writes
 //    one partial row; a second kernel adds a map's partials in order and
 //    writes both triangles. No float atomics: two runs give the same bits.
-//  * #8 is a gather: each input pixel recomputes the u_k of the up to 9
-//    output pixels that read it (9 × 18 FMAs, the count of forming u once)
-//    with P in shared memory, and writes its dpr value once.
+//  * #8 folds P into the 50 taps once per block (162 adds; each tap the
+//    sum of its 1 to 9 P entries in k order), and each thread keeps them in
+//    registers. An interior block owns a tile of 32 rows × 256 columns of
+//    the interior (rows and columns 2 … H−3, W−3: 765 = 3 × 255 at 769,
+//    508 = 2 × 254 at 512, so no tile column is nearly empty), stages its
+//    input rows (the tile's plus the 2-pixel halos) of both maps into a
+//    4-slot ring in shared memory with cp.async, and each of its 64 threads
+//    owns 4 adjacent columns: per input row it reads 2 × 8 values from
+//    shared memory (under bf16 each is rounded as it enters the registers,
+//    so a value is rounded by the 1 or 2 threads that read it, not per
+//    product) and adds them with the 5 tap rows into the 5 output rows
+//    that row feeds (5 rolling accumulators per column, 200 FMAs with
+//    register operands); the oldest is then complete and stored. The
+//    frame pixels (the 2 rows and columns at each edge, or the whole map
+//    below 5 × 5) go to frame blocks ahead of the tiles, 2 pixels a
+//    thread, in the general form: the valid u_k from P in shared memory.
+//    Each dpr pixel is written once, by one thread.
 // The TPU kernels' 128-lane padding, 8-row halo blocks, lane rolls and
 // tile-row picker are Mosaic's; here each thread masks the ragged edge.
 //
@@ -71,6 +89,9 @@
 // 1e-5 · Σ|z_i·z_j| per Gram entry and 1e-5 · Σ|P|·|z| per dpr pixel; the
 // bf16 variant of #7 also rounds y from its own f32 sum, which can land on
 // the other side of a bf16 rounding boundary than the plain version's.
+// #8's interior adds each pixel's 50 products input row by input row (tap
+// rows 0 … 4; in each, la's 5 then pr's 5) onto taps that are themselves
+// f32 sums of P: folding reorders the f32 sums and changes nothing else.
 
 #include "common.cuh"
 
@@ -247,91 +268,215 @@ __global__ void __launch_bounds__(256) gram_finish_kernel(const float* __restric
   out[t] = s;
 }
 
+// #8's geometry, one 1-D block index per map: the frame blocks first (so
+// their serial pixels do not end the launch), then the interior tiles
+// (row-major). A frame block's threads each take kFramePix frame pixels;
+// an interior block's each own kGradCols adjacent output columns of a tile
+// of kGradTileH interior rows × kGradTileW interior columns and walk down
+// its rows. ptxas is asked for kGradMinBlocks blocks an SM (at most 128
+// registers a thread). These are the fastest of the variants timed
+// against each other on an H100 (PERF.md, §6, #8).
+constexpr int kGradThreads = 64;
+constexpr int kGradMinBlocks = 8;
+constexpr int kGradCols = 4;
+constexpr int kGradTileW = kGradThreads * kGradCols;  // 256: 508 = 2·254, 765 = 3·255
+constexpr int kGradTileH = 32;
+constexpr int kGradRowW = kGradTileW + 4;  // a staged row: the tile and its 2-column halos
+constexpr int kGradStages = 4;             // ring slots: input rows in flight + 1
+constexpr int kFramePix = 2;
+static_assert(kGradCols % 4 == 0 && kGradRowW % 4 == 0, "float4 reads of the staged rows");
+
+struct GradGrid {
+  int ntc;     // column tiles of the interior
+  int tiles;   // interior tiles (0 when H or W is below 5)
+  int frame;   // frame pixels
+  int blocks;  // frame blocks + tiles
+};
+
+inline GradGrid grad_grid(int H, int W) {
+  const int nir = H > 4 ? H - 4 : 0, nic = W > 4 ? W - 4 : 0;
+  GradGrid g;
+  g.ntc = (nic + kGradTileW - 1) / kGradTileW;
+  g.tiles = g.ntc * ((nir + kGradTileH - 1) / kGradTileH);
+  g.frame = g.tiles ? 4 * W + 4 * nir : H * W;
+  g.blocks = g.tiles + (g.frame + kGradThreads * kFramePix - 1) / (kGradThreads * kFramePix);
+  return g;
+}
+
+// Frame pixel f of a map: rows 0, 1, then rows H − 2, H − 1, then columns
+// 0, 1, W − 2, W − 1 of rows 2 … H − 3; every pixel when there is no interior.
+__device__ __forceinline__ void frame_pixel(int f, int H, int W, bool all, int& r, int& c) {
+  if (all || f < 2 * W) {
+    r = f / W;
+    c = f - r * W;
+  } else if (f < 4 * W) {
+    f -= 2 * W;
+    r = H - 2 + f / W;
+    c = f % W;
+  } else {
+    f -= 4 * W;
+    r = 2 + (f >> 2);
+    c = (f & 3) < 2 ? (f & 3) : W - 4 + (f & 3);
+  }
+}
+
+// dpr at a frame pixel in the general form: the u_k of the valid output
+// pixels (r − dy, c − dx), added in k order, with P from shared memory.
 template <bool kBf16>
-__device__ __forceinline__ float load_or_zero(const float* __restrict__ m, int r, int c, int H,
-                                              int W) {
-  return (r >= 0 && r < H && c >= 0 && c < W)
-             ? operand<kBf16>(m[static_cast<long long>(r) * W + c])
-             : 0.f;
+__device__ __forceinline__ float frame_value(const float* __restrict__ a,
+                                             const float* __restrict__ p, const float* ps,
+                                             int r, int c, int W, int nh, int nw) {
+  float acc = 0.f;
+#pragma unroll
+  for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+    for (int dx = 0; dx < 3; ++dx) {
+      const int ro = r - dy, co = c - dx;
+      if (ro < 0 || ro >= nh || co < 0 || co >= nw) continue;
+      const float* pk = ps + (dy * 3 + dx) * 18;
+      const long long o = static_cast<long long>(ro) * W + co;
+      float u = 0.f;
+#pragma unroll
+      for (int ey = 0; ey < 3; ++ey)
+#pragma unroll
+        for (int ex = 0; ex < 3; ++ex)
+          u = fmaf(pk[ey * 3 + ex], operand<kBf16>(a[o + ey * W + ex]), u);
+#pragma unroll
+      for (int ey = 0; ey < 3; ++ey)
+#pragma unroll
+        for (int ex = 0; ex < 3; ++ex)
+          u = fmaf(pk[9 + ey * 3 + ex], operand<kBf16>(p[o + ey * W + ex]), u);
+      acc += u;
+    }
+  return acc;
 }
 
 template <bool kBf16>
-__global__ void __launch_bounds__(kCols) grad_maps_kernel(
+__global__ void __launch_bounds__(kGradThreads, kGradMinBlocks) grad_maps_kernel(
     const float* __restrict__ la, const float* __restrict__ pr, const float* __restrict__ P,
-    float* __restrict__ dpr, int H, int W, int nh, int nw) {
+    float* __restrict__ dpr, int H, int W, GradGrid g) {
   __shared__ float ps[9 * 18];
-  const float* pb = P + static_cast<long long>(blockIdx.z) * (9 * 18);
-  for (int q = threadIdx.x; q < 9 * 18; q += kCols) ps[q] = operand<kBf16>(pb[q]);
+  __shared__ float taps[50];
+  __shared__ __align__(16) float ring[kGradStages][2][kGradRowW];
+  const float* pb = P + static_cast<long long>(blockIdx.y) * (9 * 18);
+  for (int q = threadIdx.x; q < 9 * 18; q += kGradThreads) ps[q] = operand<kBf16>(pb[q]);
   __syncthreads();
-  const int c = blockIdx.x * kCols + threadIdx.x;  // input column
-  if (c >= W) return;
-  const int r0 = blockIdx.y * kRows;
-  const int r1 = min(r0 + kRows, H);
-  const long long map = static_cast<long long>(blockIdx.z) * H * W;
+  const long long map = static_cast<long long>(blockIdx.y) * H * W;
   const float* a = la + map;
   const float* p = pr + map;
   float* out = dpr + map;
-  // wa[i][j] = la[r − 2 + i][c − 2 + j] for the current input row r (zero
-  // outside the map; such entries are only read for output pixels that
-  // are not valid)
-  float wa[5][5], wp[5][5];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 5; ++j) {
-      wa[i][j] = load_or_zero<kBf16>(a, r0 - 2 + i, c - 2 + j, H, W);
-      wp[i][j] = load_or_zero<kBf16>(p, r0 - 2 + i, c - 2 + j, H, W);
+
+  const int frame_blocks = g.blocks - g.tiles;
+  if (static_cast<int>(blockIdx.x) < frame_blocks) {
+    const int f0 = blockIdx.x * (kGradThreads * kFramePix) + threadIdx.x;
+    for (int s = 0; s < kFramePix; ++s) {
+      const int f = f0 + s * kGradThreads;
+      if (f >= g.frame) break;
+      int r, c;
+      frame_pixel(f, H, W, g.tiles == 0, r, c);
+      out[static_cast<long long>(r) * W + c] =
+          frame_value<kBf16>(a, p, ps, r, c, W, H - 2, W - 2);
     }
-  float na[5], np[5];
-#pragma unroll
-  for (int j = 0; j < 5; ++j) {
-    na[j] = load_or_zero<kBf16>(a, r0 + 2, c - 2 + j, H, W);
-    np[j] = load_or_zero<kBf16>(p, r0 + 2, c - 2 + j, H, W);
+    return;
   }
-  for (int r = r0; r < r1; ++r) {
+
+  // taps[25·m + 5·i + j]: the sum, in k order, of the P[k, 9·m + 3·ey + ex]
+  // with i = 2 + ey − dy and j = 2 + ex − dx (m = 0: la, 1: pr)
+  if (threadIdx.x < 50) {
+    const int m = threadIdx.x / 25, i = threadIdx.x % 25 / 5, j = threadIdx.x % 5;
+    float t = 0.f;
 #pragma unroll
-    for (int j = 0; j < 5; ++j) {
-      wa[4][j] = na[j];
-      wp[4][j] = np[j];
-    }
-    if (r + 1 < r1) {  // one row ahead
-#pragma unroll
-      for (int j = 0; j < 5; ++j) {
-        na[j] = load_or_zero<kBf16>(a, r + 3, c - 2 + j, H, W);
-        np[j] = load_or_zero<kBf16>(p, r + 3, c - 2 + j, H, W);
-      }
-    }
-    float acc = 0.f;
-#pragma unroll
-    for (int dy = 0; dy < 3; ++dy) {
-      const bool row_ok = r - dy >= 0 && r - dy < nh;
+    for (int dy = 0; dy < 3; ++dy)
 #pragma unroll
       for (int dx = 0; dx < 3; ++dx) {
-        // u_k at output pixel (r − dy, c − dx): its view m = (ey, ex)
-        // reads window entry (2 − dy + ey, 2 − dx + ex)
-        const int k = dy * 3 + dx;
-        float u = 0.f;
-#pragma unroll
-        for (int ey = 0; ey < 3; ++ey)
-#pragma unroll
-          for (int ex = 0; ex < 3; ++ex)
-            u = fmaf(ps[k * 18 + ey * 3 + ex], wa[2 - dy + ey][2 - dx + ex], u);
-#pragma unroll
-        for (int ey = 0; ey < 3; ++ey)
-#pragma unroll
-          for (int ex = 0; ex < 3; ++ex)
-            u = fmaf(ps[k * 18 + 9 + ey * 3 + ex], wp[2 - dy + ey][2 - dx + ex], u);
-        if (row_ok && c - dx >= 0 && c - dx < nw) acc += u;
+        const int ey = i - 2 + dy, ex = j - 2 + dx;
+        if (ey >= 0 && ey < 3 && ex >= 0 && ex < 3)
+          t += ps[(dy * 3 + dx) * 18 + 9 * m + ey * 3 + ex];
+      }
+    taps[threadIdx.x] = t;
+  }
+
+  const int tile = blockIdx.x - frame_blocks;
+  const int tr = tile / g.ntc;
+  const int c0 = (tile - tr * g.ntc) * kGradTileW;  // first staged column
+  const int r0 = 2 + tr * kGradTileH;                      // first output row
+  const int n_in = min(r0 + kGradTileH, H - 2) - r0 + 4;   // input rows r0 − 2, …
+
+  // input row s (map row r0 − 2 + s) of both maps into slot s % kGradStages,
+  // zeros past the last column; one commit group per call
+  auto stage = [&](int s) {
+    if (s < n_in) {
+      const long long row = static_cast<long long>(r0 - 2 + s) * W;
+      float* dst = ring[s % kGradStages][0];
+      for (int j = threadIdx.x; j < kGradRowW; j += kGradThreads) {
+        const bool ok = c0 + j < W;
+        const long long o = row + (ok ? c0 + j : 0);
+        copy_async_or_zero<4>(dst + j, a + o, ok);
+        copy_async_or_zero<4>(dst + kGradRowW + j, p + o, ok);
       }
     }
-    out[static_cast<long long>(r) * W + c] = acc;
+    cp_async_commit();
+  };
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int s = 0; s < kGradStages - 1; ++s) stage(s);
+  __syncthreads();  // the taps are folded
+  float ta[25], tp[25];
 #pragma unroll
-      for (int j = 0; j < 5; ++j) {
-        wa[i][j] = wa[i + 1][j];
-        wp[i][j] = wp[i + 1][j];
+  for (int q = 0; q < 25; ++q) {
+    ta[q] = taps[q];
+    tp[q] = taps[25 + q];
+  }
+
+  const int cl = threadIdx.x * kGradCols;  // the thread's first column in the tile
+  const int c = c0 + 2 + cl;               // ... in the map
+  // acc[q]: output row r0 − 4 + s + q while input row s is added (its tap row 4 − q)
+  float acc[5][kGradCols];
+#pragma unroll
+  for (int q = 0; q < 5; ++q)
+#pragma unroll
+    for (int v = 0; v < kGradCols; ++v) acc[q][v] = 0.f;
+  for (int s = 0; s < n_in; ++s) {
+    cp_async_wait<kGradStages - 2>();  // this thread's copies of row s landed
+    __syncthreads();                   // everyone's did, and row s − 1's slot is free
+    stage(s + kGradStages - 1);
+    const float* ra = ring[s % kGradStages][0] + cl;
+    const float* rp = ring[s % kGradStages][1] + cl;
+    float xa[kGradCols + 4], xp[kGradCols + 4];
+#pragma unroll
+    for (int q = 0; q < (kGradCols + 4) / 4; ++q) {
+      const float4 va = reinterpret_cast<const float4*>(ra)[q];
+      const float4 vp = reinterpret_cast<const float4*>(rp)[q];
+      xa[4 * q] = va.x, xa[4 * q + 1] = va.y, xa[4 * q + 2] = va.z, xa[4 * q + 3] = va.w;
+      xp[4 * q] = vp.x, xp[4 * q + 1] = vp.y, xp[4 * q + 2] = vp.z, xp[4 * q + 3] = vp.w;
+    }
+#pragma unroll
+    for (int q = 0; q < kGradCols + 4; ++q) {  // once per value this thread reads
+      xa[q] = operand<kBf16>(xa[q]);
+      xp[q] = operand<kBf16>(xp[q]);
+    }
+#pragma unroll
+    for (int q = 0; q < 5; ++q)
+#pragma unroll
+      for (int v = 0; v < kGradCols; ++v) {
+        float t = acc[q][v];
+#pragma unroll
+        for (int j = 0; j < 5; ++j) t = fmaf(ta[(4 - q) * 5 + j], xa[v + j], t);
+#pragma unroll
+        for (int j = 0; j < 5; ++j) t = fmaf(tp[(4 - q) * 5 + j], xp[v + j], t);
+        acc[q][v] = t;
       }
+    if (s >= 4) {  // output row r0 + s − 4 has all five tap rows
+      float* o = out + static_cast<long long>(r0 + s - 4) * W + c;
+#pragma unroll
+      for (int v = 0; v < kGradCols; ++v)
+        if (c + v < W - 2) o[v] = acc[0][v];
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int v = 0; v < kGradCols; ++v) acc[q][v] = acc[q + 1][v];
+#pragma unroll
+    for (int v = 0; v < kGradCols; ++v) acc[4][v] = 0.f;
   }
 }
 
@@ -411,10 +556,10 @@ extern "C" int seghiero_rmi_grad_maps(const void* la, const void* pr, const void
   if (err != cudaSuccess) return err;
   if (!shape_ok(BC, H, W)) return cudaErrorInvalidValue;
   if (BC == 0) return cudaSuccess;
-  const dim3 grid((W + kCols - 1) / kCols, (H + kRows - 1) / kRows, BC);
+  const GradGrid g = grad_grid(H, W);
   auto* kernel = bf16 ? grad_maps_kernel<true> : grad_maps_kernel<false>;
-  kernel<<<grid, kCols, 0, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<dim3(g.blocks, BC), kGradThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(la), static_cast<const float*>(pr),
-      static_cast<const float*>(p), static_cast<float*>(dpr), H, W, H - 2, W - 2);
+      static_cast<const float*>(p), static_cast<float*>(dpr), H, W, g);
   return cudaGetLastError();
 }

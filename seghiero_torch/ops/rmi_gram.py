@@ -12,7 +12,9 @@ maps over the ``nh × nw = (H−2) × (W−2)`` output pixels (not centred).
 * ``residual_gram`` — kernel #7: ``A = y·yᵀ`` with ``y = z_la − Wᵀ·z_pr``,
   ``[BC, 9, 9]``;
 * ``grad_maps`` — kernel #8: ``u = P·z`` per output pixel, its 9 shifted
-  rows overlap-added into ``dpr [BC, H, W]``.
+  rows overlap-added into ``dpr [BC, H, W]``; the kernel computes it inside
+  the 2-pixel frame as a 5×5 correlation of each map with taps folded from
+  ``P`` once per map (50 FMAs a pixel), on the frame in this general form.
 
 ``precision="fast"`` (``training.rmi_precision: fast``) selects the bf16-view
 variants #6f–#8f: the TPU kernel's bf16 ``z`` scratch and single-pass bf16
@@ -193,7 +195,9 @@ def residual_gram(la: torch.Tensor, pr: torch.Tensor, w: torch.Tensor,
 def grad_maps(la: torch.Tensor, pr: torch.Tensor, p: torch.Tensor,
               precision: str = "parity") -> torch.Tensor:
     """``dpr [BC, H, W]`` f32: ``u = P·z`` (``p [BC, 9, 18]``) overlap-added
-    through the 9 views: kernel #8 (#8f) on the card."""
+    through the 9 views: kernel #8 (#8f) on the card, one launch (the
+    interior's folded 5×5 correlation and the frame's general form are
+    blocks of the same grid)."""
     fast = _check_precision(precision)
     if not _on_card(pr, "rmi grad_maps"):
         return grad_maps_plain(la, pr, p, precision)

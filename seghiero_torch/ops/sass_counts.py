@@ -1,14 +1,22 @@
-"""Static SASS counts of the fused loss kernels in the built library.
+"""Static SASS counts of the port's fused loss and RMI gradient-map kernels.
 
 ``python -m seghiero_torch.ops.sass_counts [LIBRARY]`` builds the port's
 kernel library (or reads LIBRARY), disassembles it with ``cuobjdump
--sass`` and prints one JSON object: for each of ``hiera2_fwd_kernel`` and
-``hiera2_bwd_kernel``, its instructions and MUFU operations in all, and
-those of the innermost loop (a backward branch's span) holding the most
-MUFU operations — the per-pixel loop, both sides of its branches (the
-forward's covers its 4 pixels of one channel). A diagnostic for the card:
-``ncu`` does not run there, so the instruction count per pixel is read
-from the code.
+-sass`` and prints one JSON object: for each kernel below, its
+instructions, MUFU operations and FFMAs in all, and the instructions,
+MUFU operations, FFMAs, shared-memory loads (LDS), global loads (LDG),
+asynchronous copies (LDGSTS), local-memory loads and stores (LDL, STL:
+register spills) and branches of one innermost loop (a
+backward branch's span, both sides of its branches), leaving out the
+instructions ptxas pads with under an always-false guard (``@!PT``). The
+loop is the one
+holding the most of the kernel's key operation: MUFU for the fused loss
+kernels (the per-pixel loop; the forward's covers its 4 pixels of one
+channel), FFMA for ``grad_maps_kernel`` (the row loop; it has no MUFU),
+whose f32 (#8) and bf16-view (#8f) instantiations are counted apart. A
+diagnostic for the card: ``ncu`` does not run there, so the instruction
+count per pixel is read from the code. LIBRARY may be another tree's
+build, so two versions of a kernel can be counted by one script.
 """
 
 import json
@@ -17,7 +25,28 @@ import subprocess
 import sys
 from pathlib import Path
 
-KERNELS = ("hiera2_fwd_kernel", "hiera2_bwd_kernel")
+# name → (substring of the mangled SASS function name, key operation)
+KERNELS = {
+    "hiera2_fwd_kernel": ("hiera2_fwd_kernel", "MUFU"),
+    "hiera2_bwd_kernel": ("hiera2_bwd_kernel", "MUFU"),
+    "grad_maps_kernel<false>": ("grad_maps_kernelILb0E", "FFMA"),
+    "grad_maps_kernel<true>": ("grad_maps_kernelILb1E", "FFMA"),
+}
+
+
+def _mnemonic(op: str) -> str:
+    """The opcode of one SASS instruction, without its guard predicate; ""
+    for one guarded by ``@!PT`` (never executed: ptxas's padding)."""
+    op = op.strip()
+    if op.startswith("@!PT "):
+        return ""
+    return re.sub(r"^@!?U?P\w+\s+", "", op).split(" ", 1)[0]
+
+
+def _count(mnems, prefix: str) -> int:
+    if prefix == "LDG":  # LDGSTS (cp.async) is counted on its own
+        return sum(m.startswith("LDG") and not m.startswith("LDGSTS") for m in mnems)
+    return sum(m.startswith(prefix) for m in mnems)
 
 
 def sass_counts(lib_path: str, kernels=KERNELS) -> dict:
@@ -28,22 +57,26 @@ def sass_counts(lib_path: str, kernels=KERNELS) -> dict:
                           timeout=300, check=True).stdout
     out = {}
     for func in re.split(r"\n\s*Function : ", text)[1:]:
-        name = next((k for k in kernels if k in func.split("\n", 1)[0]), None)
+        head = func.split("\n", 1)[0]
+        name = next((k for k, (pat, _) in kernels.items() if pat in head), None)
         if name is None:
             continue
+        key = kernels[name][1]
         ins = re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", func)
         addr = [int(a, 16) for a, _ in ins]
-        ops = [o for _, o in ins]
-        best = (0, 0, 0)  # (MUFU, −instructions, branches): the innermost such loop
-        for i, op in enumerate(ops):
+        mnems = [_mnemonic(o) for _, o in ins]
+        best = (0, 0, 0, 0)  # (key ops, −instructions, start, end): the innermost such loop
+        for i, op in enumerate(o for _, o in ins):
             m = re.search(r"BRA (0x[0-9a-f]+)", op)
             if m and int(m.group(1), 16) < addr[i] and int(m.group(1), 16) in addr:
-                body = ops[addr.index(int(m.group(1), 16)):i + 1]
-                mufu = sum("MUFU" in o for o in body)
-                best = max(best, (mufu, -len(body), sum("BRA" in o for o in body)))
-        out[name] = {"instructions": len(ops), "mufu": sum("MUFU" in o for o in ops),
-                     "loop_instructions": -best[1], "loop_mufu": best[0],
-                     "loop_branches": best[2]}
+                j = addr.index(int(m.group(1), 16))
+                best = max(best, (_count(mnems[j:i + 1], key), -(i + 1 - j), j, i + 1))
+        loop = mnems[best[2]:best[3]]
+        out[name] = {"instructions": sum(map(bool, mnems)), "mufu": _count(mnems, "MUFU"),
+                     "ffma": _count(mnems, "FFMA"), "loop_instructions": sum(map(bool, loop)),
+                     **{f"loop_{k.lower()}": _count(loop, k)
+                        for k in ("MUFU", "FFMA", "LDS", "LDG", "LDGSTS", "LDL", "STL")},
+                     "loop_branches": _count(loop, "BRA")}
     return out
 
 

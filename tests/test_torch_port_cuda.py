@@ -239,17 +239,27 @@ def _rmi_maps(gen, dev, BC, H, W):
     return la, pr
 
 
+# the RMI kernels' shapes: ragged against #6 / #7's 32-row, 128-column
+# blocks; #8's interior (H−4, W−4) one past (33, 257) or one short (63,
+# 511) of its 32-row, 256-column tiles; all frame (4 × 4: no interior
+# pixel) or mostly frame (an interior 1 pixel wide)
+RMI_SHAPES = ((3, 18, 20), (2, 37, 131), (1, 3, 3), (2, 70, 257), (4, 131, 40),
+              (2, 4, 4), (1, 5, 300), (3, 300, 5), (2, 37, 261), (1, 67, 515))
+
+
 @pytest.mark.gpu
 def test_rmi_gram_kernels_equal_plain_versions():
     """Card-only: the RMI kernels #6–#8 against their plain versions at small
     and ragged shapes (H−2 and W−2 not multiples of the kernels' 32-row,
-    128-column blocks; W < 128; several row bands): the Grams per entry
+    128-column blocks; W < 128; several row bands; #8's interior, H−4 and
+    W−4, one past or one short of its 32-row, 256-column tiles; maps that
+    are all or mostly #8's 2-pixel frame): the Grams per entry
     within 1e-5·Σ|z_i·z_j| (for #7 with |y| bounded by |z_la| + |W|ᵀ·|z_pr|),
     d pr per pixel within 1e-5·Σ|P|·|z| (f32 sums in another order), and
     two runs give the same bits."""
     dev = _card()
     gen = torch.Generator(device=dev).manual_seed(3)
-    for BC, H, W in ((3, 18, 20), (2, 37, 131), (1, 3, 3), (2, 70, 257), (4, 131, 40)):
+    for BC, H, W in RMI_SHAPES:
         la, pr = _rmi_maps(gen, dev, BC, H, W)
         w = torch.randn((BC, 9, 9), generator=gen, device=dev) * 0.3
         p = torch.randn((BC, 9, 18), generator=gen, device=dev)
@@ -276,16 +286,16 @@ def test_rmi_gram_kernels_equal_plain_versions():
 def test_rmi_fast_kernels_equal_plain_versions():
     """Card-only: the bf16-view variants #6f–#8f (``rmi_precision: fast``)
     against their plain fast versions in f64 after the same roundings, at
-    the ragged shapes above and one 769-wide shape (config 4's: 767 output
-    rows and columns): #6f and #8f within 1e-5 of the magnitude (their
-    roundings are the same on both sides; f32 order only), #7f within
+    the shapes above and one 769-wide shape (config 4's: 767 output rows
+    and columns, 765 interior ones): #6f and #8f within 1e-5 of the
+    magnitude (their roundings are the same on both sides; f32 order
+    only), #7f within
     2e-5 (its residual y is also rounded from its own f32 sum, which can
     fall on the other side of a bf16 boundary); two runs give the same
     bits; non-contiguous or non-f32 maps raise instead of being copied."""
     dev = _card()
     gen = torch.Generator(device=dev).manual_seed(5)
-    for BC, H, W in ((3, 18, 20), (2, 37, 131), (1, 3, 3), (2, 70, 257), (4, 131, 40),
-                     (2, 41, 769)):
+    for BC, H, W in RMI_SHAPES + ((2, 41, 769),):
         la, pr = _rmi_maps(gen, dev, BC, H, W)
         w = torch.randn((BC, 9, 9), generator=gen, device=dev) * 0.3
         p = torch.randn((BC, 9, 18), generator=gen, device=dev)

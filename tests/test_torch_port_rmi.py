@@ -9,11 +9,14 @@ the whole ``FastRMIHieraTripletLoss``. The CUDA kernels are held against
 the plain versions by tests/test_torch_port_cuda.py and chip_smoke.py.
 """
 
+import itertools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from test_torch_port_threads import one_torch_thread  # noqa: F401  (autouse)
 from seghiero_torch.hierarchy import Hierarchy as PortHierarchy
@@ -220,6 +223,60 @@ def test_rmi_plain_kernels_are_the_sums_they_name():
     # 9 terms per pixel added in another order than autograd's
     torch.testing.assert_close(port_rg.grad_maps_plain(t["la"], t["pr"], t["p"]), pr_req.grad,
                                rtol=1e-5, atol=1e-5)
+
+
+def _fold_taps(p: torch.Tensor) -> torch.Tensor:
+    """``T [BC, 2, 5, 5]``: ``T[m][2+ey−dy][2+ex−dx] = Σ_k P[k, 9m+3ey+ex]`` over
+    ``k = 3dy + dx``, the sums kernel #8 folds once per map."""
+    t = torch.zeros((p.shape[0], 2, 5, 5), dtype=p.dtype)
+    for dy, dx, m, ey, ex in itertools.product(range(3), range(3), range(2), range(3), range(3)):
+        t[:, m, 2 + ey - dy, 2 + ex - dx] += p[:, 3 * dy + dx, 9 * m + 3 * ey + ex]
+    return t
+
+
+@pytest.mark.parametrize("shape", [(3, 18, 20), (2, 37, 131), (1, 5, 5), (1, 4, 7)])
+def test_grad_maps_is_a_folded_correlation_inside_the_frame(shape):
+    """The identities kernel #8 and the smoke's yardstick rest on. Inside the
+    2-pixel frame (rows and columns 2 … H−3, W−3) every view is valid, and
+    ``grad_maps_plain`` is a 5×5 correlation of each map with taps folded
+    from P: in f64 within 1e-12 of Σ|P|·|z|, and in f32 on the bf16-rounded
+    maps and P (``precision="fast"``, taps folded from the rounded P) within
+    1e-5 of it, the kernels' tolerance. On the frame it is not (so the
+    kernel keeps the general form there): every frame pixel differs. The
+    two-call cuDNN composition (``conv2d`` with P as 9 3×3 filters per map
+    pair, ``conv_transpose2d`` with the 9 shift one-hots) equals it
+    everywhere. [1, 5, 5] has one interior pixel, [1, 4, 7] none."""
+    BC, H, W = shape
+    rng = np.random.default_rng(sum(shape))
+    la = torch.from_numpy((rng.random(shape) < 0.3).astype(np.float32))
+    pr = torch.from_numpy(rng.random(shape).astype(np.float32) + 1e-6)
+    p = torch.from_numpy(rng.standard_normal((BC, 9, 18)).astype(np.float32))
+    la64, pr64, p64 = la.double(), pr.double(), p.double()
+
+    def corr(la, pr, p):
+        x = torch.stack([la, pr], dim=1).reshape(1, 2 * BC, H, W)
+        return F.conv2d(x, _fold_taps(p), groups=BC, padding=2)[0]
+
+    inner = torch.zeros(shape, dtype=torch.bool)
+    inner[:, 2:H - 2, 2:W - 2] = True
+    want = port_rg.grad_maps_plain(la64, pr64, p64)
+    mag = port_rg.grad_maps_plain(la64, pr64, p64.abs())
+    diff = (corr(la64, pr64, p64) - want).abs()
+    assert (diff[inner] <= 1e-12 * mag[inner]).all()
+    assert (diff[~inner] > 1e-6 * mag[~inner]).all()
+
+    r = port_rg.bf16_round
+    want_f = port_rg.grad_maps_plain(la64, pr64, p64, "fast")
+    mag_f = port_rg.grad_maps_plain(la64, pr64, p64.abs(), "fast")
+    got_f = corr(r(la), r(pr), r(p))
+    assert got_f.dtype == torch.float32
+    assert ((got_f.double() - want_f).abs()[inner] <= 1e-5 * mag_f[inner]).all()
+
+    x = torch.stack([la64, pr64], dim=1).reshape(1, 2 * BC, H, W)
+    shifts = torch.eye(9, dtype=torch.float64).reshape(9, 1, 3, 3).repeat(BC, 1, 1, 1)
+    two = F.conv_transpose2d(F.conv2d(x, p64.reshape(9 * BC, 2, 3, 3), groups=BC), shifts,
+                             groups=BC)[0]
+    assert ((two - want).abs() <= 1e-12 * mag).all()
 
 
 def test_rmi_knobs():
