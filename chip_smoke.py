@@ -484,8 +484,11 @@ RMI_GRAD_REL_NORM = 5e-3
 def _check_gram(name, got, plain, plain64, mag, again, rtol: float = 1e-5):
     """An RMI kernel against its plain version in f64 (a sum of 260,100 f32
     products in cuBLAS's order carries ~1e-4 relative error of its own; the
-    kernel's order, ≤ 32 terms per thread, a shuffle tree and the block
-    partials, ~1e-5 at worst): |Δ| ≤ ``rtol`` · mag per entry; the f32 plain
+    kernels' orders carry ~1e-6, a few 1e-6 at worst: #6 adds ≤ 128
+    products a thread (4 columns × 32 rows of a tile), a shuffle tree, its
+    tiles' lag rows in tile order and then the frame rows in block order;
+    #7 ≤ 32 terms a thread, a shuffle tree and the block partials; #8 ≤ 50
+    products a pixel): |Δ| ≤ ``rtol`` · mag per entry; the f32 plain
     version's own deviation is reported; two runs give the same bits."""
     import torch
 

@@ -5,6 +5,13 @@
 // [9 of la | 9 of pr]. All sums are raw (unnormalized) f32 FMA sums:
 //
 //  * seghiero_rmi_gram18    (#6) G18[bc] = Σ_px z·zᵀ                 [BC, 18, 18]
+//                                Each entry is a lag sum: anchored at the
+//                                input pixel x = p + s_a of its anchor view
+//                                a, G18[a][b] = Σ_x map_a(x)·map_b(x + l),
+//                                l = s_b − s_a, over the x whose x − s_a is
+//                                a valid output pixel. Inside the 2-pixel
+//                                frame every x counts for every view, so
+//                                the 171 entries share 51 lag sums there.
 //  * seghiero_rmi_residual  (#7) A[bc]   = Σ_px y·yᵀ, y = z_la − Wᵀ·z_pr  [BC, 9, 9]
 //  * seghiero_rmi_grad_maps (#8) dpr[bc, r', c'] = Σ_k u_k(r'−dy, c'−dx) over
 //                                the k whose output pixel is valid, u = P·z
@@ -35,16 +42,17 @@
 //
 // What bounds them on an H100, at config 3 (BC = 60 maps of 512²,
 // 62.9 MB each in f32). The 18 views are shifts of two maps, so the least
-// work is smaller than what these kernels do:
+// work is smaller than what a per-pixel z·zᵀ does:
 //  * #6 reads both maps once (125.9 MB, 0.038 ms at 3.35 TB/s). Each G18
-//    entry is a correlation of two maps at one offset in {−2..2}² (13 la·la,
+//    entry is a correlation of two maps at one lag in {−2..2}² (13 la·la,
 //    13 pr·pr, 25 la·pr, up to the 2-pixel frame): 51 FMAs per output pixel
-//    (0.024 ms at 67 TFLOP/s f32). Bound by bytes; it does 171 FMAs.
+//    (0.024 ms at 67 TFLOP/s f32). Bound by bytes; it does those 51 inside
+//    the frame (171 per anchor on the frame, 1.6 % of the pixels).
 //  * #7 reads the same bytes and needs the residual y per pixel: 81 + 45
 //    FMAs (0.061 ms). Bound by operations.
 //  * #8 reads both maps and writes dpr (188.8 MB, 0.056 ms). Inside the
 //    frame, 50 FMAs per pixel on the folded taps (0.023 ms). Bound by
-//    bytes; it does those 50 (up to 162 on the frame, 1.6 % of the pixels).
+//    bytes; it does those 50 (up to 162 on the frame).
 // The bf16 variants at config 4 (BC = 30 maps of 769², 71.0 MB each) read
 // and write the same f32 bytes (141.9, 141.9, 212.9 MB: 0.042, 0.042,
 // 0.064 ms); their products, on bf16 operands, count at the tensor cores'
@@ -54,44 +62,71 @@
 //
 // Design. No tensor cores, no TF32: the logdet downstream needs f32 Grams
 // (the TPU kernels pin precision=HIGHEST), so every product is an f32 FMA.
-// In #6 and #7 a thread owns one column of a band of kRows rows and walks
-// down it, keeping the 3×3 windows of both maps in registers: per row it
-// loads one new window row, coalesced across the warp (neighbouring
-// threads own neighbouring columns), one row ahead of its use.
-//  * #6 keeps all 171 unique entries of the 18×18 Gram as register sums
-//    (171 FMAs per 18 values loaded); #7 keeps W (81 values) and the 45
-//    entries of the 9×9 Gram. A block then adds its threads' sums in a
-//    fixed order (a warp shuffle tree, then the warps in order) and writes
-//    one partial row; a second kernel adds a map's partials in order and
-//    writes both triangles. No float atomics: two runs give the same bits.
+//  * #7: a thread owns one column of a band of kRows rows and walks down
+//    it, keeping the 3×3 windows of both maps in registers: per row it
+//    loads one new window row, coalesced across the warp (neighbouring
+//    threads own neighbouring columns), one row ahead of its use. It
+//    keeps W (81 values) and the 45 entries of the 9×9 Gram as register
+//    sums; a block adds its threads' sums in a fixed order (a warp shuffle
+//    tree, then the warps in order) and writes one partial row; a second
+//    kernel adds a map's partials in order and writes both triangles.
+//  * #6 and #8 share one geometry (TileGrid): interior tiles of 32 rows ×
+//    256 columns of the core (input rows and columns 2 … H−3, W−3: 765 =
+//    3 × 255 at 769, 508 = 2 × 254 at 512, so no tile column is nearly
+//    empty), and frame blocks ahead of them in the same launch. A tile
+//    block stages its input rows (the tile's plus the 2-pixel halos) of
+//    both maps into a 4-slot ring in shared memory with cp.async, and each
+//    of its 64 threads owns 4 adjacent columns: per input row it reads 2 ×
+//    8 values from shared memory (under bf16 each is rounded as it enters
+//    the registers, so a value is rounded by the 1 or 2 threads that read
+//    it, not per product).
+//  * #6 keeps the 51 lag sums of the core as register sums shared by the
+//    thread's 4 columns: la·la and pr·pr at the 13 lags of the half-plane
+//    {ly > 0} ∪ {ly = 0, lx ≥ 0} (anchored at the earlier view), la·pr at
+//    all 25 (anchored at la). Per input row t it forms the products of
+//    row t with rows t − 2 … t of both maps (a 3-row register window):
+//    the 51 lags × 4 columns, 204 FMAs on register operands, each counted
+//    when its anchor's row lies in the tile (the first and last two input
+//    rows are peeled, so the steady loop has no predicate); an anchor
+//    column past the core contributes zeros. The block adds its threads'
+//    51 sums (a shuffle tree, then its 2 warps in order) into one row.
+//    An entry takes the lag sum of its lag, and on the frame the general
+//    form: each frame block gathers 256 frame anchors, 64 at a time, into
+//    shared memory (per anchor its 18 views' values, zeroed where x − s_a
+//    is not a valid output pixel, and its 38 partners at the lags of the
+//    half-plane for la and all 25 for pr) and each thread adds, for its 3
+//    of the 171 entries, one product per anchor in anchor order: one row
+//    of 171 sums per frame block. A finish kernel, one block per map,
+//    writes both triangles. Below 5 × 5 there is no core and every anchor
+//    is frame.
 //  * #8 folds P into the 50 taps once per block (162 adds; each tap the
 //    sum of its 1 to 9 P entries in k order), and each thread keeps them in
-//    registers. An interior block owns a tile of 32 rows × 256 columns of
-//    the interior (rows and columns 2 … H−3, W−3: 765 = 3 × 255 at 769,
-//    508 = 2 × 254 at 512, so no tile column is nearly empty), stages its
-//    input rows (the tile's plus the 2-pixel halos) of both maps into a
-//    4-slot ring in shared memory with cp.async, and each of its 64 threads
-//    owns 4 adjacent columns: per input row it reads 2 × 8 values from
-//    shared memory (under bf16 each is rounded as it enters the registers,
-//    so a value is rounded by the 1 or 2 threads that read it, not per
-//    product) and adds them with the 5 tap rows into the 5 output rows
-//    that row feeds (5 rolling accumulators per column, 200 FMAs with
-//    register operands); the oldest is then complete and stored. The
-//    frame pixels (the 2 rows and columns at each edge, or the whole map
-//    below 5 × 5) go to frame blocks ahead of the tiles, 2 pixels a
-//    thread, in the general form: the valid u_k from P in shared memory.
-//    Each dpr pixel is written once, by one thread.
+//    registers; per input row it adds its 2 × 8 values with the 5 tap rows
+//    into the 5 output rows that row feeds (5 rolling accumulators per
+//    column, 200 FMAs with register operands); the oldest is then complete
+//    and stored. The frame pixels (the 2 rows and columns at each edge, or
+//    the whole map below 5 × 5) go to frame blocks, 2 pixels a thread, in
+//    the general form: the valid u_k from P in shared memory. Each dpr
+//    pixel is written once, by one thread.
 // The TPU kernels' 128-lane padding, 8-row halo blocks, lane rolls and
 // tile-row picker are Mosaic's; here each thread masks the ragged edge.
+// No float atomics anywhere: two runs give the same bits.
 //
 // Numerics: f32 sums in an order set by the launch geometry, not the plain
 // versions' (seghiero_torch/ops/rmi_gram.py), so they are compared within
 // 1e-5 · Σ|z_i·z_j| per Gram entry and 1e-5 · Σ|P|·|z| per dpr pixel; the
 // bf16 variant of #7 also rounds y from its own f32 sum, which can land on
 // the other side of a bf16 rounding boundary than the plain version's.
-// #8's interior adds each pixel's 50 products input row by input row (tap
-// rows 0 … 4; in each, la's 5 then pr's 5) onto taps that are themselves
-// f32 sums of P: folding reorders the f32 sums and changes nothing else.
+// #6 adds an entry as (its lag's tile rows, in tile order) + (its frame
+// rows, in frame block order); a tile's row is its threads' sums in a
+// shuffle tree and then warp order, each thread's the products of its 4
+// columns input row by input row (column order within a row); a frame
+// row is its anchors' products in frame order. #8's interior adds each
+// pixel's 50 products input row by input row (tap rows 0 … 4; in each,
+// la's 5 then pr's 5) onto taps that are themselves f32 sums of P:
+// folding reorders the f32 sums and changes nothing else.
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -100,7 +135,6 @@ namespace {
 
 constexpr int kCols = 128;  // columns per block (blockDim.x)
 constexpr int kRows = 32;   // rows per block
-constexpr int kWarps = kCols / 32;
 constexpr int kG18 = 18 * 19 / 2;  // unique entries of the 18×18 Gram
 constexpr int kRes = 9 * 10 / 2;   // unique entries of the 9×9 Gram
 
@@ -123,11 +157,13 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// The block's per-thread sums acc[E], added in a fixed order (a shuffle tree
-// within each warp, then the warps in order), stored to out[E].
-template <int E>
+// The per-thread sums acc[E] of a block of kThreads threads, added in a
+// fixed order (a shuffle tree within each warp, then the warps in order),
+// stored to out[E].
+template <int E, int kThreads>
 __device__ __forceinline__ void block_sum_store(const float (&acc)[E], float* __restrict__ out) {
-  __shared__ float red[kWarps][E];
+  constexpr int kW = kThreads / 32;
+  __shared__ float red[kW][E];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
   for (int e = 0; e < E; ++e) {
@@ -135,10 +171,10 @@ __device__ __forceinline__ void block_sum_store(const float (&acc)[E], float* __
     if (lane == 0) red[warp][e] = s;
   }
   __syncthreads();
-  for (int e = threadIdx.x; e < E; e += kCols) {
+  for (int e = threadIdx.x; e < E; e += kThreads) {
     float s = red[0][e];
 #pragma unroll
-    for (int w = 1; w < kWarps; ++w) s += red[w][e];
+    for (int w = 1; w < kW; ++w) s += red[w][e];
     out[e] = s;
   }
 }
@@ -155,7 +191,7 @@ __device__ __forceinline__ void load_row3(const float* __restrict__ a, const flo
   }
 }
 
-// The walk shared by #6 and #7: for each output row r of the block's band
+// #7's walk: for each output row r of the block's band
 // at column c (< nw), z holds the 18 views there; `body(z)` accumulates.
 template <bool kBf16, typename Body>
 __device__ __forceinline__ void walk_band(const float* __restrict__ a, const float* __restrict__ p,
@@ -187,30 +223,6 @@ __device__ __forceinline__ void walk_band(const float* __restrict__ a, const flo
       z[9 + k] = z[12 + k];
     }
   }
-}
-
-template <bool kBf16>
-__global__ void __launch_bounds__(kCols) gram18_partial_kernel(
-    const float* __restrict__ la, const float* __restrict__ pr, float* __restrict__ partial,
-    int H, int W, int nh, int nw) {
-  const int c = blockIdx.x * kCols + threadIdx.x;
-  const int r0 = blockIdx.y * kRows;
-  const int r1 = min(r0 + kRows, nh);
-  const long long map = static_cast<long long>(blockIdx.z) * H * W;
-  float acc[kG18];
-#pragma unroll
-  for (int e = 0; e < kG18; ++e) acc[e] = 0.f;
-  if (c < nw) {
-    walk_band<kBf16>(la + map, pr + map, r0, r1, c, W, [&](const float (&z)[18]) {
-#pragma unroll
-      for (int i = 0; i < 18; ++i)
-#pragma unroll
-        for (int j = 0; j <= i; ++j) acc[tri(i, j)] = fmaf(z[i], z[j], acc[tri(i, j)]);
-    });
-  }
-  const long long blk =
-      (static_cast<long long>(blockIdx.z) * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
-  block_sum_store<kG18>(acc, partial + blk * kG18);
 }
 
 template <bool kBf16>
@@ -246,7 +258,7 @@ __global__ void __launch_bounds__(kCols) residual_partial_kernel(
   }
   const long long blk =
       (static_cast<long long>(blockIdx.z) * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
-  block_sum_store<kRes>(acc, partial + blk * kRes);
+  block_sum_store<kRes, kCols>(acc, partial + blk * kRes);
 }
 
 // out[bc][i][j] for both triangles of a D×D Gram: map bc's nblk partial
@@ -268,14 +280,15 @@ __global__ void __launch_bounds__(256) gram_finish_kernel(const float* __restric
   out[t] = s;
 }
 
-// #8's geometry, one 1-D block index per map: the frame blocks first (so
-// their serial pixels do not end the launch), then the interior tiles
-// (row-major). A frame block's threads each take kFramePix frame pixels;
-// an interior block's each own kGradCols adjacent output columns of a tile
-// of kGradTileH interior rows × kGradTileW interior columns and walk down
-// its rows. ptxas is asked for kGradMinBlocks blocks an SM (at most 128
+// The geometry of #6 and #8, one 1-D block index per map: the frame blocks
+// first (so their serial work does not end the launch), then the interior
+// tiles (row-major). An interior block's kGradThreads threads each own
+// kGradCols adjacent columns of a tile of kGradTileH interior rows ×
+// kGradTileW interior columns and walk down its rows. A frame block of #8
+// takes kGradThreads · kFramePix frame pixels, one of #6 kGramFrame frame
+// anchors. ptxas is asked for kGradMinBlocks blocks an SM (at most 128
 // registers a thread). These are the fastest of the variants timed
-// against each other on an H100 (PERF.md, §6, #8).
+// against each other on an H100, for #8 and for #6 (PERF.md, §6).
 constexpr int kGradThreads = 64;
 constexpr int kGradMinBlocks = 8;
 constexpr int kGradCols = 4;
@@ -286,20 +299,21 @@ constexpr int kGradStages = 4;             // ring slots: input rows in flight +
 constexpr int kFramePix = 2;
 static_assert(kGradCols % 4 == 0 && kGradRowW % 4 == 0, "float4 reads of the staged rows");
 
-struct GradGrid {
+struct TileGrid {
   int ntc;     // column tiles of the interior
   int tiles;   // interior tiles (0 when H or W is below 5)
   int frame;   // frame pixels
   int blocks;  // frame blocks + tiles
 };
 
-inline GradGrid grad_grid(int H, int W) {
+// the grid of a map whose frame blocks take `per_block` frame pixels each
+inline TileGrid tile_grid(int H, int W, int per_block) {
   const int nir = H > 4 ? H - 4 : 0, nic = W > 4 ? W - 4 : 0;
-  GradGrid g;
+  TileGrid g;
   g.ntc = (nic + kGradTileW - 1) / kGradTileW;
   g.tiles = g.ntc * ((nir + kGradTileH - 1) / kGradTileH);
   g.frame = g.tiles ? 4 * W + 4 * nir : H * W;
-  g.blocks = g.tiles + (g.frame + kGradThreads * kFramePix - 1) / (kGradThreads * kFramePix);
+  g.blocks = g.tiles + (g.frame + per_block - 1) / per_block;
   return g;
 }
 
@@ -317,6 +331,32 @@ __device__ __forceinline__ void frame_pixel(int f, int H, int W, bool all, int& 
     f -= 4 * W;
     r = 2 + (f >> 2);
     c = (f & 3) < 2 ? (f & 3) : W - 4 + (f & 3);
+  }
+}
+
+// Map row `row` of both maps, columns c0 … c0 + kGradRowW − 1, into dst
+// (la) and dst + kGradRowW (pr) with cp.async by a block of kThreads
+// threads, zeros past the last column.
+template <int kThreads>
+__device__ __forceinline__ void stage_row(float* dst, const float* __restrict__ a,
+                                          const float* __restrict__ p, int row, int c0, int W) {
+  const long long o0 = static_cast<long long>(row) * W;
+  for (int j = threadIdx.x; j < kGradRowW; j += kThreads) {
+    const bool ok = c0 + j < W;
+    const long long o = o0 + (ok ? c0 + j : 0);
+    copy_async_or_zero<4>(dst + j, a + o, ok);
+    copy_async_or_zero<4>(dst + kGradRowW + j, p + o, ok);
+  }
+}
+
+// N consecutive floats of a staged row (16-byte aligned), as 16-byte reads.
+template <int N>
+__device__ __forceinline__ void read_staged(const float* src, float (&x)[N]) {
+  static_assert(N % 4 == 0, "float4 reads");
+#pragma unroll
+  for (int q = 0; q < N / 4; ++q) {
+    const float4 v = reinterpret_cast<const float4*>(src)[q];
+    x[4 * q] = v.x, x[4 * q + 1] = v.y, x[4 * q + 2] = v.z, x[4 * q + 3] = v.w;
   }
 }
 
@@ -354,7 +394,7 @@ __device__ __forceinline__ float frame_value(const float* __restrict__ a,
 template <bool kBf16>
 __global__ void __launch_bounds__(kGradThreads, kGradMinBlocks) grad_maps_kernel(
     const float* __restrict__ la, const float* __restrict__ pr, const float* __restrict__ P,
-    float* __restrict__ dpr, int H, int W, GradGrid g) {
+    float* __restrict__ dpr, int H, int W, TileGrid g) {
   __shared__ float ps[9 * 18];
   __shared__ float taps[50];
   __shared__ __align__(16) float ring[kGradStages][2][kGradRowW];
@@ -405,16 +445,7 @@ __global__ void __launch_bounds__(kGradThreads, kGradMinBlocks) grad_maps_kernel
   // input row s (map row r0 − 2 + s) of both maps into slot s % kGradStages,
   // zeros past the last column; one commit group per call
   auto stage = [&](int s) {
-    if (s < n_in) {
-      const long long row = static_cast<long long>(r0 - 2 + s) * W;
-      float* dst = ring[s % kGradStages][0];
-      for (int j = threadIdx.x; j < kGradRowW; j += kGradThreads) {
-        const bool ok = c0 + j < W;
-        const long long o = row + (ok ? c0 + j : 0);
-        copy_async_or_zero<4>(dst + j, a + o, ok);
-        copy_async_or_zero<4>(dst + kGradRowW + j, p + o, ok);
-      }
-    }
+    if (s < n_in) stage_row<kGradThreads>(ring[s % kGradStages][0], a, p, r0 - 2 + s, c0, W);
     cp_async_commit();
   };
 #pragma unroll
@@ -442,13 +473,8 @@ __global__ void __launch_bounds__(kGradThreads, kGradMinBlocks) grad_maps_kernel
     const float* ra = ring[s % kGradStages][0] + cl;
     const float* rp = ring[s % kGradStages][1] + cl;
     float xa[kGradCols + 4], xp[kGradCols + 4];
-#pragma unroll
-    for (int q = 0; q < (kGradCols + 4) / 4; ++q) {
-      const float4 va = reinterpret_cast<const float4*>(ra)[q];
-      const float4 vp = reinterpret_cast<const float4*>(rp)[q];
-      xa[4 * q] = va.x, xa[4 * q + 1] = va.y, xa[4 * q + 2] = va.z, xa[4 * q + 3] = va.w;
-      xp[4 * q] = vp.x, xp[4 * q + 1] = vp.y, xp[4 * q + 2] = vp.z, xp[4 * q + 3] = vp.w;
-    }
+    read_staged(ra, xa);
+    read_staged(rp, xp);
 #pragma unroll
     for (int q = 0; q < kGradCols + 4; ++q) {  // once per value this thread reads
       xa[q] = operand<kBf16>(xa[q]);
@@ -480,7 +506,308 @@ __global__ void __launch_bounds__(kGradThreads, kGradMinBlocks) grad_maps_kernel
   }
 }
 
-// Blocks of the partial kernels per map (must equal the wrapper's count).
+// #6: the lag sums. Index of the lag (ly, lx) of a same-map pair m (0: la·la,
+// 1: pr·pr; lags of the half-plane {ly > 0} ∪ {ly = 0, lx ≥ 0}) and of a
+// la·pr pair (all 25 lags, anchored at la) among the 51.
+constexpr int kLags = 51;
+__host__ __device__ constexpr int lag_same(int m, int ly, int lx) {
+  return 13 * m + (ly == 0 ? lx : 3 + (ly - 1) * 5 + lx + 2);
+}
+__host__ __device__ constexpr int lag_cross(int ly, int lx) { return 26 + (ly + 2) * 5 + lx + 2; }
+
+// Entry (i, j) of G18 as a lag sum: its anchor view a (0 … 17), its lag
+// (ly, lx) from the anchor to the other view, and that lag's index.
+__device__ __forceinline__ void entry_lag(int i, int j, int& a, int& ly, int& lx, int& lag) {
+  if (i < j) {
+    const int t = i;
+    i = j;
+    j = t;
+  }
+  const int mi = i / 9, mj = j / 9, ki = i % 9, kj = j % 9;
+  ly = ki / 3 - kj / 3;  // s_ki − s_kj
+  lx = ki % 3 - kj % 3;
+  if (mi != mj) {  // i ≥ j: i is a pr view, j the la anchor
+    a = kj;
+    lag = lag_cross(ly, lx);
+    return;
+  }
+  a = 9 * mi + kj;
+  if (ly < 0 || (ly == 0 && lx < 0)) {  // anchor at the other view
+    ly = -ly;
+    lx = -lx;
+    a = 9 * mi + ki;
+  }
+  lag = lag_same(mi, ly, lx);
+}
+
+// #6's frame blocks: kGramFrame anchors a block, gathered kGradThreads at a
+// time into kGramSlots rows of shared memory (anchor-minor): the 18 views'
+// values at the anchor, each zero where x − s_k is not a valid output
+// pixel; la at the 13 half-plane lags; pr at all 25 lags (zero off the map).
+constexpr int kGramFrame = 256;
+constexpr int kGramSlots = 18 + 13 + 25;
+constexpr int kGramStride = kGradThreads + 4;  // float4 reads of 8 rows hit 32 banks
+constexpr int kGramEntries = (kG18 + kGradThreads - 1) / kGradThreads;  // a thread's entries
+constexpr int kGramSmem = kGramSlots * kGramStride > kGradStages * 2 * kGradRowW
+                              ? kGramSlots * kGramStride
+                              : kGradStages * 2 * kGradRowW;
+static_assert(kGramFrame % kGradThreads == 0, "whole chunks of frame anchors");
+
+__device__ __forceinline__ void same_lag(int h, int& ly, int& lx) {  // h: a half-plane lag
+  ly = h < 3 ? 0 : 1 + (h - 3) / 5;
+  lx = h < 3 ? h : (h - 3) % 5 - 2;
+}
+
+// One frame block: out[e] for the 171 entries, each the sum over the block's
+// anchors, in frame order, of map_a(x)·map_b(x + l) where x − s_a is valid.
+template <bool kBf16>
+__device__ __forceinline__ void gram18_frame(const float* __restrict__ a,
+                                             const float* __restrict__ p,
+                                             float* __restrict__ out, float* smem, int H, int W,
+                                             const TileGrid& g) {
+  float(*ns)[kGramStride] = reinterpret_cast<float(*)[kGramStride]>(smem);
+  const int nh = H - 2, nw = W - 2;
+  int sa[kGramEntries], sb[kGramEntries];  // the factors' rows of the thread's entries
+#pragma unroll
+  for (int q = 0; q < kGramEntries; ++q) {
+    const int e = threadIdx.x + q * kGradThreads;
+    sa[q] = sb[q] = 0;
+    if (e >= kG18) continue;
+    int i = 0;  // e = tri(i, j), j ≤ i
+    while ((i + 1) * (i + 2) / 2 <= e) ++i;
+    int av, ly, lx, lag;
+    entry_lag(i, e - i * (i + 1) / 2, av, ly, lx, lag);
+    sa[q] = av;
+    sb[q] = av < 9 && lag < 13 ? 18 + lag : 31 + (ly + 2) * 5 + lx + 2;
+  }
+  float s[kGramEntries];
+#pragma unroll
+  for (int q = 0; q < kGramEntries; ++q) s[q] = 0.f;
+  auto at = [&](const float* m, int r, int c) {
+    return r >= 0 && r < H && c >= 0 && c < W ? operand<kBf16>(m[static_cast<long long>(r) * W + c])
+                                              : 0.f;
+  };
+  const int f0 = blockIdx.x * kGramFrame;
+  for (int ch = 0; ch < kGramFrame && f0 + ch < g.frame; ch += kGradThreads) {
+    if (ch) __syncthreads();  // the previous anchors are read
+    const int f = f0 + ch + threadIdx.x;
+    float* col = &ns[0][threadIdx.x];
+    if (f < g.frame) {
+      int r, c;
+      frame_pixel(f, H, W, g.tiles == 0, r, c);
+      const float xa = at(a, r, c), xp = at(p, r, c);
+#pragma unroll
+      for (int k = 0; k < 9; ++k) {
+        const int ro = r - k / 3, co = c - k % 3;
+        const bool ok = ro >= 0 && ro < nh && co >= 0 && co < nw;
+        col[k * kGramStride] = ok ? xa : 0.f;
+        col[(9 + k) * kGramStride] = ok ? xp : 0.f;
+      }
+#pragma unroll
+      for (int h = 0; h < 13; ++h) {
+        int ly, lx;
+        same_lag(h, ly, lx);
+        col[(18 + h) * kGramStride] = at(a, r + ly, c + lx);
+      }
+#pragma unroll
+      for (int q = 0; q < 25; ++q)
+        col[(31 + q) * kGramStride] = at(p, r + q / 5 - 2, c + q % 5 - 2);
+    } else {
+#pragma unroll
+      for (int q = 0; q < kGramSlots; ++q) col[q * kGramStride] = 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < kGramEntries; ++q) {
+      if (threadIdx.x + q * kGradThreads >= kG18) break;
+      const float4* x = reinterpret_cast<const float4*>(ns[sa[q]]);
+      const float4* y = reinterpret_cast<const float4*>(ns[sb[q]]);
+      float t = s[q];
+#pragma unroll 4
+      for (int v = 0; v < kGradThreads / 4; ++v) {
+        const float4 u = x[v], w = y[v];
+        t = fmaf(u.x, w.x, t);
+        t = fmaf(u.y, w.y, t);
+        t = fmaf(u.z, w.z, t);
+        t = fmaf(u.w, w.w, t);
+      }
+      s[q] = t;
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kGramEntries; ++q) {
+    const int e = threadIdx.x + q * kGradThreads;
+    if (e < kG18) out[e] = s[q];
+  }
+}
+
+// One interior tile: out[51], the tile's lag sums over its anchors.
+template <bool kBf16>
+__device__ __forceinline__ void gram18_tile(const float* __restrict__ a,
+                                            const float* __restrict__ p,
+                                            float* __restrict__ out, float* smem, int H, int W,
+                                            const TileGrid& g, int tile) {
+  constexpr int V = kGradCols;
+  float(*ring)[2][kGradRowW] = reinterpret_cast<float(*)[2][kGradRowW]>(smem);
+  const int tr = tile / g.ntc;
+  const int c0 = (tile - tr * g.ntc) * kGradTileW;  // first staged column
+  const int r0 = 2 + tr * kGradTileH;               // first anchor row
+  const int n = min(r0 + kGradTileH, H - 2) - r0;   // anchor rows (≥ 1)
+  const int n_in = n + 4;                           // input rows r0 − 2, …
+
+  // input row s (map row r0 − 2 + s) into slot s % kGradStages; one commit
+  // group per call
+  auto stage = [&](int s) {
+    if (s < n_in) stage_row<kGradThreads>(ring[s % kGradStages][0], a, p, r0 - 2 + s, c0, W);
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int s = 0; s < kGradStages - 1; ++s) stage(s);
+
+  const int cl = threadIdx.x * V;  // the thread's first column in the tile
+  const int c = c0 + 2 + cl;       // ... in the map: its anchor columns c … c + V − 1
+  bool in_core[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) in_core[v] = c + v < W - 2;
+  float acc[kLags];
+#pragma unroll
+  for (int q = 0; q < kLags; ++q) acc[q] = 0.f;
+  // the window: rows t − 1 (index 0) and t − 2 (1); la and pr at the anchor
+  // columns (zero past the core), pr at the anchor columns ± 2
+  float wa[2][V], wp[2][V], wq[2][V + 4];
+#pragma unroll
+  for (int d = 0; d < 2; ++d) {
+#pragma unroll
+    for (int v = 0; v < V; ++v) wa[d][v] = wp[d][v] = 0.f;
+#pragma unroll
+    for (int j = 0; j < V + 4; ++j) wq[d][j] = 0.f;
+  }
+
+  // input row s: the products of row t = r0 − 2 + s with rows t − 2 … t whose
+  // anchor row lies in the tile (all of them when kAll)
+  auto row = [&](int s, auto all) {
+    constexpr bool kAll = decltype(all)::value;
+    cp_async_wait<kGradStages - 2>();  // this thread's copies of row s landed
+    __syncthreads();                   // everyone's did, and row s − 1's slot is free
+    stage(s + kGradStages - 1);
+    float xa[V + 4], xp[V + 4];  // row t at columns c − 2 … c + V + 1
+    read_staged(ring[s % kGradStages][0] + cl, xa);
+    read_staged(ring[s % kGradStages][1] + cl, xp);
+    float ta[V], tp[V];  // row t's anchors
+#pragma unroll
+    for (int q = 0; q < V + 4; ++q) {  // once per value this thread reads
+      xa[q] = operand<kBf16>(xa[q]);
+      xp[q] = operand<kBf16>(xp[q]);
+    }
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      ta[v] = in_core[v] ? xa[v + 2] : 0.f;
+      tp[v] = in_core[v] ? xp[v + 2] : 0.f;
+    }
+    const int u = s - 2;  // row t − r0
+    if (kAll || (u >= 0 && u < n)) {  // anchors in row t
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+#pragma unroll
+        for (int lx = 0; lx < 3; ++lx) {
+          acc[lag_same(0, 0, lx)] = fmaf(ta[v], xa[v + 2 + lx], acc[lag_same(0, 0, lx)]);
+          acc[lag_same(1, 0, lx)] = fmaf(tp[v], xp[v + 2 + lx], acc[lag_same(1, 0, lx)]);
+        }
+#pragma unroll
+        for (int lx = -2; lx <= 2; ++lx) {
+          acc[lag_cross(0, lx)] = fmaf(ta[v], xp[v + 2 + lx], acc[lag_cross(0, lx)]);
+          acc[lag_cross(-1, lx)] = fmaf(ta[v], wq[0][v + 2 + lx], acc[lag_cross(-1, lx)]);
+          acc[lag_cross(-2, lx)] = fmaf(ta[v], wq[1][v + 2 + lx], acc[lag_cross(-2, lx)]);
+        }
+      }
+    }
+#pragma unroll
+    for (int d = 1; d <= 2; ++d) {
+      if (kAll || (u >= d && u < n + d)) {  // anchors in row t − d
+#pragma unroll
+        for (int v = 0; v < V; ++v)
+#pragma unroll
+          for (int lx = -2; lx <= 2; ++lx) {
+            acc[lag_same(0, d, lx)] =
+                fmaf(wa[d - 1][v], xa[v + 2 + lx], acc[lag_same(0, d, lx)]);
+            acc[lag_same(1, d, lx)] =
+                fmaf(wp[d - 1][v], xp[v + 2 + lx], acc[lag_same(1, d, lx)]);
+            acc[lag_cross(d, lx)] = fmaf(wa[d - 1][v], xp[v + 2 + lx], acc[lag_cross(d, lx)]);
+          }
+      }
+    }
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      wa[1][v] = wa[0][v], wa[0][v] = ta[v];
+      wp[1][v] = wp[0][v], wp[0][v] = tp[v];
+    }
+#pragma unroll
+    for (int j = 0; j < V + 4; ++j) wq[1][j] = wq[0][j], wq[0][j] = xp[j];
+  };
+  int s = 0;
+  for (; s < 4; ++s) row(s, std::false_type{});  // the halo rows and the first two
+  for (; s < n + 2; ++s) row(s, std::true_type{});
+  for (; s < n_in; ++s) row(s, std::false_type{});  // the last two and the halo rows
+  block_sum_store<kLags, kGradThreads>(acc, out);
+}
+
+// #6's first pass: per map, one row of 171 sums per frame block, then one
+// row of the 51 lag sums per interior tile (the scratch layout of
+// gram18_scratch).
+template <bool kBf16>
+__global__ void __launch_bounds__(kGradThreads, kGradMinBlocks) gram18_kernel(
+    const float* __restrict__ la, const float* __restrict__ pr, float* __restrict__ partial,
+    int H, int W, TileGrid g, int scratch) {
+  __shared__ __align__(16) float smem[kGramSmem];
+  const long long map = static_cast<long long>(blockIdx.y) * H * W;
+  float* part = partial + static_cast<long long>(blockIdx.y) * scratch;
+  const int frame_blocks = g.blocks - g.tiles;
+  if (static_cast<int>(blockIdx.x) < frame_blocks) {
+    gram18_frame<kBf16>(la + map, pr + map, part + blockIdx.x * kG18, smem, H, W, g);
+  } else {
+    const int tile = blockIdx.x - frame_blocks;
+    gram18_tile<kBf16>(la + map, pr + map, part + frame_blocks * kG18 + tile * kLags, smem, H, W,
+                       g, tile);
+  }
+}
+
+// #6's finish, one block per map: each lag's tile rows added in tile order,
+// each entry's frame rows in frame block order, then both triangles of
+// G18 as (lag sum) + (frame sum).
+__global__ void __launch_bounds__(256) gram18_finish_kernel(const float* __restrict__ partial,
+                                                            float* __restrict__ out, TileGrid g,
+                                                            int scratch) {
+  __shared__ float lag_sum[kLags], frame_sum[kG18];
+  const float* base = partial + static_cast<long long>(blockIdx.x) * scratch;
+  const int frame_blocks = g.blocks - g.tiles;
+  const int t = threadIdx.x;
+  if (t < kLags) {
+    const float* src = base + frame_blocks * kG18 + t;
+    float s = 0.f;
+    for (int b = 0; b < g.tiles; ++b) s += src[b * kLags];
+    lag_sum[t] = s;
+  } else if (t < kLags + kG18) {
+    const float* src = base + (t - kLags);
+    float s = 0.f;
+    for (int b = 0; b < frame_blocks; ++b) s += src[b * kG18];
+    frame_sum[t - kLags] = s;
+  }
+  __syncthreads();
+  for (int ij = t; ij < 18 * 18; ij += blockDim.x) {
+    const int i = ij / 18, j = ij % 18;
+    int av, ly, lx, lag;
+    entry_lag(i, j, av, ly, lx, lag);
+    out[static_cast<long long>(blockIdx.x) * 18 * 18 + ij] =
+        lag_sum[lag] + frame_sum[i >= j ? tri(i, j) : tri(j, i)];
+  }
+}
+
+// Floats of #6's partial sums per map (must equal the wrapper's count).
+inline int gram18_scratch(const TileGrid& g) {
+  return (g.blocks - g.tiles) * kG18 + g.tiles * kLags;
+}
+
+// Blocks of #7's partial kernel per map (must equal the wrapper's count).
 inline int partial_blocks(int H, int W) {
   return ((W - 2 + kCols - 1) / kCols) * ((H - 2 + kRows - 1) / kRows);
 }
@@ -507,29 +834,42 @@ cudaError_t two_pass(int BC, int H, int W, int nblk, void* partial, void* out, c
 }  // namespace
 }  // namespace seghiero
 
-// la, pr: [BC, H, W] f32 contiguous; partial: [BC, nblk, 171] f32 scratch
-// with nblk = ceil((W−2)/128)·ceil((H−2)/32) (the wrapper allocates it);
-// g18: [BC, 18, 18] f32; bf16: 0 for #6, 1 for #6f (bf16 views). Returns
+// la, pr: [BC, H, W] f32 contiguous; partial: [BC, scratch] f32 with
+// scratch = gram18_scratch (the wrapper allocates it: 171 floats per frame
+// block of 256 frame anchors, 51 per interior tile of 32 × 256); g18:
+// [BC, 18, 18] f32; bf16: 0 for #6, 1 for #6f (bf16 views). Returns
 // cudaGetLastError() (cudaErrorInvalidValue for a shape the kernels do not
-// take, an nblk that does not match or a bf16 flag other than 0 or 1).
+// take, a scratch size that does not match or a bf16 flag other than 0 or 1).
 extern "C" int seghiero_rmi_gram18(const void* la, const void* pr, void* partial, void* g18,
-                                   int BC, int H, int W, int nblk, int bf16, int device,
+                                   int BC, int H, int W, int scratch, int bf16, int device,
                                    void* stream) {
   using namespace seghiero;
   if (bf16 != 0 && bf16 != 1) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
+  if (!shape_ok(BC, H, W)) return cudaErrorInvalidValue;
+  const TileGrid g = tile_grid(H, W, kGramFrame);
+  if (scratch != gram18_scratch(g)) return cudaErrorInvalidValue;
+  if (BC == 0) return cudaSuccess;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return two_pass<18>(BC, H, W, nblk, partial, g18, s, [&](dim3 grid, cudaStream_t st) {
-    auto* kernel = bf16 ? gram18_partial_kernel<true> : gram18_partial_kernel<false>;
-    kernel<<<grid, kCols, 0, st>>>(static_cast<const float*>(la), static_cast<const float*>(pr),
-                                   static_cast<float*>(partial), H, W, H - 2, W - 2);
-  });
+  auto* kernel = bf16 ? gram18_kernel<true> : gram18_kernel<false>;
+  kernel<<<dim3(g.blocks, BC), kGradThreads, 0, s>>>(static_cast<const float*>(la),
+                                                      static_cast<const float*>(pr),
+                                                      static_cast<float*>(partial), H, W, g,
+                                                      scratch);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  gram18_finish_kernel<<<BC, 256, 0, s>>>(static_cast<const float*>(partial),
+                                          static_cast<float*>(g18), g, scratch);
+  return cudaGetLastError();
 }
 
-// As seghiero_rmi_gram18, with w: [BC, 9, 9] f32 (the regression W, so
-// y = z_la − Wᵀ·z_pr), partial: [BC, nblk, 45] and a: [BC, 9, 9]; bf16: 0
-// for #7, 1 for #7f.
+// la, pr: [BC, H, W] f32 contiguous; w: [BC, 9, 9] f32 (the regression W,
+// so y = z_la − Wᵀ·z_pr); partial: [BC, nblk, 45] f32 scratch with nblk =
+// ceil((W−2)/128)·ceil((H−2)/32) (the wrapper allocates it); a: [BC, 9, 9]
+// f32; bf16: 0 for #7, 1 for #7f. Returns cudaGetLastError()
+// (cudaErrorInvalidValue for a shape the kernels do not take, an nblk that
+// does not match or a bf16 flag other than 0 or 1).
 extern "C" int seghiero_rmi_residual(const void* la, const void* pr, const void* w,
                                      void* partial, void* a, int BC, int H, int W, int nblk,
                                      int bf16, int device, void* stream) {
@@ -556,7 +896,7 @@ extern "C" int seghiero_rmi_grad_maps(const void* la, const void* pr, const void
   if (err != cudaSuccess) return err;
   if (!shape_ok(BC, H, W)) return cudaErrorInvalidValue;
   if (BC == 0) return cudaSuccess;
-  const GradGrid g = grad_grid(H, W);
+  const TileGrid g = tile_grid(H, W, kGradThreads * kFramePix);
   auto* kernel = bf16 ? grad_maps_kernel<true> : grad_maps_kernel<false>;
   kernel<<<dim3(g.blocks, BC), kGradThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(la), static_cast<const float*>(pr),

@@ -61,7 +61,7 @@ SIGNATURES = {
     "seghiero_hiera2_fwd_partials": [_I] * 3,
     # lo, t_fine, t_coarse, tab, gsum, dlo, B, C, h, w, nf, nc, device, stream
     "seghiero_hiera2_bwd": [_P] * 6 + [_I] * 7 + [_P],
-    # la, pr, partial, g18, BC, H, W, nblk, bf16, device, stream
+    # la, pr, partial, g18, BC, H, W, scratch, bf16, device, stream
     "seghiero_rmi_gram18": [_P] * 4 + [_I] * 6 + [_P],
     # la, pr, w, partial, a, BC, H, W, nblk, bf16, device, stream
     "seghiero_rmi_residual": [_P] * 5 + [_I] * 6 + [_P],

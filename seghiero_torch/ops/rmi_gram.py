@@ -8,7 +8,10 @@ the 18 views ``z`` are the 3×3 shifted views ``map[r+dy, c+dx]`` of both
 maps over the ``nh × nw = (H−2) × (W−2)`` output pixels (not centred).
 
 * ``gram18`` — kernel #6 (``csrc/rmi_gram.cu``): ``G18 = z·zᵀ``, raw sums
-  ``[BC, 18, 18]``;
+  ``[BC, 18, 18]``; the kernel computes each entry as a lag sum
+  ``Σ_x map_a(x)·map_b(x + l)`` anchored at one of its two views: inside
+  the 2-pixel frame the 171 entries share 51 such sums (51 FMAs a pixel),
+  on the frame each entry keeps the general form;
 * ``residual_gram`` — kernel #7: ``A = y·yᵀ`` with ``y = z_la − Wᵀ·z_pr``,
   ``[BC, 9, 9]``;
 * ``grad_maps`` — kernel #8: ``u = P·z`` per output pixel, its 9 shifted
@@ -42,7 +45,10 @@ import torch
 from seghiero_torch.ops import _build
 
 _POS_ALPHA = 1e-3  # rmi_hiera_triplet_loss.py:18 of the reference
-COLS, ROWS = 128, 32  # csrc/rmi_gram.cu kCols, kRows
+COLS, ROWS = 128, 32  # csrc/rmi_gram.cu kCols, kRows (kernel #7's blocks)
+# kernel #6's interior tiles and frame anchors per frame block
+# (csrc/rmi_gram.cu kGradTileH, kGradTileW, kGramFrame)
+TILE_H, TILE_W, GRAM_FRAME = 32, 256, 256
 
 PRECISIONS = ("parity", "fast")
 
@@ -139,8 +145,19 @@ def _check_maps(la: torch.Tensor, pr: torch.Tensor, what: str, *small):
 
 
 def partial_blocks(H: int, W: int) -> int:
-    """Partial rows per map of kernels #6 and #7 (one per block)."""
+    """Partial rows per map of kernel #7 (one per block)."""
     return -(-(W - 2) // COLS) * -(-(H - 2) // ROWS)
+
+
+def gram18_scratch(H: int, W: int) -> int:
+    """Floats of kernel #6's partial sums per map (``tile_grid`` and
+    ``gram18_scratch`` of csrc/rmi_gram.cu): 171 per frame block, 51 per
+    interior tile of the core (rows and columns 2 … H−3, W−3); below 5 × 5
+    there is no core and every pixel is frame."""
+    nir, nic = max(H - 4, 0), max(W - 4, 0)
+    tiles = -(-nic // TILE_W) * -(-nir // TILE_H)
+    frame = 4 * W + 4 * nir if tiles else H * W
+    return -(-frame // GRAM_FRAME) * 171 + tiles * 51
 
 
 def _stream(x: torch.Tensor):
@@ -155,17 +172,18 @@ def _count(name: str, fast: bool) -> None:
 
 def gram18(la: torch.Tensor, pr: torch.Tensor, precision: str = "parity") -> torch.Tensor:
     """Raw ``G18 = z·zᵀ`` ``[BC, 18, 18]`` f32: kernel #6 (#6f for
-    ``precision="fast"``) on the card."""
+    ``precision="fast"``) on the card, one launch (its lag sums and the
+    finish that adds them into both triangles)."""
     fast = _check_precision(precision)
     if not _on_card(pr, "rmi gram18"):
         return gram18_plain(la, pr, precision)
     BC, H, W = _check_maps(la, pr, "rmi gram18")
-    nblk = partial_blocks(H, W)
-    partial = torch.empty((BC, nblk, 171), dtype=torch.float32, device=pr.device)
+    scratch = gram18_scratch(H, W)
+    partial = torch.empty((BC, scratch), dtype=torch.float32, device=pr.device)
     out = torch.empty((BC, 18, 18), dtype=torch.float32, device=pr.device)
     lib = _build.library()
     err = lib.seghiero_rmi_gram18(la.data_ptr(), pr.data_ptr(), partial.data_ptr(),
-                                  out.data_ptr(), BC, H, W, nblk, int(fast), pr.device.index,
+                                  out.data_ptr(), BC, H, W, scratch, int(fast), pr.device.index,
                                   _stream(pr))
     _build.check(lib, err, "rmi gram18")
     _count("gram18", fast)

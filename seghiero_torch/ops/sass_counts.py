@@ -1,4 +1,4 @@
-"""Static SASS counts of the port's fused loss and RMI gradient-map kernels.
+"""Static SASS counts of the port's fused loss kernels and RMI kernels #6 and #8.
 
 ``python -m seghiero_torch.ops.sass_counts [LIBRARY]`` builds the port's
 kernel library (or reads LIBRARY), disassembles it with ``cuobjdump
@@ -12,8 +12,11 @@ instructions ptxas pads with under an always-false guard (``@!PT``). The
 loop is the one
 holding the most of the kernel's key operation: MUFU for the fused loss
 kernels (the per-pixel loop; the forward's covers its 4 pixels of one
-channel), FFMA for ``grad_maps_kernel`` (the row loop; it has no MUFU),
-whose f32 (#8) and bf16-view (#8f) instantiations are counted apart. A
+channel), FFMA for ``gram18_kernel`` (#6: the steady row loop of its
+interior tiles) and ``grad_maps_kernel`` (#8: the row loop), whose f32
+(#6, #8) and bf16-view (#6f, #8f) instantiations are counted apart. Each
+kernel's registers and spill bytes are those ``ptxas -v`` wrote into the
+build's log beside the library (``<library>.log``; null without one). A
 diagnostic for the card: ``ncu`` does not run there, so the instruction
 count per pixel is read from the code. LIBRARY may be another tree's
 build, so two versions of a kernel can be counted by one script.
@@ -29,6 +32,8 @@ from pathlib import Path
 KERNELS = {
     "hiera2_fwd_kernel": ("hiera2_fwd_kernel", "MUFU"),
     "hiera2_bwd_kernel": ("hiera2_bwd_kernel", "MUFU"),
+    "gram18_kernel<false>": ("gram18_kernelILb0E", "FFMA"),
+    "gram18_kernel<true>": ("gram18_kernelILb1E", "FFMA"),
     "grad_maps_kernel<false>": ("grad_maps_kernelILb0E", "FFMA"),
     "grad_maps_kernel<true>": ("grad_maps_kernelILb1E", "FFMA"),
 }
@@ -49,12 +54,28 @@ def _count(mnems, prefix: str) -> int:
     return sum(m.startswith(prefix) for m in mnems)
 
 
+def ptxas_usage(log: str, pattern: str) -> dict:
+    """Registers and spill bytes of the kernel whose mangled name holds
+    ``pattern``, from a ``ptxas -v`` log."""
+    for chunk in log.split("Compiling entry function '")[1:]:
+        if pattern not in chunk.split("'", 1)[0]:
+            continue
+        regs = re.search(r"Used (\d+) registers", chunk)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", chunk)
+        return {"registers": int(regs.group(1)) if regs else None,
+                "spill_store_bytes": int(spill.group(1)) if spill else None,
+                "spill_load_bytes": int(spill.group(2)) if spill else None}
+    return {"registers": None, "spill_store_bytes": None, "spill_load_bytes": None}
+
+
 def sass_counts(lib_path: str, kernels=KERNELS) -> dict:
     from torch.utils.cpp_extension import CUDA_HOME
 
     tool = Path(CUDA_HOME or "/usr/local/cuda") / "bin" / "cuobjdump"
     text = subprocess.run([str(tool), "-sass", lib_path], capture_output=True, text=True,
                           timeout=300, check=True).stdout
+    log_file = Path(lib_path).with_suffix(".log")
+    log = log_file.read_text() if log_file.exists() else ""
     out = {}
     for func in re.split(r"\n\s*Function : ", text)[1:]:
         head = func.split("\n", 1)[0]
@@ -76,7 +97,7 @@ def sass_counts(lib_path: str, kernels=KERNELS) -> dict:
                      "ffma": _count(mnems, "FFMA"), "loop_instructions": sum(map(bool, loop)),
                      **{f"loop_{k.lower()}": _count(loop, k)
                         for k in ("MUFU", "FFMA", "LDS", "LDG", "LDGSTS", "LDL", "STL")},
-                     "loop_branches": _count(loop, "BRA")}
+                     "loop_branches": _count(loop, "BRA"), **ptxas_usage(log, kernels[name][0])}
     return out
 
 

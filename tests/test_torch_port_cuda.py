@@ -239,10 +239,10 @@ def _rmi_maps(gen, dev, BC, H, W):
     return la, pr
 
 
-# the RMI kernels' shapes: ragged against #6 / #7's 32-row, 128-column
-# blocks; #8's interior (H−4, W−4) one past (33, 257) or one short (63,
-# 511) of its 32-row, 256-column tiles; all frame (4 × 4: no interior
-# pixel) or mostly frame (an interior 1 pixel wide)
+# the RMI kernels' shapes: ragged against #7's 32-row, 128-column blocks;
+# the interior (H−4, W−4) of #6 and #8 one past (33, 257) or one short
+# (63, 511) of their 32-row, 256-column tiles; all frame (4 × 4: no
+# interior pixel) or mostly frame (an interior 1 pixel wide)
 RMI_SHAPES = ((3, 18, 20), (2, 37, 131), (1, 3, 3), (2, 70, 257), (4, 131, 40),
               (2, 4, 4), (1, 5, 300), (3, 300, 5), (2, 37, 261), (1, 67, 515))
 
@@ -250,10 +250,10 @@ RMI_SHAPES = ((3, 18, 20), (2, 37, 131), (1, 3, 3), (2, 70, 257), (4, 131, 40),
 @pytest.mark.gpu
 def test_rmi_gram_kernels_equal_plain_versions():
     """Card-only: the RMI kernels #6–#8 against their plain versions at small
-    and ragged shapes (H−2 and W−2 not multiples of the kernels' 32-row,
-    128-column blocks; W < 128; several row bands; #8's interior, H−4 and
-    W−4, one past or one short of its 32-row, 256-column tiles; maps that
-    are all or mostly #8's 2-pixel frame): the Grams per entry
+    and ragged shapes (H−2 and W−2 not multiples of #7's 32-row,
+    128-column blocks; W < 128; several row bands; the interior of #6 and
+    #8, H−4 and W−4, one past or one short of their 32-row, 256-column
+    tiles; maps that are all or mostly their 2-pixel frame): the Grams per entry
     within 1e-5·Σ|z_i·z_j| (for #7 with |y| bounded by |z_la| + |W|ᵀ·|z_pr|),
     d pr per pixel within 1e-5·Σ|P|·|z| (f32 sums in another order), and
     two runs give the same bits."""

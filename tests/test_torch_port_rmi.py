@@ -279,6 +279,81 @@ def test_grad_maps_is_a_folded_correlation_inside_the_frame(shape):
     assert ((two - want).abs() <= 1e-12 * mag).all()
 
 
+def _entry_lag(i: int, j: int):
+    """Entry (i, j) of G18 as kernel #6 sums it: its anchor view a (0 … 17),
+    its lag (ly, lx) from the anchor to the other view, and that lag's index
+    among the 51 (csrc/rmi_gram.cu ``entry_lag``): la·la and pr·pr at the 13
+    lags of the half-plane {ly > 0} ∪ {ly = 0, lx ≥ 0}, anchored at the
+    earlier view; la·pr at all 25, anchored at la."""
+    i, j = max(i, j), min(i, j)
+    (mi, ki), (mj, kj) = divmod(i, 9), divmod(j, 9)
+    ly, lx = ki // 3 - kj // 3, ki % 3 - kj % 3
+    if mi != mj:
+        return kj, ly, lx, 26 + (ly + 2) * 5 + lx + 2
+    a = 9 * mi + kj
+    if ly < 0 or (ly == 0 and lx < 0):
+        a, ly, lx = 9 * mi + ki, -ly, -lx
+    return a, ly, lx, 13 * mi + (lx if ly == 0 else 3 + (ly - 1) * 5 + lx + 2)
+
+
+def _gram18_as_lag_sums(la: torch.Tensor, pr: torch.Tensor):
+    """G18 ``[BC, 18, 18]`` as kernel #6 forms it, in the maps' dtype: the
+    51 lag sums ``Σ_x map_a(x)·map_b(x + l)`` over the core anchors x (input
+    rows and columns 2 … H−3, W−3, where every view's x − s_a is a valid
+    output pixel), and per entry the general form over the frame anchors
+    (those with x − s_a valid). Returns (G18, the core sums alone per
+    entry)."""
+    BC, H, W = pr.shape
+    nh, nw = H - 2, W - 2
+    maps = (la, pr)
+    padded = [F.pad(m, (2, 2, 2, 2)) for m in maps]
+    rows = torch.arange(H)[:, None]
+    cols = torch.arange(W)[None, :]
+    core = (rows >= 2) & (rows < H - 2) & (cols >= 2) & (cols < W - 2)
+    lag_sums = {}
+    g18 = torch.zeros((BC, 18, 18), dtype=pr.dtype)
+    core_only = torch.zeros_like(g18)
+    for i, j in itertools.product(range(18), range(18)):
+        a, ly, lx, lag = _entry_lag(i, j)
+        mb = int(max(i, j) >= 9)  # the partner: la only in la·la entries
+        ma, (dy, dx) = a // 9, divmod(a % 9, 3)
+        prod = maps[ma] * padded[mb][:, 2 + ly : 2 + ly + H, 2 + lx : 2 + lx + W]
+        if lag not in lag_sums:
+            lag_sums[lag] = (prod * core).sum((1, 2))
+        valid = ((rows - dy >= 0) & (rows - dy < nh) & (cols - dx >= 0) & (cols - dx < nw))
+        g18[:, i, j] = lag_sums[lag] + (prod * (valid & ~core)).sum((1, 2))
+        core_only[:, i, j] = lag_sums[lag]
+    assert len(lag_sums) == 51
+    return g18, core_only
+
+
+@pytest.mark.parametrize("shape", [(3, 18, 20), (2, 37, 131), (1, 5, 5), (1, 4, 7), (1, 3, 3)])
+def test_gram18_is_lag_correlations_on_the_core(shape):
+    """The identity kernel #6 rests on: every G18 entry is a lag sum anchored
+    at one of its views, so on the core (input rows and columns 2 … H−3,
+    W−3) the 171 entries share 51 lag sums (13 la·la, 13 pr·pr, 25 la·pr),
+    and on the 2-pixel frame each entry keeps the general form. In f64 it
+    equals ``gram18_plain`` within 1e-12 of Σ|z_i·z_j|; in f32 on the
+    bf16-rounded maps it equals the fast plain version within 1e-5, the
+    kernel's tolerance. The core sums alone are not G18: every pr·pr entry
+    (pr > 0 everywhere) has frame anchors. [1, 5, 5] has one core pixel,
+    [1, 4, 7] and [1, 3, 3] none."""
+    rng = np.random.default_rng(sum(shape))
+    la = torch.from_numpy((rng.random(shape) < 0.3).astype(np.float32))
+    pr = torch.from_numpy(rng.random(shape).astype(np.float32) + 1e-6)
+    la64, pr64 = la.double(), pr.double()
+    mag = port_rg.gram18_plain(la64, pr64)  # la, pr ≥ 0: Σ|z_i·z_j| is G18
+    got, core_only = _gram18_as_lag_sums(la64, pr64)
+    assert ((got - mag).abs() <= 1e-12 * mag).all()
+    assert ((core_only - mag).abs()[:, 9:, 9:] > 1e-6 * mag[:, 9:, 9:]).all()
+
+    r = port_rg.bf16_round
+    want_f = port_rg.gram18_plain(la64, pr64, "fast")
+    got_f, _ = _gram18_as_lag_sums(r(la), r(pr))
+    assert got_f.dtype == torch.float32
+    assert ((got_f.double() - want_f).abs() <= 1e-5 * want_f).all()
+
+
 def test_rmi_knobs():
     oh = torch.zeros((2, 3, 16, 16))
     pr = torch.full((2, 3, 16, 16), 0.5)
