@@ -487,8 +487,10 @@ def _check_gram(name, got, plain, plain64, mag, again, rtol: float = 1e-5):
     kernels' orders carry ~1e-6, a few 1e-6 at worst: #6 adds ≤ 128
     products a thread (4 columns × 32 rows of a tile), a shuffle tree, its
     tiles' lag rows in tile order and then the frame rows in block order;
-    #7 ≤ 32 terms a thread, a shuffle tree and the block partials; #8 ≤ 50
-    products a pixel): |Δ| ≤ ``rtol`` · mag per entry; the f32 plain
+    #7 ≤ 32 terms a thread, a shuffle tree and the block partials; #7f 64
+    pixels chained in the tensor core, then ≤ 32 rows a warp, 4 warps and
+    the tiles in order; #8 ≤ 50 products a pixel): |Δ| ≤ ``rtol`` · mag per
+    entry; the f32 plain
     version's own deviation is reported; two runs give the same bits."""
     import torch
 
@@ -667,11 +669,13 @@ def rmi_kernel_checks(seed: int):
 # f64 after the same bf16 roundings. #6f and #8f round only their inputs,
 # identically on both sides, so they differ from the f64 sums by f32 order
 # alone, as #6 and #8 do: 1e-5 of the magnitude. #7f also rounds the
-# residual y from its own f32 sum of 9 products, which lands on the other
-# side of a bf16 rounding boundary than the f64 sum for about 1 in 10^4
-# values (9·2^-24 of a 2^-8 spacing); each such flip moves one pixel's
-# products by 2^-8 of themselves, about 1e-6 of the magnitude in all:
-# 2e-5 leaves room for both.
+# residual y from the tensor core's sum of la and 9 exact products, which
+# lands on the other side of a bf16 rounding boundary than the f64 sum for
+# about 1 in 10^4 values (a few 2^-24 of a 2^-8 spacing); each such flip
+# moves one pixel's products by 2^-8 of themselves, about 1e-6 of the
+# magnitude in all; and the tensor core adds y·yᵀ in its own order with
+# truncation, chained over 64 pixels (a few 1e-7 a row, then f32 adds):
+# 2e-5 leaves room for all three.
 RMI_FAST_RTOL = {"rmi_gram18_fast": 1e-5, "rmi_residual_gram_fast": 2e-5,
                  "rmi_grad_maps_fast": 1e-5}
 # the RMI term through the fast kernels against the parity kernels: the

@@ -2,7 +2,7 @@
 // and pr (probabilities), both [BC, H, W] f32 contiguous. View
 // k = (dy, dx) ∈ {0,1,2}², k = 3·dy + dx, reads map[r+dy, c+dx] for output
 // pixels r < nh = H − 2, c < nw = W − 2 (not centred); z is the 18 views
-// [9 of la | 9 of pr]. All sums are raw (unnormalized) f32 FMA sums:
+// [9 of la | 9 of pr]. All sums are raw (unnormalized) f32 sums:
 //
 //  * seghiero_rmi_gram18    (#6) G18[bc] = Σ_px z·zᵀ                 [BC, 18, 18]
 //                                Each entry is a lag sum: anchored at the
@@ -13,6 +13,7 @@
 //                                frame every x counts for every view, so
 //                                the 171 entries share 51 lag sums there.
 //  * seghiero_rmi_residual  (#7) A[bc]   = Σ_px y·yᵀ, y = z_la − Wᵀ·z_pr  [BC, 9, 9]
+//                                #7 in f32 FMAs, #7f on bf16 tensor cores
 //  * seghiero_rmi_grad_maps (#8) dpr[bc, r', c'] = Σ_k u_k(r'−dy, c'−dx) over
 //                                the k whose output pixel is valid, u = P·z
 //                                (P [BC, 9, 18])                  [BC, H, W]
@@ -24,13 +25,12 @@
 // Each entry takes `bf16`: 0 runs the f32 kernels (#6, #7, #8,
 // `rmi_precision: parity`), 1 their bf16-view variants (#6f, #7f, #8f,
 // `rmi_precision: fast`), which round to bf16 (nearest even) exactly where
-// the TPU kernel stores or casts to bf16 and keep every product and sum in
-// f32: each loaded map value (the bf16 z scratch), W once when it is
-// staged, the residual y per pixel before its 45 products, and P when it
-// is staged in shared memory. A product of two bf16 values is exact in
-// f32, so these are the TPU kernel's single-pass bf16 dots with f32
-// accumulation. The maps stay f32 in memory, as the TPU kernel reads f32
-// maps and rounds only in VMEM.
+// the TPU kernel stores or casts to bf16 and keep every sum in f32: each
+// loaded map value (the bf16 z scratch), W once a block, the residual y per
+// pixel before its 45 products, and P when it is staged in shared memory.
+// A product of two bf16 values is exact in f32, so these are the TPU
+// kernel's single-pass bf16 dots with f32 accumulation. The maps stay f32
+// in memory, as the TPU kernel reads f32 maps and rounds only in VMEM.
 //
 // Replaces: seghiero_tpu/ops/pallas/rmi_gram.py, `_gram18` (the
 // pl.pallas_call at :257, body `_gram18_kernel` :153-170), `_residual_gram`
@@ -49,19 +49,22 @@
 //    (0.024 ms at 67 TFLOP/s f32). Bound by bytes; it does those 51 inside
 //    the frame (171 per anchor on the frame, 1.6 % of the pixels).
 //  * #7 reads the same bytes and needs the residual y per pixel: 81 + 45
-//    FMAs (0.061 ms). Bound by operations.
+//    FMAs (0.061 ms at the f32 rate). Bound by operations.
 //  * #8 reads both maps and writes dpr (188.8 MB, 0.056 ms). Inside the
 //    frame, 50 FMAs per pixel on the folded taps (0.023 ms). Bound by
 //    bytes; it does those 50 (up to 162 on the frame).
 // The bf16 variants at config 4 (BC = 30 maps of 769², 71.0 MB each) read
 // and write the same f32 bytes (141.9, 141.9, 212.9 MB: 0.042, 0.042,
 // 0.064 ms); their products, on bf16 operands, count at the tensor cores'
-// bf16 rate, so all three are bound by bytes. These variants still run
-// them as f32 FMAs on rounded values: one rounding per loaded value (two
-// instructions) is all they add to the f32 kernels.
+// bf16 rate, so all three are bound by bytes. #6f and #8f run them as f32
+// FMAs on rounded values (one rounding per loaded value is all they add to
+// #6 and #8); #7f runs them on the tensor cores, since as FMAs its 2.2 G
+// products alone would take 0.066 ms, more than its byte bound.
 //
-// Design. No tensor cores, no TF32: the logdet downstream needs f32 Grams
-// (the TPU kernels pin precision=HIGHEST), so every product is an f32 FMA.
+// Design. #6, #7 and #8 use no tensor cores and no TF32: the logdet
+// downstream needs f32 Grams and the TPU pins precision=HIGHEST for f32
+// operands, so every product is an f32 FMA. #7f's operands are bf16 (the
+// TPU's single-pass bf16 MXU dots), which is what mma.sync computes.
 //  * #7: a thread owns one column of a band of kRows rows and walks down
 //    it, keeping the 3×3 windows of both maps in registers: per row it
 //    loads one new window row, coalesced across the warp (neighbouring
@@ -70,6 +73,32 @@
 //    sums; a block adds its threads' sums in a fixed order (a warp shuffle
 //    tree, then the warps in order) and writes one partial row; a second
 //    kernel adds a map's partials in order and writes both triangles.
+//  * #7f: tiles of 32 output rows × 256 output columns (510 = 256 + 254,
+//    767 = 256 + 256 + 255), every output pixel with all 18 views, no
+//    frame. A block of 4 warps stages the tile's input rows of both maps
+//    through a 4-slot cp.async ring (f32), and packs each row once into
+//    pair words (bf16 of staged columns j and j + 1, for every j: each
+//    value rounded once per word it is in) in a 4-slot ring whose slots
+//    start 8 banks apart, so every gather below is conflict-free. Each
+//    warp owns 64 columns of each row: 4 segments of 16 pixels, each 4
+//    mma.sync.m16n8k16 (bf16 operands, f32 sums):
+//    - product 1, twice (8 pixels each): Y = A·B + C with A = −bf16(W)ᵀ,
+//      its rows in kRowView's order and its K slots in kSlotView's (16 ×
+//      16, zero outside the 9 × 9 entries, loaded once), B pr's pair words
+//      kWordRow / kWordCol at the 8 pixels (slots 2q, 2q + 1 are word q,
+//      two horizontally adjacent views), C la's views (zero rows zero). D
+//      is Y, rows the views, columns the pixels; a ragged segment zeroes
+//      the columns of pixels at or past nw here (at column nw the dx = 0
+//      view still reads the map). The two D tiles round to bf16 and pack
+//      (cvt.rn.bf16x2) into the A fragment of product 2: {rows g, g + 8} ×
+//      {pixels 2t, 2t + 8} (g = lane / 4, t = lane % 4).
+//    - product 2, twice: Y·Yᵀ over the 16 pixels (K), its B fragments the
+//      same registers: columns 0 … 7 {reg0, reg2}, 8 … 15 {reg1, reg3}.
+//    A row's 4 segments chain in the tensor core from zero (its own sums
+//    truncate); the row's 16 × 16 tile is then added to the warp's f32
+//    register sums, row by row. The block adds its warps' lower triangles
+//    (one entry per pair of views) in warp order into one partial row; the
+//    finish writes both triangles, so A is exactly symmetric.
 //  * #6 and #8 share one geometry (TileGrid): interior tiles of 32 rows ×
 //    256 columns of the core (input rows and columns 2 … H−3, W−3: 765 =
 //    3 × 255 at 769, 508 = 2 × 254 at 512, so no tile column is nearly
@@ -114,9 +143,15 @@
 //
 // Numerics: f32 sums in an order set by the launch geometry, not the plain
 // versions' (seghiero_torch/ops/rmi_gram.py), so they are compared within
-// 1e-5 · Σ|z_i·z_j| per Gram entry and 1e-5 · Σ|P|·|z| per dpr pixel; the
-// bf16 variant of #7 also rounds y from its own f32 sum, which can land on
-// the other side of a bf16 rounding boundary than the plain version's.
+// 1e-5 · Σ|z_i·z_j| per Gram entry and 1e-5 · Σ|P|·|z| per dpr pixel.
+// #7f is compared within 2e-5: it rounds y from the tensor core's sum of
+// la and 9 exact products, which can land on the other side of a bf16
+// rounding boundary than the plain version's, and the tensor core adds its
+// products in its own order and truncates, so a row's sum is chained in it
+// over 64 pixels only. #7f adds an entry as (its tiles' rows, in tile
+// order); a tile's row is its 4 warps' sums in warp order, each warp's its
+// output rows' sums in row order, each row's its 4 segments chained in the
+// tensor core.
 // #6 adds an entry as (its lag's tile rows, in tile order) + (its frame
 // rows, in frame block order); a tile's row is its threads' sums in a
 // shuffle tree and then warp order, each thread's the products of its 4
@@ -225,6 +260,7 @@ __device__ __forceinline__ void walk_band(const float* __restrict__ a, const flo
   }
 }
 
+// #7's first pass, launched as <false> (#7f is residual_mma_kernel).
 template <bool kBf16>
 __global__ void __launch_bounds__(kCols) residual_partial_kernel(
     const float* __restrict__ la, const float* __restrict__ pr, const float* __restrict__ w,
@@ -503,6 +539,250 @@ __global__ void __launch_bounds__(kGradThreads, kGradMinBlocks) grad_maps_kernel
       for (int v = 0; v < kGradCols; ++v) acc[q][v] = acc[q + 1][v];
 #pragma unroll
     for (int v = 0; v < kGradCols; ++v) acc[4][v] = 0.f;
+  }
+}
+
+// #7f on bf16 tensor cores (the header's Design). A tile is kResTileH
+// output rows × kResTileW output columns; each of its kResWarps warps owns
+// kResSegs segments of 16 pixels of every row.
+constexpr int kResThreads = 128;
+constexpr int kResWarps = kResThreads / 32;
+constexpr int kResTileH = 32;
+constexpr int kResTileW = 256;
+constexpr int kResSegs = kResTileW / kResWarps / 16;
+// Pair words of a staged row x: word j = bf16(x[j]) | bf16(x[j + 1]) << 16,
+// j = 0 … 4·kPairJobs − 1 (the gathers read 0 … kResTileW), packed 4 a job
+// from two aligned float4 reads of x. A staged row holds kResRowW columns;
+// pair slot k starts at word k·kPairStride, 8 banks after slot k − 1, so
+// the 3 slots an output row reads start 8 banks apart, in any rotation,
+// and each gather's 8-word runs of its rows meet no bank twice.
+constexpr int kPairJobs = (kResTileW + 1 + 3) / 4;
+constexpr int kResRowW = 4 * kPairJobs + 4;
+constexpr int kPairSlots = 4;
+constexpr int kPairStride = 264;
+static_assert(kPairStride % 32 == 32 / kPairSlots && kPairStride >= 4 * kPairJobs,
+              "slots 8 banks apart, not overlapping");
+static_assert(kResRowW % 4 == 0 && kPairStride % 4 == 0, "float4 and uint4 rows");
+
+// Product 1's K slots: slots 2q, 2q + 1 hold pr's pair word q, input row
+// kWordRow[q] at staged columns p + kWordCol[q] and p + kWordCol[q] + 1 for
+// pixel p; words 3 and 7 repeat 0 and 4 (lanes t = 3 read what lanes t = 0
+// read). kSlotView[s] is the view k = 3·dy + dx in slot s, −1 where A's
+// column is zero (a view an earlier slot holds, or a repeat). kRowView[r]
+// is the view in row r of Y (product 1's A and C rows, product 2's rows
+// and columns), −1 for a zero row: C's rows g < 8 hold la's views dx = 0,
+// 1 (word 2t + dx of their row dy at pixels 2t, 2t + 1), rows g + 8 the
+// views dx = 2, so each row dy's words are 8 adjacent ones in every gather.
+__constant__ int kWordRow[8] = {0, 1, 2, 0, 0, 1, 2, 0};
+__constant__ int kWordCol[8] = {0, 0, 0, 0, 1, 1, 1, 1};
+__constant__ int kSlotView[16] = {0, 1, 3, 4, 6, 7, -1, -1, -1, 2, -1, 5, -1, 8, -1, -1};
+__constant__ int kRowView[16] = {0, 1, 3, 4, 6, 7, -1, -1, 2, 5, 8, -1, -1, -1, -1, -1};
+
+// bf16(lo) in the low half, bf16(hi) in the high half (nearest even)
+__device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// a bf16 half of a pair word as f32, picked by a byte_perm selector
+// (kLoHalf, kHiHalf; kZero gives 0)
+constexpr unsigned kLoHalf = 0x1044, kHiHalf = 0x3244, kZero = 0x4444;
+__device__ __forceinline__ float half_f32(unsigned word, unsigned sel) {
+  return __uint_as_float(__byte_perm(word, 0u, sel));
+}
+
+// d = a·b + c, m16n8k16, bf16 operands, f32 sums (PTX fragment layouts)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1, const float (&c)[4]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(c[0]), "f"(c[1]),
+        "f"(c[2]), "f"(c[3]));
+}
+
+// #7f's first pass: one partial row of the 45 lower-triangle sums per tile
+// (blockIdx.x, row-major over ntc column tiles) of map blockIdx.y.
+__global__ void __launch_bounds__(kResThreads) residual_mma_kernel(
+    const float* __restrict__ la, const float* __restrict__ pr, const float* __restrict__ w,
+    float* __restrict__ partial, int H, int W, int ntc) {
+  __shared__ __align__(16) float ring[kGradStages][2][kResRowW];
+  __shared__ __align__(16) unsigned pairs[2][kPairSlots * kPairStride];
+  __shared__ float red[kResWarps][kRes];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int nw = W - 2;
+  const int tr = blockIdx.x / ntc;
+  const int c0 = (blockIdx.x - tr * ntc) * kResTileW;  // first output (and staged) column
+  const int r0 = tr * kResTileH;                        // first output row
+  const int n_in = min(kResTileH, H - 2 - r0) + 2;      // input rows r0, …
+  const long long map = static_cast<long long>(blockIdx.y) * H * W;
+  // the maps' bases as values the compiler cannot split again, so a copy's
+  // address is one 32-bit multiply-add onto them
+  const float* a = la + map;
+  const float* p = pr + map;
+  asm("" : "+l"(a), "+l"(p));
+
+  // input row s (map row r0 + s) into ring slot s % kGradStages, zeros past
+  // the map's last column; one commit group per call. The thread copies
+  // staged columns j = tid + kResThreads·k, the same ones every row.
+  static_assert(2 * kResThreads <= kResRowW && kResRowW <= 3 * kResThreads, "3 copies a thread");
+  int col[3];
+  bool in_map[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    in_map[k] = c0 + tid + k * kResThreads < W;
+    col[k] = in_map[k] ? c0 + tid + k * kResThreads : 0;
+  }
+  const bool third = tid + 2 * kResThreads < kResRowW;
+  auto stage = [&](int s) {
+    if (s < n_in) {
+      const int o = (r0 + s) * W;  // within the map (shape_ok: H·W < 2^31)
+      float* dst = ring[s & (kGradStages - 1)][0] + tid;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        if (k < 2 || third) {
+          copy_async_or_zero<4>(dst + k * kResThreads, a + (o + col[k]), in_map[k]);
+          copy_async_or_zero<4>(dst + kResRowW + k * kResThreads, p + (o + col[k]), in_map[k]);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  static_assert((kGradStages & (kGradStages - 1)) == 0 && (kPairSlots & (kPairSlots - 1)) == 0,
+                "ring slots by masking");
+#pragma unroll
+  for (int s = 0; s < kGradStages - 1; ++s) stage(s);
+
+  // product 1's A = −bf16(W)ᵀ: row r (view kRowView[r]), K slot s
+  const float* wb = w + static_cast<long long>(blockIdx.y) * 81;
+  auto neg_wt = [&](int r, int s) {
+    const int i = kRowView[r], j = kSlotView[s];
+    return i >= 0 && j >= 0 ? -wb[j * 9 + i] : 0.f;
+  };
+  const unsigned fa[4] = {pack_bf16x2(neg_wt(g, 2 * t), neg_wt(g, 2 * t + 1)),
+                          pack_bf16x2(neg_wt(g + 8, 2 * t), neg_wt(g + 8, 2 * t + 1)),
+                          pack_bf16x2(neg_wt(g, 2 * t + 8), neg_wt(g, 2 * t + 9)),
+                          pack_bf16x2(neg_wt(g + 8, 2 * t + 8), neg_wt(g + 8, 2 * t + 9))};
+  // the lane's gathers at the warp's first pixel, as (input row, word): B's
+  // words t and t + 4 at pixel g (the same row); C's rows g and g + 8 at
+  // pixels 2t, 2t + 1 (a zero row reads row g − 6's word, or row 8's)
+  const int px = warp * (kResTileW / kResWarps);
+  const int b_row = kWordRow[t], b0_col = px + g + kWordCol[t];
+  const int b1_col = px + g + kWordCol[t + 4];
+  const int vc = kRowView[g], v8 = kRowView[g + 8];
+  const int c_row = vc >= 0 ? vc / 3 : (g - 6) / 2, c_col = px + 2 * t + (vc >= 0 ? vc % 3 : g % 2);
+  const int c8_row = v8 >= 0 ? v8 / 3 : 0, c8_col = px + 2 * t + 2;
+  const unsigned c_lo = vc >= 0 ? kLoHalf : kZero, c_hi = vc >= 0 ? kHiHalf : kZero;
+  const unsigned c8_lo = v8 >= 0 ? kLoHalf : kZero, c8_hi = v8 >= 0 ? kHiHalf : kZero;
+
+  // staged row s → pair slot s % kPairSlots, both maps, 4 words a job:
+  // job kResThreads − 1 − tid, and on the last warp (whose staging took no
+  // third column) one more
+  static_assert(kResThreads < 2 * kPairJobs && 2 * kPairJobs <= 2 * kResThreads, "2 jobs at most");
+  int job_src[2], job_dst[2];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int job = kResThreads - 1 - tid + k * kResThreads;
+    const int m = job >= kPairJobs, q = job - m * kPairJobs;
+    job_src[k] = m * (kResRowW / 4) + q;  // float4 of the ring slot
+    job_dst[k] = m * (kPairSlots * kPairStride / 4) + q;  // uint4 of pairs
+  }
+  const bool second = 2 * kResThreads - 1 - tid < 2 * kPairJobs;
+  auto pack = [&](int s) {
+    uint4* dst = reinterpret_cast<uint4*>(&pairs[0][(s & (kPairSlots - 1)) * kPairStride]);
+    const float4* src = reinterpret_cast<const float4*>(ring[s & (kGradStages - 1)][0]);
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      if (k == 1 && !second) break;
+      const float4 x = src[job_src[k]], y = src[job_src[k] + 1];
+      dst[job_dst[k]] = make_uint4(pack_bf16x2(x.x, x.y), pack_bf16x2(x.y, x.z),
+                                   pack_bf16x2(x.z, x.w), pack_bf16x2(x.w, y.x));
+    }
+  };
+
+  float acc_a[4] = {0.f, 0.f, 0.f, 0.f}, acc_b[4] = {0.f, 0.f, 0.f, 0.f};
+  // output row o from pair slots o, o + 1, o + 2; kRagged: the warp's
+  // columns reach past nw (masks, and segments to skip)
+  auto row = [&](int o, auto ragged) {
+    constexpr bool kRagged = decltype(ragged)::value;
+    auto at = [&](int dy) { return ((o + dy) & (kPairSlots - 1)) * kPairStride; };
+    const unsigned* pb = &pairs[1][at(b_row)];
+    const unsigned* lc = &pairs[0][at(c_row) + c_col];
+    const unsigned* lc8 = &pairs[0][at(c8_row) + c8_col];
+    float ra[4] = {0.f, 0.f, 0.f, 0.f}, rb[4] = {0.f, 0.f, 0.f, 0.f};  // the row's tile
+#pragma unroll
+    for (int q = 0; q < kResSegs; ++q) {
+      const int col = c0 + px + 16 * q;  // the segment's first output column
+      if (kRagged && col >= nw) break;
+      unsigned ya[4];  // Y as product 2's A: rows g, g + 8 × pixels 2t, 2t + 8
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int o8 = 16 * q + 8 * h;
+        const unsigned wc = lc[o8], w8 = lc8[o8];
+        const float c[4] = {half_f32(wc, c_lo), half_f32(wc, c_hi), half_f32(w8, c8_lo),
+                            half_f32(w8, c8_hi)};
+        float d[4];
+        mma_bf16(d, fa, pb[b0_col + o8], pb[b1_col + o8], c);
+        if (kRagged && col + 16 > nw) {  // y = 0 past the last output column
+          const int cd = col + 8 * h + 2 * t;
+          if (cd >= nw) d[0] = d[2] = 0.f;
+          if (cd + 1 >= nw) d[1] = d[3] = 0.f;
+        }
+        ya[2 * h] = pack_bf16x2(d[0], d[1]);
+        ya[2 * h + 1] = pack_bf16x2(d[2], d[3]);
+      }
+      mma_bf16(ra, ya, ya[0], ya[2], ra);  // columns 0 … 7
+      mma_bf16(rb, ya, ya[1], ya[3], rb);  // columns 8 … 15
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc_a[e] += ra[e];
+      acc_b[e] += rb[e];
+    }
+  };
+  // step s: row s lands, is packed, and output row s − 3 is added (its
+  // rows were packed at earlier steps; slot s is none of theirs). A warp
+  // runs one of two loops with the same count of barriers: barrier.sync
+  // without .aligned, which warps may reach at different instructions.
+  auto rows = [&](auto ragged) {
+    for (int s = 0; s <= n_in; ++s) {
+      cp_async_wait<kGradStages - 2>();  // this thread's copies of row s landed
+      // everyone's did, row s − 1 is packed and its ring slot free
+      asm volatile("barrier.sync 0;\n" ::: "memory");
+      if (s < n_in) {
+        stage(s + kGradStages - 1);
+        pack(s);
+      }
+      if (s >= 3) row(s - 3, ragged);
+    }
+  };
+  if (c0 + px + kResTileW / kResWarps > nw)
+    rows(std::true_type{});
+  else
+    rows(std::false_type{});
+
+  // the warps' lower triangles in Y's rows: lane (g, t) holds (g, 2t + e),
+  // (g + 8, 2t + e) of columns 0 … 7 in acc_a and of columns 8 … 15 in
+  // acc_b (e = 0, 1); entry (r, c), c ≤ r, of two views is A's entry of
+  // those views, each pair of views once
+  auto put = [&](int r, int c, float v) {
+    const int i = kRowView[r], j = kRowView[c];
+    if (c <= r && i >= 0 && j >= 0) red[warp][i >= j ? tri(i, j) : tri(j, i)] = v;
+  };
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    put(g, 2 * t + e, acc_a[e]);
+    put(g + 8, 2 * t + e, acc_a[2 + e]);
+    put(g, 8 + 2 * t + e, acc_b[e]);
+    put(g + 8, 8 + 2 * t + e, acc_b[2 + e]);
+  }
+  __syncthreads();
+  if (tid < kRes) {
+    float sum = red[0][tid];
+#pragma unroll
+    for (int k = 1; k < kResWarps; ++k) sum += red[k][tid];
+    partial[(static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x) * kRes + tid] = sum;
   }
 }
 
@@ -812,23 +1092,14 @@ inline int partial_blocks(int H, int W) {
   return ((W - 2 + kCols - 1) / kCols) * ((H - 2 + kRows - 1) / kRows);
 }
 
-inline bool shape_ok(int BC, int H, int W) {
-  return BC >= 0 && BC <= 65535 && H >= 3 && W >= 3 && (H + kRows - 1) / kRows <= 65535;
+// Tiles of #7f per map (must equal the wrapper's count).
+inline int residual_tiles(int H, int W) {
+  return ((W - 2 + kResTileW - 1) / kResTileW) * ((H - 2 + kResTileH - 1) / kResTileH);
 }
 
-template <int D, typename Launch>
-cudaError_t two_pass(int BC, int H, int W, int nblk, void* partial, void* out, cudaStream_t s,
-                     Launch launch_partial) {
-  if (!shape_ok(BC, H, W) || nblk != partial_blocks(H, W)) return cudaErrorInvalidValue;
-  if (BC == 0) return cudaSuccess;
-  const dim3 grid((W - 2 + kCols - 1) / kCols, (H - 2 + kRows - 1) / kRows, BC);
-  launch_partial(grid, s);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const long long n = static_cast<long long>(BC) * D * D;
-  gram_finish_kernel<D><<<blocks_for(n, 256), 256, 0, s>>>(static_cast<const float*>(partial),
-                                                          static_cast<float*>(out), BC, nblk);
-  return cudaGetLastError();
+inline bool shape_ok(int BC, int H, int W) {
+  return BC >= 0 && BC <= 65535 && H >= 3 && W >= 3 && (H + kRows - 1) / kRows <= 65535 &&
+         static_cast<long long>(H) * W < (1LL << 31);
 }
 
 }  // namespace
@@ -865,11 +1136,12 @@ extern "C" int seghiero_rmi_gram18(const void* la, const void* pr, void* partial
 }
 
 // la, pr: [BC, H, W] f32 contiguous; w: [BC, 9, 9] f32 (the regression W,
-// so y = z_la − Wᵀ·z_pr); partial: [BC, nblk, 45] f32 scratch with nblk =
-// ceil((W−2)/128)·ceil((H−2)/32) (the wrapper allocates it); a: [BC, 9, 9]
-// f32; bf16: 0 for #7, 1 for #7f. Returns cudaGetLastError()
-// (cudaErrorInvalidValue for a shape the kernels do not take, an nblk that
-// does not match or a bf16 flag other than 0 or 1).
+// so y = z_la − Wᵀ·z_pr); partial: [BC, nblk, 45] f32 scratch (the wrapper
+// allocates it) with nblk = partial_blocks (#7: ceil((W−2)/128)·
+// ceil((H−2)/32)) for bf16 = 0, residual_tiles (#7f: ceil((W−2)/256)·
+// ceil((H−2)/32)) for bf16 = 1; a: [BC, 9, 9] f32. Returns
+// cudaGetLastError() (cudaErrorInvalidValue for a shape the kernels do not
+// take, an nblk that does not match or a bf16 flag other than 0 or 1).
 extern "C" int seghiero_rmi_residual(const void* la, const void* pr, const void* w,
                                      void* partial, void* a, int BC, int H, int W, int nblk,
                                      int bf16, int device, void* stream) {
@@ -877,13 +1149,27 @@ extern "C" int seghiero_rmi_residual(const void* la, const void* pr, const void*
   if (bf16 != 0 && bf16 != 1) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
+  if (!shape_ok(BC, H, W) || nblk != (bf16 ? residual_tiles(H, W) : partial_blocks(H, W)))
+    return cudaErrorInvalidValue;
+  if (BC == 0) return cudaSuccess;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return two_pass<9>(BC, H, W, nblk, partial, a, s, [&](dim3 grid, cudaStream_t st) {
-    auto* kernel = bf16 ? residual_partial_kernel<true> : residual_partial_kernel<false>;
-    kernel<<<grid, kCols, 0, st>>>(static_cast<const float*>(la), static_cast<const float*>(pr),
-                                   static_cast<const float*>(w), static_cast<float*>(partial),
-                                   H, W, H - 2, W - 2);
-  });
+  const auto* la_f = static_cast<const float*>(la);
+  const auto* pr_f = static_cast<const float*>(pr);
+  const auto* w_f = static_cast<const float*>(w);
+  auto* part = static_cast<float*>(partial);
+  if (bf16) {
+    residual_mma_kernel<<<dim3(nblk, BC), kResThreads, 0, s>>>(
+        la_f, pr_f, w_f, part, H, W, (W - 2 + kResTileW - 1) / kResTileW);
+  } else {
+    const dim3 grid((W - 2 + kCols - 1) / kCols, (H - 2 + kRows - 1) / kRows, BC);
+    residual_partial_kernel<false><<<grid, kCols, 0, s>>>(la_f, pr_f, w_f, part, H, W, H - 2,
+                                                          W - 2);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  gram_finish_kernel<9><<<blocks_for(static_cast<long long>(BC) * 81, 256), 256, 0, s>>>(
+      part, static_cast<float*>(a), BC, nblk);
+  return cudaGetLastError();
 }
 
 // la, pr: [BC, H, W] f32 contiguous; p: [BC, 9, 18] f32; dpr: [BC, H, W]

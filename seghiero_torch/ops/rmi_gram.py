@@ -13,7 +13,8 @@ maps over the ``nh × nw = (H−2) × (W−2)`` output pixels (not centred).
   the 2-pixel frame the 171 entries share 51 such sums (51 FMAs a pixel),
   on the frame each entry keeps the general form;
 * ``residual_gram`` — kernel #7: ``A = y·yᵀ`` with ``y = z_la − Wᵀ·z_pr``,
-  ``[BC, 9, 9]``;
+  ``[BC, 9, 9]``, in f32 FMAs; its bf16 variant #7f runs both products on
+  the tensor cores (``mma.sync`` bf16 → f32, 4 per 16 pixels a warp);
 * ``grad_maps`` — kernel #8: ``u = P·z`` per output pixel, its 9 shifted
   rows overlap-added into ``dpr [BC, H, W]``; the kernel computes it inside
   the 2-pixel frame as a 5×5 correlation of each map with taps folded from
@@ -46,6 +47,7 @@ from seghiero_torch.ops import _build
 
 _POS_ALPHA = 1e-3  # rmi_hiera_triplet_loss.py:18 of the reference
 COLS, ROWS = 128, 32  # csrc/rmi_gram.cu kCols, kRows (kernel #7's blocks)
+RES_TILE_H, RES_TILE_W = 32, 256  # kResTileH, kResTileW (#7f's tiles of output pixels)
 # kernel #6's interior tiles and frame anchors per frame block
 # (csrc/rmi_gram.cu kGradTileH, kGradTileW, kGramFrame)
 TILE_H, TILE_W, GRAM_FRAME = 32, 256, 256
@@ -149,6 +151,11 @@ def partial_blocks(H: int, W: int) -> int:
     return -(-(W - 2) // COLS) * -(-(H - 2) // ROWS)
 
 
+def residual_tiles(H: int, W: int) -> int:
+    """Partial rows per map of kernel #7f (one per tile of output pixels)."""
+    return -(-(W - 2) // RES_TILE_W) * -(-(H - 2) // RES_TILE_H)
+
+
 def gram18_scratch(H: int, W: int) -> int:
     """Floats of kernel #6's partial sums per map (``tile_grid`` and
     ``gram18_scratch`` of csrc/rmi_gram.cu): 171 per frame block, 51 per
@@ -193,12 +200,13 @@ def gram18(la: torch.Tensor, pr: torch.Tensor, precision: str = "parity") -> tor
 def residual_gram(la: torch.Tensor, pr: torch.Tensor, w: torch.Tensor,
                   precision: str = "parity") -> torch.Tensor:
     """Raw ``A = y·yᵀ``, ``y = z_la − Wᵀ·z_pr``, ``[BC, 9, 9]`` f32 for the
-    regression ``w [BC, 9, 9]``: kernel #7 (#7f) on the card."""
+    regression ``w [BC, 9, 9]``: kernel #7 (#7f) on the card, one launch
+    (its partial rows and the finish that adds them into both triangles)."""
     fast = _check_precision(precision)
     if not _on_card(pr, "rmi residual_gram"):
         return residual_gram_plain(la, pr, w, precision)
     BC, H, W = _check_maps(la, pr, "rmi residual_gram", (w, (pr.shape[0], 9, 9)))
-    nblk = partial_blocks(H, W)
+    nblk = residual_tiles(H, W) if fast else partial_blocks(H, W)
     partial = torch.empty((BC, nblk, 45), dtype=torch.float32, device=pr.device)
     out = torch.empty((BC, 9, 9), dtype=torch.float32, device=pr.device)
     lib = _build.library()

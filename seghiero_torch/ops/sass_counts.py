@@ -1,25 +1,35 @@
-"""Static SASS counts of the port's fused loss kernels and RMI kernels #6 and #8.
+"""Static SASS counts of the port's fused loss kernels and RMI kernels #6–#8.
 
 ``python -m seghiero_torch.ops.sass_counts [LIBRARY]`` builds the port's
 kernel library (or reads LIBRARY), disassembles it with ``cuobjdump
 -sass`` and prints one JSON object: for each kernel below, its
-instructions, MUFU operations and FFMAs in all, and the instructions,
-MUFU operations, FFMAs, shared-memory loads (LDS), global loads (LDG),
-asynchronous copies (LDGSTS), local-memory loads and stores (LDL, STL:
-register spills) and branches of one innermost loop (a
-backward branch's span, both sides of its branches), leaving out the
-instructions ptxas pads with under an always-false guard (``@!PT``). The
-loop is the one
-holding the most of the kernel's key operation: MUFU for the fused loss
-kernels (the per-pixel loop; the forward's covers its 4 pixels of one
-channel), FFMA for ``gram18_kernel`` (#6: the steady row loop of its
-interior tiles) and ``grad_maps_kernel`` (#8: the row loop), whose f32
-(#6, #8) and bf16-view (#6f, #8f) instantiations are counted apart. Each
-kernel's registers and spill bytes are those ``ptxas -v`` wrote into the
-build's log beside the library (``<library>.log``; null without one). A
-diagnostic for the card: ``ncu`` does not run there, so the instruction
-count per pixel is read from the code. LIBRARY may be another tree's
-build, so two versions of a kernel can be counted by one script.
+instructions, MUFU operations, FFMAs and tensor-core products (HMMA) in
+all, and the instructions, MUFU operations, FFMAs, HMMAs, bf16 packs
+(F2FP), shared-memory loads (LDS), global loads (LDG), asynchronous copies
+(LDGSTS), local-memory loads and stores (LDL, STL: register spills) and
+branches of one innermost loop (a backward branch's span, both sides of
+its branches), leaving out the instructions ptxas pads with under an
+always-false guard (``@!PT``). The loop is the one holding the most of the
+kernel's key operation:
+
+* MUFU for the fused loss kernels (the per-pixel loop; the forward's
+  covers its 4 pixels of one channel);
+* FFMA for ``gram18_kernel`` (#6 / #6f: the steady row loop of its
+  interior tiles), ``grad_maps_kernel`` (#8 / #8f: the row loop) and
+  ``residual_partial_kernel`` (#7: the row loop; ``<true>`` is found only
+  in builds whose #7f was that FFMA loop);
+* HMMA for ``residual_mma_kernel`` (#7f: the input-row loop of a warp
+  whose columns end inside the map).
+
+The f32 and bf16-view instantiations of a template are counted apart.
+Where an iteration of the loop covers a known number of output pixels a
+warp (an RMI kernel's row), the loop's instructions per 16 of them are
+printed too. Each kernel's registers and spill bytes are those ``ptxas
+-v`` wrote into the build's log beside the library (``<library>.log``;
+null without one). A diagnostic for the card: ``ncu`` does not run
+there, so the instruction count per pixel is read from the code. LIBRARY
+may be another tree's build, so two versions of a kernel can be counted
+by one script.
 """
 
 import json
@@ -28,15 +38,20 @@ import subprocess
 import sys
 from pathlib import Path
 
-# name → (substring of the mangled SASS function name, key operation)
+# name → (substring of the mangled SASS function name, key operation,
+# output pixels a warp covers per iteration of the key loop, or None)
 KERNELS = {
-    "hiera2_fwd_kernel": ("hiera2_fwd_kernel", "MUFU"),
-    "hiera2_bwd_kernel": ("hiera2_bwd_kernel", "MUFU"),
-    "gram18_kernel<false>": ("gram18_kernelILb0E", "FFMA"),
-    "gram18_kernel<true>": ("gram18_kernelILb1E", "FFMA"),
-    "grad_maps_kernel<false>": ("grad_maps_kernelILb0E", "FFMA"),
-    "grad_maps_kernel<true>": ("grad_maps_kernelILb1E", "FFMA"),
+    "hiera2_fwd_kernel": ("hiera2_fwd_kernel", "MUFU", None),
+    "hiera2_bwd_kernel": ("hiera2_bwd_kernel", "MUFU", None),
+    "gram18_kernel<false>": ("gram18_kernelILb0E", "FFMA", 128),
+    "gram18_kernel<true>": ("gram18_kernelILb1E", "FFMA", 128),
+    "grad_maps_kernel<false>": ("grad_maps_kernelILb0E", "FFMA", 128),
+    "grad_maps_kernel<true>": ("grad_maps_kernelILb1E", "FFMA", 128),
+    "residual_partial_kernel<false>": ("residual_partial_kernelILb0E", "FFMA", 32),
+    "residual_partial_kernel<true>": ("residual_partial_kernelILb1E", "FFMA", 32),
+    "residual_mma_kernel": ("residual_mma_kernel", "HMMA", 64),
 }
+LOOP_OPS = ("MUFU", "FFMA", "HMMA", "F2FP", "LDS", "LDG", "LDGSTS", "LDL", "STL")
 
 
 def _mnemonic(op: str) -> str:
@@ -68,21 +83,16 @@ def ptxas_usage(log: str, pattern: str) -> dict:
     return {"registers": None, "spill_store_bytes": None, "spill_load_bytes": None}
 
 
-def sass_counts(lib_path: str, kernels=KERNELS) -> dict:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    tool = Path(CUDA_HOME or "/usr/local/cuda") / "bin" / "cuobjdump"
-    text = subprocess.run([str(tool), "-sass", lib_path], capture_output=True, text=True,
-                          timeout=300, check=True).stdout
-    log_file = Path(lib_path).with_suffix(".log")
-    log = log_file.read_text() if log_file.exists() else ""
+def count_sass(text: str, log: str, kernels=KERNELS) -> dict:
+    """The counts of each kernel in ``kernels`` found in ``cuobjdump -sass``
+    output ``text``, with its registers and spills from the ptxas log."""
     out = {}
     for func in re.split(r"\n\s*Function : ", text)[1:]:
         head = func.split("\n", 1)[0]
-        name = next((k for k, (pat, _) in kernels.items() if pat in head), None)
+        name = next((k for k, spec in kernels.items() if spec[0] in head), None)
         if name is None:
             continue
-        key = kernels[name][1]
+        pattern, key, pixels = kernels[name]
         ins = re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", func)
         addr = [int(a, 16) for a, _ in ins]
         mnems = [_mnemonic(o) for _, o in ins]
@@ -93,12 +103,25 @@ def sass_counts(lib_path: str, kernels=KERNELS) -> dict:
                 j = addr.index(int(m.group(1), 16))
                 best = max(best, (_count(mnems[j:i + 1], key), -(i + 1 - j), j, i + 1))
         loop = mnems[best[2]:best[3]]
+        n_loop = sum(map(bool, loop))
         out[name] = {"instructions": sum(map(bool, mnems)), "mufu": _count(mnems, "MUFU"),
-                     "ffma": _count(mnems, "FFMA"), "loop_instructions": sum(map(bool, loop)),
-                     **{f"loop_{k.lower()}": _count(loop, k)
-                        for k in ("MUFU", "FFMA", "LDS", "LDG", "LDGSTS", "LDL", "STL")},
-                     "loop_branches": _count(loop, "BRA"), **ptxas_usage(log, kernels[name][0])}
+                     "ffma": _count(mnems, "FFMA"), "hmma": _count(mnems, "HMMA"),
+                     "loop_instructions": n_loop,
+                     **{f"loop_{k.lower()}": _count(loop, k) for k in LOOP_OPS},
+                     "loop_branches": _count(loop, "BRA"),
+                     "loop_instructions_per_16_pixels": n_loop * 16 / pixels if pixels else None,
+                     **ptxas_usage(log, pattern)}
     return out
+
+
+def sass_counts(lib_path: str, kernels=KERNELS) -> dict:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = Path(CUDA_HOME or "/usr/local/cuda") / "bin" / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", lib_path], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    log_file = Path(lib_path).with_suffix(".log")
+    return count_sass(text, log_file.read_text() if log_file.exists() else "", kernels)
 
 
 def main(argv=None) -> int:

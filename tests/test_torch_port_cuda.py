@@ -242,9 +242,13 @@ def _rmi_maps(gen, dev, BC, H, W):
 # the RMI kernels' shapes: ragged against #7's 32-row, 128-column blocks;
 # the interior (H−4, W−4) of #6 and #8 one past (33, 257) or one short
 # (63, 511) of their 32-row, 256-column tiles; all frame (4 × 4: no
-# interior pixel) or mostly frame (an interior 1 pixel wide)
+# interior pixel) or mostly frame (an interior 1 pixel wide); the output
+# (H−2, W−2) one past #7f's 32 × 256 tiles (129 rows, 513 columns) or one
+# short (63 rows, 255 columns), and W−2 not a multiple of its 16-pixel
+# segments
 RMI_SHAPES = ((3, 18, 20), (2, 37, 131), (1, 3, 3), (2, 70, 257), (4, 131, 40),
-              (2, 4, 4), (1, 5, 300), (3, 300, 5), (2, 37, 261), (1, 67, 515))
+              (2, 4, 4), (1, 5, 300), (3, 300, 5), (2, 37, 261), (1, 67, 515),
+              (1, 65, 259))
 
 
 @pytest.mark.gpu
@@ -289,10 +293,11 @@ def test_rmi_fast_kernels_equal_plain_versions():
     the shapes above and one 769-wide shape (config 4's: 767 output rows
     and columns, 765 interior ones): #6f and #8f within 1e-5 of the
     magnitude (their roundings are the same on both sides; f32 order
-    only), #7f within
-    2e-5 (its residual y is also rounded from its own f32 sum, which can
-    fall on the other side of a bf16 boundary); two runs give the same
-    bits; non-contiguous or non-f32 maps raise instead of being copied."""
+    only), #7f within 2e-5 (its residual y is also rounded from the tensor
+    core's sum, which can fall on the other side of a bf16 boundary, and
+    the tensor core adds y·yᵀ in its own order) and exactly symmetric; two
+    runs give the same bits; non-contiguous or non-f32 maps raise instead
+    of being copied."""
     dev = _card()
     gen = torch.Generator(device=dev).manual_seed(5)
     for BC, H, W in RMI_SHAPES + ((2, 41, 769),):
@@ -312,6 +317,7 @@ def test_rmi_fast_kernels_equal_plain_versions():
         yb = port_rg._views(r(la64)) + r(w.double()).abs().mT @ port_rg._views(r(pr64))
         want = port_rg.residual_gram_plain(la64, pr64, w.double(), "fast")
         assert ((a.double() - want).abs() <= 2e-5 * (yb @ yb.mT) + 1e-30).all(), (H, W)
+        assert torch.equal(a, a.mT)
         want = port_rg.grad_maps_plain(la64, pr64, p.double(), "fast")
         mag = port_rg.grad_maps_plain(la64, pr64, p.double().abs(), "fast")
         assert ((dpr.double() - want).abs() <= 1e-5 * mag + 1e-30).all(), (H, W)

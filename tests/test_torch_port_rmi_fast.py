@@ -12,6 +12,7 @@ tests/test_torch_port_cuda.py and chip_smoke.py.
 """
 
 import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -233,3 +234,173 @@ def test_train_entry_point_runs_config_4_narrowed_on_cpu(tmp_path, capsys):
     assert "has_super=True, n_super=2" in out and "Val super mIoU" in out
     assert (tmp_path / "port4" / "step_00000002" / "model.pth").exists()
     assert port_rg.gram18_fast_launches == 0  # the CPU runs the plain versions
+
+
+CU = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                  "seghiero_torch", "csrc", "rmi_gram.cu")
+
+
+def _mma_tables():
+    """Kernel #7f's tables (``kWordRow``, ``kWordCol``, ``kSlotView``,
+    ``kRowView``), pair-ring constants (``kPair*``) and tile sizes
+    (``kResTile*``), read from its source."""
+    with open(CU) as f:
+        src = f.read()
+    arr = {k: [int(x) for x in v.split(",")] for k, v in
+           re.findall(r"__constant__ int (\w+)\[\d+\] = \{([^}]*)\};", src)}
+    num = {k: int(v) for k, v in re.findall(r"constexpr int (k(?:Pair|ResTile)\w+) = (\d+);", src)}
+    return arr, num
+
+
+def _frag_a(lane):
+    """PTX mma.m16n8k16 A fragment (16×16, row-major) of one lane: its 4
+    registers' (row, col) pairs, low half first."""
+    g, t = lane // 4, lane % 4
+    return [[(g + 8 * (r % 2), 2 * t + 8 * (r // 2) + e) for e in (0, 1)] for r in range(4)]
+
+
+def _frag_b(lane):
+    """The B fragment (16×8, K × N): 2 registers' (k, n) pairs."""
+    g, t = lane // 4, lane % 4
+    return [[(2 * t + 8 * r + e, g) for e in (0, 1)] for r in range(2)]
+
+
+def _frag_c(lane):
+    """The C / D fragment (16×8 f32): 4 values' (row, col)."""
+    g, t = lane // 4, lane % 4
+    return [(g + 8 * (v // 2), 2 * t + v % 2) for v in range(4)]
+
+
+def _mma_residual(la, pr, w, mask=True):
+    """``[BC, 9, 9]`` f32 and Y's zero rows of the Gram ``[BC, 16 − 9, 16]``:
+    kernel #7f's arithmetic in torch. Per output row and 16-pixel segment:
+    product 1 ``Y = A·B + C``, ``A = −bf16(W)ᵀ`` padded to 16×16 in the
+    kernel's row and K-slot orders, ``B`` pr's pair words of the staged row
+    (bf16, zero past the map's last column), ``C`` la's views (zero rows
+    zero); ``Y`` zero at columns ≥ nw (``mask``), rounded to bf16; ``Y·Yᵀ``
+    added to an f32 running sum, read back per pair of views."""
+    arr, _ = _mma_tables()
+    rows, cols, slots, yrows = arr["kWordRow"], arr["kWordCol"], arr["kSlotView"], arr["kRowView"]
+    r = port_rg.bf16_round
+    BC, H, W = pr.shape
+    nh, nw = H - 2, W - 2
+    npx = -(-nw // 16) * 16
+
+    def staged(m):
+        x = torch.zeros((BC, H, npx + 3), dtype=torch.float32)
+        x[:, :, :W] = r(m)
+        return x
+
+    xl, xp = staged(la), staged(pr)
+    a1 = torch.zeros((BC, 16, 16), dtype=torch.float32)
+    for i, vi in enumerate(yrows):
+        for s, vs in enumerate(slots):
+            if vi >= 0 and vs >= 0:
+                a1[:, i, s] = -r(w)[:, vs, vi]
+    out = torch.zeros((BC, 16, 16), dtype=torch.float32)
+    for o in range(nh):
+        b = torch.stack([xp[:, o + rows[s // 2], cols[s // 2] + s % 2:][:, :npx]
+                         for s in range(16)], dim=1)
+        c = torch.zeros((BC, 16, npx), dtype=torch.float32)
+        for i, v in enumerate(yrows):
+            if v >= 0:
+                c[:, i] = xl[:, o + v // 3, v % 3:][:, :npx]
+        y = a1 @ b + c
+        if mask:
+            y[:, :, nw:] = 0
+        y = r(y)
+        for q in range(npx // 16):
+            seg = y[:, :, 16 * q:16 * q + 16]
+            out += seg @ seg.mT
+    live = [i for i, v in enumerate(yrows) if v >= 0]
+    order = [live[[yrows[i] for i in live].index(v)] for v in range(9)]
+    return out[:, order][:, :, order], out[:, [i for i in range(16) if yrows[i] < 0]]
+
+
+@pytest.mark.parametrize("shape", [(3, 18, 20), (2, 37, 131), (1, 5, 300), (1, 3, 3)])
+def test_residual_fast_as_padded_bf16_products(shape):
+    """Kernel #7f's form (csrc/rmi_gram.cu ``residual_mma_kernel``), its
+    tables read from the source: ``−bf16(W)ᵀ`` padded to 16×16 in the
+    kernel's row and K-slot orders, pr's pair words, C la's views, y masked
+    past nw and rounded, f32 sums per 16-pixel segment. Read per pair of
+    views it is the plain fast version within 2e-5 of ``yb·ybᵀ`` (the
+    card's tolerance), Y's zero rows give exactly 0, and without the mask
+    the check fails (every shape here is ragged: nw is not a multiple of
+    16)."""
+    arr, _ = _mma_tables()
+    rows, cols, slots, yrows = arr["kWordRow"], arr["kWordCol"], arr["kSlotView"], arr["kRowView"]
+    # each view sits in one K slot, the one its pair word puts there, and in
+    # one row of Y; a lane's two words (t, t + 4) lie in one input row
+    assert sorted(v for v in slots if v >= 0) == list(range(9))
+    assert sorted(v for v in yrows if v >= 0) == list(range(9))
+    for s, v in enumerate(slots):
+        assert v < 0 or v == 3 * rows[s // 2] + cols[s // 2] + s % 2
+    assert rows[:4] == rows[4:]
+    rng = np.random.default_rng(21)
+    BC, H, W = shape
+    la = torch.from_numpy((rng.random((BC, H, W)) < 0.3).astype(np.float32))
+    pr = torch.from_numpy((1 / (1 + np.exp(-2 * rng.standard_normal((BC, H, W)))) + 1e-6)
+                          .astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((BC, 9, 9)) * 0.3).astype(np.float32))
+    r = port_rg.bf16_round
+    la64, pr64, w64 = la.double(), pr.double(), w.double()
+    want = port_rg.residual_gram_plain(la64, pr64, w64, "fast")
+    yb = port_rg._views(r(la64)) + r(w64).abs().mT @ port_rg._views(r(pr64))
+    tol = 2e-5 * (yb @ yb.mT) + 1e-30
+    got, zero = _mma_residual(la, pr, w)
+    assert ((got.double() - want).abs() <= tol).all()
+    assert not zero.any()
+    bad, _ = _mma_residual(la, pr, w, mask=False)
+    assert not ((bad.double() - want).abs() <= tol).all()
+
+
+def test_residual_fast_fragments_follow_the_ptx_layouts():
+    """#7f's register algebra, by index: the two product-1 D tiles of a
+    segment (pixels 0 … 7 and 8 … 15), packed in pairs, are product 2's A
+    fragment of Y (16 rows × 16 pixels); its B fragments of Yᵀ are the same
+    registers, {reg0, reg2} for columns 0 … 7 and {reg1, reg3} for 8 … 15.
+    And every gather (pr words t and t + 4 at pixel g; la's rows g and
+    g + 8 at pixels 2t, 2t + 1, a zero row reading what row g − 6 or row 8
+    reads) meets each bank with one word at most, in each rotation of the
+    pair ring's slots. The wrapper sizes the partial rows from the kernel's
+    tile."""
+    arr, num = _mma_tables()
+    assert (port_rg.RES_TILE_H, port_rg.RES_TILE_W) == (num["kResTileH"], num["kResTileW"])
+    assert port_rg.residual_tiles(769, 769) == 3 * 24
+    rows, cols, yrows = arr["kWordRow"], arr["kWordCol"], arr["kRowView"]
+    for lane in range(32):
+        g, t = lane // 4, lane % 4
+        # D tile h holds Y[row][8h + col] at _frag_c; packs (d0, d1), (d2, d3)
+        d = [[(i, 8 * h + p) for i, p in _frag_c(lane)] for h in (0, 1)]
+        regs = [[d[h][2 * k], d[h][2 * k + 1]] for h in (0, 1) for k in (0, 1)]
+        assert regs == _frag_a(lane)  # Y as A: (row, pixel)
+        for n0, (lo, hi) in ((0, (0, 2)), (8, (1, 3))):
+            # B[k][n] = Yᵀ[pixel k][row n0 + n] = Y[n0 + n][k]
+            want = [[(n0 + n, k) for k, n in reg] for reg in _frag_b(lane)]
+            assert [regs[lo], regs[hi]] == want
+        # product 1: B word t (and t + 4) is the pr pair at pixel g
+        for reg, q in zip(_frag_b(lane), (t, t + 4)):
+            assert [n for _, n in reg] == [g, g]
+            assert [k for k, _ in reg] == [2 * q, 2 * q + 1]
+        assert _frag_c(lane)[:2] == [(g, 2 * t), (g, 2 * t + 1)]
+
+    def la_word(r, t):  # (input row, word) of Y's row r at pixel 2t
+        v = yrows[r] if yrows[r] >= 0 else (yrows[r - 6] if r < 8 else yrows[8])
+        return v // 3, 2 * t + v % 3
+
+    stride, slots = num["kPairStride"], num["kPairSlots"]
+    lanes = [(g, t) for g in range(8) for t in range(4)]
+    for s in range(slots):
+        def at(dy, word):
+            return (s + dy) % slots * stride + word
+
+        gathers = ([at(rows[t], cols[t] + g) for g, t in lanes],
+                   [at(rows[t + 4], cols[t + 4] + g) for g, t in lanes],
+                   [at(*la_word(g, t)) for g, t in lanes],
+                   [at(*la_word(g + 8, t)) for g, t in lanes])
+        for words in gathers:
+            for p0 in (0, 1, 7, 16):  # any first pixel: a shift of every bank
+                banks = {}
+                for word in set(words):
+                    banks.setdefault((word + p0) % 32, set()).add(word)
+                assert max(map(len, banks.values())) == 1, (s, p0)
