@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch port (``seghiero_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--profile DIR]
+    python3 chip_smoke.py --turns DIR [DIR ...]
 
 Run from the root of a checkout on a machine with a CUDA card and the
 CUDA toolkit (an H100: the kernels are built for sm_90a). Phases, each
@@ -18,7 +19,9 @@ printed as one line, any failure exits non-zero:
    library call computing the same function (for the fused loss and the
    RMI Gram kernels, which have none, the port's library-op path of the
    same loss term), and the least time the card could take; the
-   depthwise kernels also at config 4's shapes (193², odd); the fused
+   depthwise kernels also at config 4's shapes (193², odd); the decode
+   in f32 and bf16, by CUDA-graph replay (it is shorter than a launch's
+   host cost); the fused
    loss kernels also at the 150-class config's (``[8, 165, 128, 128]``);
    the RMI Gram
    kernels at config 3's shapes (f32) and their bf16-view variants at
@@ -63,6 +66,12 @@ printed as one line, any failure exits non-zero:
 
 Then one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` name/power
 line, and as the last line ``{"ok": true, "device": {...}}``.
+
+``--turns`` runs phases 1 and 2 and then, in place of the others, compares
+kernels #7 (f32) and #3 built from other source trees (another checkout,
+or a copy with edited sources) with this checkout's, in turns on the same
+card (``phase_turns``): one ``{"turns": ...}`` line before the same last
+two.
 """
 
 from __future__ import annotations
@@ -71,6 +80,7 @@ import argparse
 import dataclasses
 import io
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -112,6 +122,34 @@ def time_ms(fn, iters: int = 30, warmup: int = 3) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def time_ms_graph(fn, iters: int = 30, replays: int = 5) -> float:
+    """Mean device time of one call, from CUDA events around replays of a
+    CUDA graph of ``iters`` calls: for kernels shorter than the host's cost
+    of launching them, which ``time_ms`` would measure instead."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the default stream, as capture needs
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(stop) / (replays * iters)
 
 
 def bound(nbytes: int, flops: int, mufu: int = 0, sm_mhz: float = 0.0,
@@ -266,9 +304,6 @@ def depthwise_checks(gen, shapes):
 
 def phase_kernels(seed: int):
     import torch
-    import torch.nn.functional as F
-
-    from seghiero_torch.ops.upsample_argmax import upsample_argmax, upsample_argmax_plain
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -281,37 +316,62 @@ def phase_kernels(seed: int):
     results.update(depthwise_checks(gen, DW_SHAPES["config 2"]))
     results["config4"] = depthwise_checks(gen, DW_SHAPES["config 4"])
 
-    # fused 4× upsample + per-level argmax at the serving decode shape
+    # fused 4× upsample + per-level argmax at the serving decode shape, in f32
+    # and in bf16 (the serving model's logits)
+    results["upsample_argmax"] = decode_checks(gen)
+    return results
+
+
+def decode_checks(gen):
+    """The decode kernel (#3) at the serving shape ``[8, 13, 128, 128]``, 2
+    levels, in f32 and bf16: its masks equal the plain version's (stated
+    tolerance: exact); timed by CUDA-graph replay (the kernel is shorter
+    than the host's cost of a launch, which the eager timing, also kept,
+    includes) beside the plain version and the library decode
+    (``F.interpolate`` + ``argmax``, also by graph replay), with its bound.
+    Returns the f32 entry with the bf16 one under ``"bfloat16"``."""
+    import torch
+    import torch.nn.functional as F
+
+    from seghiero_torch.ops.upsample_argmax import upsample_argmax, upsample_argmax_plain
+
     B, C, h, w = 8, 13, 128, 128
     slices = [(0, 9), (9, 13)]
-    lo = torch.randn((B, C, h, w), generator=gen, device=dev)
-    got, want = upsample_argmax(lo, slices), upsample_argmax_plain(lo, slices)
-    torch.cuda.synchronize()
-    mism = sum(int((g != r).sum().item()) for g, r in zip(got, want))
-    err = max(int((g - r).abs().max().item()) for g, r in zip(got, want))
-    if mism:  # stated tolerance: exact
-        raise AssertionError(f"upsample_argmax: {mism} pixels differ from the plain version")
+    lo32 = torch.randn((B, C, h, w), generator=gen, device="cuda")
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        lo = lo32.to(dtype)
+        got, want = upsample_argmax(lo, slices), upsample_argmax_plain(lo, slices)
+        torch.cuda.synchronize()
+        mism = sum(int((g != r).sum().item()) for g, r in zip(got, want))
+        err = max(int((g - r).abs().max().item()) for g, r in zip(got, want))
+        if mism:  # stated tolerance: exact
+            raise AssertionError(f"upsample_argmax ({dtype}): {mism} pixels differ from the "
+                                 "plain version")
 
-    def library_decode():
-        up = F.interpolate(lo, size=(4 * h, 4 * w), mode="bilinear", align_corners=False)
-        return [up[:, a:b].argmax(dim=1).to(torch.int32) for a, b in slices]
+        def library_decode():
+            up = F.interpolate(lo, size=(4 * h, 4 * w), mode="bilinear", align_corners=False)
+            return [up[:, a:b].argmax(dim=1).to(torch.int32) for a, b in slices]
 
-    lib_agree = min(float((g == r).float().mean().item())
-                    for g, r in zip(got, library_decode()))
-    t = {
-        "ms": time_ms(lambda: upsample_argmax(lo, slices)),
-        "plain_ms": time_ms(lambda: upsample_argmax_plain(lo, slices), iters=5),
-        "library_ms": time_ms(library_decode),
-    }
-    nbytes = lo.nbytes + sum(o.nbytes for o in got)
-    # per output pixel and channel: 6 multiplies, 3 adds, 1 compare
-    b_ms, b_by = bound(nbytes, 10 * B * 16 * h * w * C)
-    say("kernels", kernel="upsample_argmax", shape=[B, C, h, w], dtype="float32",
-        levels=slices, max_abs_err=err, library_pixel_agreement=lib_agree, bytes=nbytes,
-        bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / t["ms"], **t)
-    results["upsample_argmax"] = dict(t, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
-                                      shapes=[[B, C, h, w]])
-    return results
+        lib_agree = min(float((g == r).float().mean().item())
+                        for g, r in zip(got, library_decode()))
+        t = {
+            "ms": time_ms_graph(lambda: upsample_argmax(lo, slices)),
+            "eager_ms": time_ms(lambda: upsample_argmax(lo, slices)),
+            "plain_ms": time_ms(lambda: upsample_argmax_plain(lo, slices), iters=5),
+            "library_ms": time_ms_graph(library_decode),
+        }
+        nbytes = lo.nbytes + sum(o.nbytes for o in got)
+        # per output pixel and channel: 6 multiplies, 3 adds, 1 compare
+        b_ms, b_by = bound(nbytes, 10 * B * 16 * h * w * C)
+        name = str(dtype).replace("torch.", "")
+        say("kernels", kernel="upsample_argmax", shape=[B, C, h, w], dtype=name,
+            levels=slices, max_abs_err=err, library_pixel_agreement=lib_agree, bytes=nbytes,
+            bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / t["ms"],
+            timing="CUDA graph of 30 calls, replayed 5 times", **t)
+        out[name] = dict(t, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                         shapes=[[B, C, h, w]])
+    return dict(out["float32"], bfloat16=out["bfloat16"])
 
 
 def fused_loss_checks(gen, config: str, sm_mhz: float):
@@ -487,7 +547,8 @@ def _check_gram(name, got, plain, plain64, mag, again, rtol: float = 1e-5):
     kernels' orders carry ~1e-6, a few 1e-6 at worst: #6 adds ≤ 128
     products a thread (4 columns × 32 rows of a tile), a shuffle tree, its
     tiles' lag rows in tile order and then the frame rows in block order;
-    #7 ≤ 32 terms a thread, a shuffle tree and the block partials; #7f 64
+    #7 ≤ 128 pixels a thread (4 columns × 32 rows), a shuffle tree, its 2
+    warps and the tiles in order; #7f 64
     pixels chained in the tensor core, then ≤ 32 rows a warp, 4 warps and
     the tiles in order; #8 ≤ 50 products a pixel): |Δ| ≤ ``rtol`` · mag per
     entry; the f32 plain
@@ -830,6 +891,147 @@ def rmi_fast_checks(seed: int):
     del routes, oh_map, pr_map
     torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------------------
+def _turn_library(csrc: Path, out: Path):
+    """``nvcc`` of ``csrc``'s RMI and decode kernels into ``out/lib.so``,
+    with the port's flags; returns (path, process)."""
+    from seghiero_torch.ops import _build
+
+    out.mkdir(parents=True, exist_ok=True)
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS[:-1], f"-I{csrc}", "-shared",
+           str(csrc / "rmi_gram.cu"), str(csrc / "upsample_argmax.cu"), "-o", str(out / "lib.so")]
+    return out / "lib.so", subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                             stderr=subprocess.STDOUT, text=True)
+
+
+def _residual_blocks(src: str, H: int, W: int) -> int:
+    """Partial rows per map of the f32 residual kernel #7 built from ``src``:
+    one per tile of #7f (kResTileH × kResTileW output pixels), or, in
+    sources whose #7 is ``residual_partial_kernel``, one per block of kRows
+    rows × kCols columns."""
+    num = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    th, tw = ((num["kRows"], num["kCols"]) if "residual_partial_kernel" in src
+              else (num["kResTileH"], num["kResTileW"]))
+    return -(-(W - 2) // tw) * -(-(H - 2) // th)
+
+
+def phase_turns(dirs):
+    """Kernels #7 (f32) and #3 built from each of ``dirs`` (other checkouts,
+    or copies with edited sources: ``DIR/seghiero_torch/csrc``) and from this
+    checkout ("this"), called through their C entries: #7 on config 3's and
+    config 4's maps (``rmi_kernel_checks``' inputs), within 1e-5 of
+    ``yb·ybᵀ`` of the plain version in f64 and the same bits twice; #3 on
+    the serving decode's logits in f32 and bf16, equal to the plain
+    version. A DIR whose name starts with "probe" is timed unchecked (an
+    edit that breaks the result to isolate a cost). Each is timed in turns
+    (the DIRs, this, this, the DIRs reversed) by events and by CUDA-graph
+    replay, and its SASS counted (``ops/sass_counts.py``)."""
+    import ctypes
+
+    import torch
+
+    from seghiero_torch.ops import _build
+    from seghiero_torch.ops import rmi_gram as rg
+    from seghiero_torch.ops import sass_counts as sc
+    from seghiero_torch.ops.upsample_argmax import upsample_argmax_plain
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    srcs = {Path(d).name: Path(d) / "seghiero_torch" / "csrc" for d in dirs}
+    srcs["this"] = ROOT / "seghiero_torch" / "csrc"
+    builds = {k: _turn_library(c, ROOT / "seghiero_torch" / "build" / "turns" / k)
+              for k, c in srcs.items()}
+    kernels = {**sc.KERNELS,
+               "residual_partial_kernel<false>": ("residual_partial_kernelILb0E", "FFMA", 32)}
+    libs = {}
+    for k, (so, proc) in builds.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {k}:\n{log[-3000:]}")
+        so.with_suffix(".log").write_text(log)
+        libs[k] = ctypes.CDLL(str(so))
+        for fn in ("seghiero_rmi_residual", "seghiero_upsample_argmax"):
+            getattr(libs[k], fn).argtypes = _build.SIGNATURES[fn]
+        for name, c in sc.sass_counts(str(so), kernels).items():
+            if name.startswith(("residual_f32", "residual_partial", "upsample")):
+                say("turns", tree=k, kernel=name, **c)
+    order = [k for k in srcs if k != "this"] + ["this"]
+    order += order[::-1]
+
+    def stream():  # the current stream: a CUDA graph's while one is captured
+        return torch.cuda.current_stream().cuda_stream
+
+    def timed(fns, checked):
+        out = {k: {"ms": [], "graph_ms": [], **checked[k]} for k in fns}
+        for k in order:
+            out[k]["ms"].append(time_ms(fns[k]))
+            out[k]["graph_ms"].append(time_ms_graph(fns[k]))
+        return out
+
+    results = {}
+    for (B, C, H, W), seed in (((4, 15, 512, 512), SEED + 2), ((2, 15, 769, 769), SEED + 3)):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        BC, n = B * C, (H - 2) * (W - 2)
+        oh_map, pr_map = _rmi_maps(gen, B, C, H, W)
+        la, pr = oh_map.reshape(BC, H, W), pr_map.reshape(BC, H, W)
+        w = rg._solve_w(rg.gram18(la, pr), n)
+        want = rg.residual_gram_plain(la.double(), pr.double(), w.double())
+        yb = rg._views(la.double()) + w.double().abs().mT @ rg._views(pr.double())
+        mag = yb @ yb.mT
+        del yb
+        fns, checked = {}, {}
+        for k, c in srcs.items():
+            nblk = _residual_blocks((c / "rmi_gram.cu").read_text(), H, W)
+            partial = torch.empty((BC, nblk, 45), device="cuda")
+            a = torch.empty((BC, 9, 9), device="cuda")
+
+            def f(lib=libs[k], nblk=nblk, partial=partial, a=a):
+                err = lib.seghiero_rmi_residual(la.data_ptr(), pr.data_ptr(), w.data_ptr(),
+                                                partial.data_ptr(), a.data_ptr(), BC, H, W,
+                                                nblk, 0, 0, stream())
+                if err:
+                    raise RuntimeError(f"seghiero_rmi_residual returned {err}")
+                return a
+
+            got = f().clone()
+            rel = ((got.double() - want).abs() / mag).max().item()
+            same = torch.equal(got, f())
+            if not k.startswith("probe") and not (rel <= 1e-5 and same):
+                raise AssertionError(f"#7 of {k}: max |Δ|/mag = {rel}, same bits {same}")
+            fns[k], checked[k] = f, {"max_rel_err_of_mag": rel, "same_bits": same}
+        results[f"rmi_residual_gram {BC}x{H}x{W}"] = timed(fns, checked)
+        del la, pr, oh_map, pr_map, want, mag, fns
+        torch.cuda.empty_cache()
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    B, C, h, w = 8, 13, 128, 128
+    lo32 = torch.randn((B, C, h, w), generator=gen, device="cuda")
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        lo = lo32.to(dtype)
+        want = upsample_argmax_plain(lo, [(0, 9), (9, 13)])
+        fns, checked = {}, {}
+        for k in srcs:
+            outs = [torch.empty((B, 4 * h, 4 * w), dtype=torch.int32, device="cuda")
+                    for _ in range(2)]
+
+            def f(lib=libs[k], outs=outs):
+                err = lib.seghiero_upsample_argmax(lo.data_ptr(), B, C, h, w, code, 2, 0, 9, 9,
+                                                   13, 0, 0, outs[0].data_ptr(),
+                                                   outs[1].data_ptr(), None, 0, stream())
+                if err:
+                    raise RuntimeError(f"seghiero_upsample_argmax returned {err}")
+                return outs
+
+            exact = all(torch.equal(o, r) for o, r in zip(f(), want))
+            if not k.startswith("probe") and not exact:
+                raise AssertionError(f"#3 of {k} ({dtype}) differs from the plain version")
+            fns[k], checked[k] = f, {"exact": exact}
+        results[f"upsample_argmax {str(dtype).replace('torch.', '')}"] = timed(fns, checked)
+    for what, by_tree in results.items():
+        for k, r in by_tree.items():
+            say("turns", what=what, tree=k, **r)
+    return results
 
 
 # ---------------------------------------------------------------------------
@@ -1490,6 +1692,11 @@ def main(argv=None) -> int:
                    help="also write torch.profiler tables and traces of batch-8 "
                    "predictions and of one train step of each train config into "
                    "this directory")
+    p.add_argument("--turns", nargs="+", default=None, metavar="DIR",
+                   help="instead of the phases: build kernels #7 (f32) and #3 from each "
+                   "DIR/seghiero_torch/csrc (another checkout, or a copy with edited "
+                   "sources) and from this checkout, check them against the plain versions "
+                   "and time them in turns; a DIR named probe* is timed unchecked")
     args = p.parse_args(argv)
 
     import torch
@@ -1504,6 +1711,12 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     name, count, smi, sm_mhz = phase_device()
     phase_build()
+    if args.turns:
+        print(json.dumps({"turns": phase_turns(args.turns)}), flush=True)
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                                 "count": count}}), flush=True)
+        return 0
     kernels = phase_kernels(SEED)
     kernels.update(phase_train_kernels(SEED, sm_mhz))
     t_kernels = time.perf_counter()
@@ -1558,12 +1771,14 @@ def main(argv=None) -> int:
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
             "shapes": k["shapes"],
-            **{x: k[x] for x in ("unfused_ms", "unfused_what", "kernel_path_ms",
+            **{x: k[x] for x in ("eager_ms", "unfused_ms", "unfused_what", "kernel_path_ms",
                                  "kernel_over_library", "cudnn_two_call_ms",
                                  "kernel_over_cudnn_two_call") if x in k},
             # the depthwise kernels also at config 4's shapes (train4's path),
             # the fused loss at the 150-class config's (train150's)
             **({"config4": kernels["config4"][kname]} if kname in kernels["config4"] else {}),
+            # the decode also in bf16, the dtype of the serving model's logits
+            **({"bfloat16": k["bfloat16"]} if "bfloat16" in k else {}),
             **({"config150": kernels["config150"][kname]}
                if kname in kernels["config150"] else {}),
         })

@@ -49,7 +49,12 @@
 //    (0.024 ms at 67 TFLOP/s f32). Bound by bytes; it does those 51 inside
 //    the frame (171 per anchor on the frame, 1.6 % of the pixels).
 //  * #7 reads the same bytes and needs the residual y per pixel: 81 + 45
-//    FMAs (0.061 ms at the f32 rate). Bound by operations.
+//    FMAs and 9 subtractions (4.07 G flop, 0.061 ms at the f32 rate).
+//    Bound by operations: an FFMA takes an issue slot of its own, so the
+//    kernel's time is its instructions per pixel. Measured on an H100
+//    (PERF.md §6), its loop (1512 FFMAs in 1847 instructions) issues in
+//    ~73 % of the cycles with nothing staged, while its 16-byte ring alone
+//    streams the maps at ~2.4 TB/s: the loop, not the ring, holds it.
 //  * #8 reads both maps and writes dpr (188.8 MB, 0.056 ms). Inside the
 //    frame, 50 FMAs per pixel on the folded taps (0.023 ms). Bound by
 //    bytes; it does those 50 (up to 162 on the frame).
@@ -65,14 +70,21 @@
 // downstream needs f32 Grams and the TPU pins precision=HIGHEST for f32
 // operands, so every product is an f32 FMA. #7f's operands are bf16 (the
 // TPU's single-pass bf16 MXU dots), which is what mma.sync computes.
-//  * #7: a thread owns one column of a band of kRows rows and walks down
-//    it, keeping the 3×3 windows of both maps in registers: per row it
-//    loads one new window row, coalesced across the warp (neighbouring
-//    threads own neighbouring columns), one row ahead of its use. It
-//    keeps W (81 values) and the 45 entries of the 9×9 Gram as register
-//    sums; a block adds its threads' sums in a fixed order (a warp shuffle
-//    tree, then the warps in order) and writes one partial row; a second
-//    kernel adds a map's partials in order and writes both triangles.
+//  * #7: #7f's tiles (below) and 4-slot cp.async ring, with 16-byte
+//    copies. A staged row is the 16-byte chunks of a map row from the one
+//    holding the tile's first column (the address rounded down: rows of 769
+//    are not 16-byte aligned) through the one holding its last halo column;
+//    a read adds the row's offset in its first chunk (vector reads where it
+//    is 0). A chunk holding no column of the row is zero-filled, not read.
+//    Each of 64 threads owns 4 adjacent output columns and keeps W (81
+//    values), the 45 sums and a 3-row window of 6 columns of both maps in
+//    registers; per input row it reads its 6 + 6 new values once, and the
+//    row loop is unrolled by 3, so the window rotates by renaming. Per
+//    pixel it does 81 + 45 FFMAs and nothing else: each y_i sums from
+//    −z_la,i (giving −y, whose y·yᵀ is the same), so the 9 subtractions
+//    fold into the FMAs. The block adds its threads' sums in a fixed order
+//    (a shuffle tree, then its 2 warps in order) into one partial row; the
+//    finish adds a map's partials in order and writes both triangles.
 //  * #7f: tiles of 32 output rows × 256 output columns (510 = 256 + 254,
 //    767 = 256 + 256 + 255), every output pixel with all 18 views, no
 //    frame. A block of 4 warps stages the tile's input rows of both maps
@@ -152,6 +164,10 @@
 // order); a tile's row is its 4 warps' sums in warp order, each warp's its
 // output rows' sums in row order, each row's its 4 segments chained in the
 // tensor core.
+// #7 adds an entry as (its tiles' rows, in tile order); a tile's row is its
+// threads' sums in a shuffle tree and then warp order, each thread's its 4
+// columns' products output row by output row (column order within a row),
+// each −y_i the FMAs of Σ_j W[j][i]·z_pr,j in j order onto −z_la,i.
 // #6 adds an entry as (its lag's tile rows, in tile order) + (its frame
 // rows, in frame block order); a tile's row is its threads' sums in a
 // shuffle tree and then warp order, each thread's the products of its 4
@@ -168,8 +184,6 @@
 namespace seghiero {
 namespace {
 
-constexpr int kCols = 128;  // columns per block (blockDim.x)
-constexpr int kRows = 32;   // rows per block
 constexpr int kG18 = 18 * 19 / 2;  // unique entries of the 18×18 Gram
 constexpr int kRes = 9 * 10 / 2;   // unique entries of the 9×9 Gram
 
@@ -212,89 +226,6 @@ __device__ __forceinline__ void block_sum_store(const float (&acc)[E], float* __
     for (int w = 1; w < kW; ++w) s += red[w][e];
     out[e] = s;
   }
-}
-
-// Loads row `row` of the 3 views dx = 0..2 at column c of both maps.
-template <bool kBf16>
-__device__ __forceinline__ void load_row3(const float* __restrict__ a, const float* __restrict__ p,
-                                          int row, int c, int W, float (&na)[3], float (&np)[3]) {
-  const long long o = static_cast<long long>(row) * W + c;
-#pragma unroll
-  for (int dx = 0; dx < 3; ++dx) {
-    na[dx] = operand<kBf16>(a[o + dx]);
-    np[dx] = operand<kBf16>(p[o + dx]);
-  }
-}
-
-// #7's walk: for each output row r of the block's band
-// at column c (< nw), z holds the 18 views there; `body(z)` accumulates.
-template <bool kBf16, typename Body>
-__device__ __forceinline__ void walk_band(const float* __restrict__ a, const float* __restrict__ p,
-                                          int r0, int r1, int c, int W, Body body) {
-  float z[18];
-#pragma unroll
-  for (int dy = 0; dy < 2; ++dy) {
-    float na[3], np[3];
-    load_row3<kBf16>(a, p, r0 + dy, c, W, na, np);
-#pragma unroll
-    for (int dx = 0; dx < 3; ++dx) {
-      z[dy * 3 + dx] = na[dx];
-      z[9 + dy * 3 + dx] = np[dx];
-    }
-  }
-  float na[3], np[3];
-  load_row3<kBf16>(a, p, r0 + 2, c, W, na, np);
-  for (int r = r0; r < r1; ++r) {
-#pragma unroll
-    for (int dx = 0; dx < 3; ++dx) {
-      z[6 + dx] = na[dx];
-      z[15 + dx] = np[dx];
-    }
-    if (r + 1 < r1) load_row3<kBf16>(a, p, r + 3, c, W, na, np);  // one row ahead
-    body(z);
-#pragma unroll
-    for (int k = 0; k < 6; ++k) {
-      z[k] = z[k + 3];
-      z[9 + k] = z[12 + k];
-    }
-  }
-}
-
-// #7's first pass, launched as <false> (#7f is residual_mma_kernel).
-template <bool kBf16>
-__global__ void __launch_bounds__(kCols) residual_partial_kernel(
-    const float* __restrict__ la, const float* __restrict__ pr, const float* __restrict__ w,
-    float* __restrict__ partial, int H, int W, int nh, int nw) {
-  const int c = blockIdx.x * kCols + threadIdx.x;
-  const int r0 = blockIdx.y * kRows;
-  const int r1 = min(r0 + kRows, nh);
-  const long long map = static_cast<long long>(blockIdx.z) * H * W;
-  float acc[kRes];
-#pragma unroll
-  for (int e = 0; e < kRes; ++e) acc[e] = 0.f;
-  if (c < nw) {
-    float wt[81];  // W[j][i], row-major
-    const float* wb = w + static_cast<long long>(blockIdx.z) * 81;
-#pragma unroll
-    for (int q = 0; q < 81; ++q) wt[q] = operand<kBf16>(wb[q]);
-    walk_band<kBf16>(la + map, pr + map, r0, r1, c, W, [&](const float (&z)[18]) {
-      float y[9];
-#pragma unroll
-      for (int i = 0; i < 9; ++i) {  // y_i = z_la,i − Σ_j W[j][i]·z_pr,j
-        float s = 0.f;
-#pragma unroll
-        for (int j = 0; j < 9; ++j) s = fmaf(wt[j * 9 + i], z[9 + j], s);
-        y[i] = operand<kBf16>(z[i] - s);  // the TPU kernel's bf16 y
-      }
-#pragma unroll
-      for (int i = 0; i < 9; ++i)
-#pragma unroll
-        for (int j = 0; j <= i; ++j) acc[tri(i, j)] = fmaf(y[i], y[j], acc[tri(i, j)]);
-    });
-  }
-  const long long blk =
-      (static_cast<long long>(blockIdx.z) * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
-  block_sum_store<kRes, kCols>(acc, partial + blk * kRes);
 }
 
 // out[bc][i][j] for both triangles of a D×D Gram: map bc's nblk partial
@@ -786,6 +717,150 @@ __global__ void __launch_bounds__(kResThreads) residual_mma_kernel(
   }
 }
 
+// #7 in f32 FMAs (the header's Design), on #7f's tiles: each of
+// kF32Threads threads owns kF32Cols adjacent output columns of every row. A
+// staged row holds kF32Chunks 16-byte chunks of each map from the one
+// holding the tile's first column: the tile's columns and their 2-column
+// halo at any offset of that column in its chunk. ptxas is asked for
+// kF32MinBlocks blocks an SM (at most 204 registers a thread).
+constexpr int kF32Cols = 4;
+constexpr int kF32Threads = kResTileW / kF32Cols;
+constexpr int kF32MinBlocks = 5;
+constexpr int kF32Chunks = (3 + kResTileW + 2 + 3) / 4;
+constexpr int kF32RowW = 4 * kF32Chunks;
+static_assert(kF32Cols == 4, "a thread's 6 staged columns are one float4 and one float2");
+static_assert(kF32Chunks >= kF32Threads && 2 * (kF32Chunks - kF32Threads) <= kF32Threads,
+              "a chunk of each map a thread, and the rest on the first threads");
+
+// The offset (0 … 3 floats) of element e of the map at m in its 16-byte chunk.
+__device__ __forceinline__ int chunk_offset(const float* m, int e) {
+  return static_cast<int>(((reinterpret_cast<unsigned long long>(m) >> 2) + e) & 3);
+}
+
+// 6 consecutive floats `off` floats past src (16-byte aligned): one float4
+// and one float2 when off is 0, else 6 scalar reads.
+__device__ __forceinline__ void read6(const float* src, int off, float (&x)[6]) {
+  if (off == 0) {
+    const float4 u = *reinterpret_cast<const float4*>(src);
+    const float2 v = *reinterpret_cast<const float2*>(src + 4);
+    x[0] = u.x, x[1] = u.y, x[2] = u.z, x[3] = u.w, x[4] = v.x, x[5] = v.y;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 6; ++j) x[j] = src[off + j];
+  }
+}
+
+// #7's first pass: one partial row of the 45 lower-triangle sums per tile
+// (blockIdx.x, row-major over ntc column tiles) of map blockIdx.y.
+__global__ void __launch_bounds__(kF32Threads, kF32MinBlocks) residual_f32_kernel(
+    const float* __restrict__ la, const float* __restrict__ pr, const float* __restrict__ w,
+    float* __restrict__ partial, int H, int W, int ntc) {
+  __shared__ __align__(16) float ring[kGradStages][2][kF32RowW];
+  const int tid = threadIdx.x;
+  const int tr = blockIdx.x / ntc;
+  const int c0 = (blockIdx.x - tr * ntc) * kResTileW;  // first output (and staged) column
+  const int r0 = tr * kResTileH;                        // first output row
+  const int n_out = min(kResTileH, H - 2 - r0);
+  const long long map = static_cast<long long>(blockIdx.y) * H * W;
+  const float* a = la + map;
+  const float* p = pr + map;
+  asm("" : "+l"(a), "+l"(p));  // as in #7f: a copy's address is one add onto them
+  const int need = min(kResTileW + 2, W - c0);  // the map columns a staged row holds
+
+  // input row s (map row r0 + s) into ring slot s % kGradStages: chunk q of
+  // each map from the chunk holding column c0 on, zeros for a chunk that
+  // holds no needed column (it may lie past the map's end); one commit group
+  // per call. Thread t copies chunk t of both maps, and the first threads
+  // the kF32Chunks − kF32Threads chunks past those, la's and then pr's.
+  constexpr int kExtra = kF32Chunks - kF32Threads;
+  const bool extra = tid < 2 * kExtra, extra_pr = tid >= kExtra;
+  const int extra_q = kF32Threads + (extra_pr ? tid - kExtra : tid);
+  auto stage = [&](int s) {
+    if (s < n_out + 2) {
+      const int e = (r0 + s) * W + c0;  // within the map (shape_ok: H·W < 2^31)
+      const int off_a = chunk_offset(a, e), off_p = chunk_offset(p, e);
+      const float* fa = a + (e - off_a);  // chunk 0: holds column c0
+      const float* fp = p + (e - off_p);
+      float* dst = ring[s & (kGradStages - 1)][0];
+      const int q = 4 * tid;
+      copy_async_or_zero<16>(dst + q, q < off_a + need ? fa + q : fa, q < off_a + need);
+      copy_async_or_zero<16>(dst + kF32RowW + q, q < off_p + need ? fp + q : fp,
+                             q < off_p + need);
+      if (extra) {
+        const int off = extra_pr ? off_p : off_a, qe = 4 * extra_q;
+        const float* first = extra_pr ? fp : fa;
+        copy_async_or_zero<16>(dst + (extra_pr ? kF32RowW : 0) + qe,
+                               qe < off + need ? first + qe : first, qe < off + need);
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int s = 0; s < kGradStages - 1; ++s) stage(s);
+
+  const float* wb = w + static_cast<long long>(blockIdx.y) * 81;
+  float wt[81];  // W[j][i], row-major
+#pragma unroll
+  for (int q = 0; q < 81; ++q) wt[q] = wb[q];
+  float acc[kRes];
+#pragma unroll
+  for (int e = 0; e < kRes; ++e) acc[e] = 0.f;
+  // the thread's output columns in the map: c0 + 4·tid + v for v < nvalid
+  const int nvalid = min(max(W - 2 - (c0 + kF32Cols * tid), 0), kF32Cols);
+
+  // the window: input row s of la and pr in xa[s % 3], xp[s % 3], columns
+  // 4·tid … 4·tid + 5 of the tile
+  float xa[3][kF32Cols + 2], xp[3][kF32Cols + 2];
+  // step s: row s lands and is read into window slot k (= s % 3)
+  auto step = [&](int s, auto slot) {
+    constexpr int k = decltype(slot)::value;
+    cp_async_wait<kGradStages - 2>();  // this thread's copies of row s landed
+    __syncthreads();                   // everyone's did, and row s − 1's slot is free
+    stage(s + kGradStages - 1);
+    const int e = (r0 + s) * W + c0;
+    read6(&ring[s & (kGradStages - 1)][0][kF32Cols * tid], chunk_offset(a, e), xa[k]);
+    read6(&ring[s & (kGradStages - 1)][1][kF32Cols * tid], chunk_offset(p, e), xp[k]);
+  };
+  // an output row whose input rows are in window slots k, k + 1, k + 2 (mod 3)
+  auto pixels = [&](auto first) {
+    constexpr int k = decltype(first)::value;
+#pragma unroll
+    for (int v = 0; v < kF32Cols; ++v) {
+      if (v < nvalid) {
+        float y[9];  // −y_i = Σ_j W[j][i]·z_pr,j − z_la,i
+#pragma unroll
+        for (int i = 0; i < 9; ++i) {
+          float t = -xa[(k + i / 3) % 3][v + i % 3];
+#pragma unroll
+          for (int j = 0; j < 9; ++j) t = fmaf(wt[j * 9 + i], xp[(k + j / 3) % 3][v + j % 3], t);
+          y[i] = t;
+        }
+#pragma unroll
+        for (int i = 0; i < 9; ++i)
+#pragma unroll
+          for (int j = 0; j <= i; ++j) acc[tri(i, j)] = fmaf(y[i], y[j], acc[tri(i, j)]);
+      }
+    }
+  };
+  using S0 = std::integral_constant<int, 0>;
+  using S1 = std::integral_constant<int, 1>;
+  using S2 = std::integral_constant<int, 2>;
+  step(0, S0{});
+  step(1, S1{});
+  for (int o = 0; o < n_out; o += 3) {  // output rows o, o + 1, o + 2
+    step(o + 2, S2{});
+    pixels(S0{});
+    if (o + 1 == n_out) break;
+    step(o + 3, S0{});
+    pixels(S1{});
+    if (o + 2 == n_out) break;
+    step(o + 4, S1{});
+    pixels(S2{});
+  }
+  block_sum_store<kRes, kF32Threads>(
+      acc, partial + (static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x) * kRes);
+}
+
 // #6: the lag sums. Index of the lag (ly, lx) of a same-map pair m (0: la·la,
 // 1: pr·pr; lags of the half-plane {ly > 0} ∪ {ly = 0, lx ≥ 0}) and of a
 // la·pr pair (all 25 lags, anchored at la) among the 51.
@@ -1087,18 +1162,17 @@ inline int gram18_scratch(const TileGrid& g) {
   return (g.blocks - g.tiles) * kG18 + g.tiles * kLags;
 }
 
-// Blocks of #7's partial kernel per map (must equal the wrapper's count).
-inline int partial_blocks(int H, int W) {
-  return ((W - 2 + kCols - 1) / kCols) * ((H - 2 + kRows - 1) / kRows);
-}
-
-// Tiles of #7f per map (must equal the wrapper's count).
+// Tiles of #7 and #7f per map, one partial row each (must equal the
+// wrapper's count).
 inline int residual_tiles(int H, int W) {
   return ((W - 2 + kResTileW - 1) / kResTileW) * ((H - 2 + kResTileH - 1) / kResTileH);
 }
 
+// The shapes every entry takes (ops/rmi_gram.py `kernel_shape_ok` holds the
+// same limits): at most 65535 maps (gridDim.y) and maps of fewer than 2^31
+// floats (32-bit offsets within a map), which also bounds every grid's x.
 inline bool shape_ok(int BC, int H, int W) {
-  return BC >= 0 && BC <= 65535 && H >= 3 && W >= 3 && (H + kRows - 1) / kRows <= 65535 &&
+  return BC >= 0 && BC <= 65535 && H >= 3 && W >= 3 &&
          static_cast<long long>(H) * W < (1LL << 31);
 }
 
@@ -1137,11 +1211,10 @@ extern "C" int seghiero_rmi_gram18(const void* la, const void* pr, void* partial
 
 // la, pr: [BC, H, W] f32 contiguous; w: [BC, 9, 9] f32 (the regression W,
 // so y = z_la − Wᵀ·z_pr); partial: [BC, nblk, 45] f32 scratch (the wrapper
-// allocates it) with nblk = partial_blocks (#7: ceil((W−2)/128)·
-// ceil((H−2)/32)) for bf16 = 0, residual_tiles (#7f: ceil((W−2)/256)·
-// ceil((H−2)/32)) for bf16 = 1; a: [BC, 9, 9] f32. Returns
-// cudaGetLastError() (cudaErrorInvalidValue for a shape the kernels do not
-// take, an nblk that does not match or a bf16 flag other than 0 or 1).
+// allocates it) with nblk = residual_tiles (ceil((W−2)/256)·ceil((H−2)/32));
+// a: [BC, 9, 9] f32; bf16: 0 for #7, 1 for #7f. Returns cudaGetLastError()
+// (cudaErrorInvalidValue for a shape the kernels do not take, an nblk that
+// does not match or a bf16 flag other than 0 or 1).
 extern "C" int seghiero_rmi_residual(const void* la, const void* pr, const void* w,
                                      void* partial, void* a, int BC, int H, int W, int nblk,
                                      int bf16, int device, void* stream) {
@@ -1149,22 +1222,18 @@ extern "C" int seghiero_rmi_residual(const void* la, const void* pr, const void*
   if (bf16 != 0 && bf16 != 1) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (!shape_ok(BC, H, W) || nblk != (bf16 ? residual_tiles(H, W) : partial_blocks(H, W)))
-    return cudaErrorInvalidValue;
+  if (!shape_ok(BC, H, W) || nblk != residual_tiles(H, W)) return cudaErrorInvalidValue;
   if (BC == 0) return cudaSuccess;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* la_f = static_cast<const float*>(la);
   const auto* pr_f = static_cast<const float*>(pr);
   const auto* w_f = static_cast<const float*>(w);
   auto* part = static_cast<float*>(partial);
-  if (bf16) {
-    residual_mma_kernel<<<dim3(nblk, BC), kResThreads, 0, s>>>(
-        la_f, pr_f, w_f, part, H, W, (W - 2 + kResTileW - 1) / kResTileW);
-  } else {
-    const dim3 grid((W - 2 + kCols - 1) / kCols, (H - 2 + kRows - 1) / kRows, BC);
-    residual_partial_kernel<false><<<grid, kCols, 0, s>>>(la_f, pr_f, w_f, part, H, W, H - 2,
-                                                          W - 2);
-  }
+  const int ntc = (W - 2 + kResTileW - 1) / kResTileW;
+  if (bf16)
+    residual_mma_kernel<<<dim3(nblk, BC), kResThreads, 0, s>>>(la_f, pr_f, w_f, part, H, W, ntc);
+  else
+    residual_f32_kernel<<<dim3(nblk, BC), kF32Threads, 0, s>>>(la_f, pr_f, w_f, part, H, W, ntc);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   gram_finish_kernel<9><<<blocks_for(static_cast<long long>(BC) * 81, 256), 256, 0, s>>>(

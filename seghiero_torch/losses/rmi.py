@@ -134,11 +134,14 @@ def rmi_route(shape, radius: int, use_float64: bool, streaming: str, backend: st
     """Which path ``rmi_lower_bound_cmajor`` takes for maps of ``shape``
     ``[B, C, H, W]``: ``"kernels"`` (``ops/rmi_gram.py``), ``"streaming"``
     or ``"materialized"`` — JAX's decision (``losses/fast.py:318-399``), so
-    one YAML takes the same path in both packages."""
+    one YAML takes the same path in both packages; but ``auto`` takes the
+    kernels only at shapes their launch takes (``kernel_shape_ok``: more
+    maps or larger maps fall through to streaming or the materialized op,
+    where JAX's Pallas kernel computes a value)."""
     B, C, H, W = shape
     nh, nw = H - (radius - 1), W - (radius - 1)
     if backend == "pallas" or (backend == "auto" and rmi_gram_kernel_available(
-            H, W, radius, use_float64, device)):
+            B * C, H, W, radius, use_float64, device)):
         return "kernels"
     if (streaming == "on" or (streaming == "auto"
                               and B * C * radius * radius * nh * nw * 4 > STREAMING_BYTES)) \

@@ -13,8 +13,10 @@ maps over the ``nh × nw = (H−2) × (W−2)`` output pixels (not centred).
   the 2-pixel frame the 171 entries share 51 such sums (51 FMAs a pixel),
   on the frame each entry keeps the general form;
 * ``residual_gram`` — kernel #7: ``A = y·yᵀ`` with ``y = z_la − Wᵀ·z_pr``,
-  ``[BC, 9, 9]``, in f32 FMAs; its bf16 variant #7f runs both products on
-  the tensor cores (``mma.sync`` bf16 → f32, 4 per 16 pixels a warp);
+  ``[BC, 9, 9]``, in f32 FMAs (81 + 45 a pixel, 4 columns a thread, rows
+  staged with 16-byte copies); its bf16 variant #7f runs both products on
+  the tensor cores (``mma.sync`` bf16 → f32, 4 per 16 pixels a warp); both
+  on 32 × 256 tiles of output pixels;
 * ``grad_maps`` — kernel #8: ``u = P·z`` per output pixel, its 9 shifted
   rows overlap-added into ``dpr [BC, H, W]``; the kernel computes it inside
   the 2-pixel frame as a 5×5 correlation of each map with taps folded from
@@ -46,8 +48,12 @@ import torch
 from seghiero_torch.ops import _build
 
 _POS_ALPHA = 1e-3  # rmi_hiera_triplet_loss.py:18 of the reference
-COLS, ROWS = 128, 32  # csrc/rmi_gram.cu kCols, kRows (kernel #7's blocks)
-RES_TILE_H, RES_TILE_W = 32, 256  # kResTileH, kResTileW (#7f's tiles of output pixels)
+# kResTileH, kResTileW: the tiles of output pixels of #7 and #7f
+RES_TILE_H, RES_TILE_W = 32, 256
+# the shapes the kernels take (csrc/rmi_gram.cu shape_ok): the maps lie
+# along gridDim.y, and offsets within a map are 32-bit
+MAX_MAPS = 65535
+MAX_MAP_FLOATS = 2**31 - 1
 # kernel #6's interior tiles and frame anchors per frame block
 # (csrc/rmi_gram.cu kGradTileH, kGradTileW, kGramFrame)
 TILE_H, TILE_W, GRAM_FRAME = 32, 256, 256
@@ -141,18 +147,20 @@ def _check_maps(la: torch.Tensor, pr: torch.Tensor, what: str, *small):
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{what} needs contiguous operands; refusing to copy")
-    if BC > 65535:
-        raise ValueError(f"{what}: at most 65535 maps, got {BC}")
+    if not kernel_shape_ok(BC, *pr.shape[1:]):
+        raise ValueError(f"{what}: at most {MAX_MAPS} maps of at most {MAX_MAP_FLOATS} "
+                         f"floats, got {tuple(pr.shape)}")
     return pr.shape
 
 
-def partial_blocks(H: int, W: int) -> int:
-    """Partial rows per map of kernel #7 (one per block)."""
-    return -(-(W - 2) // COLS) * -(-(H - 2) // ROWS)
+def kernel_shape_ok(BC: int, H: int, W: int) -> bool:
+    """Whether the kernels take ``BC`` maps of ``H × W`` (H, W >= 3)."""
+    return BC <= MAX_MAPS and H * W <= MAX_MAP_FLOATS
 
 
 def residual_tiles(H: int, W: int) -> int:
-    """Partial rows per map of kernel #7f (one per tile of output pixels)."""
+    """Partial rows per map of kernels #7 and #7f (one per tile of output
+    pixels)."""
     return -(-(W - 2) // RES_TILE_W) * -(-(H - 2) // RES_TILE_H)
 
 
@@ -206,7 +214,7 @@ def residual_gram(la: torch.Tensor, pr: torch.Tensor, w: torch.Tensor,
     if not _on_card(pr, "rmi residual_gram"):
         return residual_gram_plain(la, pr, w, precision)
     BC, H, W = _check_maps(la, pr, "rmi residual_gram", (w, (pr.shape[0], 9, 9)))
-    nblk = residual_tiles(H, W) if fast else partial_blocks(H, W)
+    nblk = residual_tiles(H, W)
     partial = torch.empty((BC, nblk, 45), dtype=torch.float32, device=pr.device)
     out = torch.empty((BC, 9, 9), dtype=torch.float32, device=pr.device)
     lib = _build.library()
@@ -331,11 +339,13 @@ def backward_p(g18: torch.Tensor, w: torch.Tensor, a_raw: torch.Tensor, dhalf: t
     return (Q + (dG18 + dG18.mT)[:, 9:, :]).contiguous()
 
 
-def rmi_gram_kernel_available(H: int, W: int, radius: int, use_float64: bool,
+def rmi_gram_kernel_available(BC: int, H: int, W: int, radius: int, use_float64: bool,
                               device: torch.device) -> bool:
     """The kernels' preconditions (``rmi_gram_pallas_available``): radius 3,
-    f32, maps of at least 3×3, on the card."""
-    return radius == 3 and not use_float64 and H >= 3 and W >= 3 and device.type == "cuda"
+    f32, ``BC`` maps of at least 3×3 on the card, and the launch's limits
+    (``kernel_shape_ok``), which the TPU kernel does not have."""
+    return (radius == 3 and not use_float64 and H >= 3 and W >= 3 and device.type == "cuda"
+            and kernel_shape_ok(BC, H, W))
 
 
 def rmi_logdet_kernel_cmajor(oh_map: torch.Tensor, pr_map: torch.Tensor,

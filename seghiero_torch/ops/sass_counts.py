@@ -1,11 +1,12 @@
-"""Static SASS counts of the port's fused loss kernels and RMI kernels #6–#8.
+"""Static SASS counts of the port's fused loss, RMI and decode kernels.
 
 ``python -m seghiero_torch.ops.sass_counts [LIBRARY]`` builds the port's
 kernel library (or reads LIBRARY), disassembles it with ``cuobjdump
 -sass`` and prints one JSON object: for each kernel below, its
 instructions, MUFU operations, FFMAs and tensor-core products (HMMA) in
 all, and the instructions, MUFU operations, FFMAs, HMMAs, bf16 packs
-(F2FP), shared-memory loads (LDS), global loads (LDG), asynchronous copies
+(F2FP), f32 multiplies and adds (FMUL, FADD), shared-memory loads (LDS),
+global loads (LDG), asynchronous copies
 (LDGSTS), local-memory loads and stores (LDL, STL: register spills) and
 branches of one innermost loop (a backward branch's span, both sides of
 its branches), leaving out the instructions ptxas pads with under an
@@ -16,10 +17,16 @@ kernel's key operation:
   covers its 4 pixels of one channel);
 * FFMA for ``gram18_kernel`` (#6 / #6f: the steady row loop of its
   interior tiles), ``grad_maps_kernel`` (#8 / #8f: the row loop) and
-  ``residual_partial_kernel`` (#7: the row loop; ``<true>`` is found only
-  in builds whose #7f was that FFMA loop);
+  ``residual_f32_kernel`` (#7: the row loop, unrolled by 3 output rows);
 * HMMA for ``residual_mma_kernel`` (#7f: the input-row loop of a warp
-  whose columns end inside the map).
+  whose columns end inside the map);
+* FMUL for ``upsample_argmax_kernel`` (#3, f32 and bf16 logits: the
+  channel loop of a level, 16 outputs a thread).
+
+An older tree's kernels are counted by passing their entries, e.g.
+``{**KERNELS, "residual_partial_kernel<false>": ("residual_partial_kernelILb0E",
+"FFMA", 32)}`` for #7 before its redesign (one column a thread, one row an
+iteration).
 
 The f32 and bf16-view instantiations of a template are counted apart.
 Where an iteration of the loop covers a known number of output pixels a
@@ -39,7 +46,8 @@ import sys
 from pathlib import Path
 
 # name → (substring of the mangled SASS function name, key operation,
-# output pixels a warp covers per iteration of the key loop, or None)
+# output pixels a warp covers per iteration of the key loop, or None; for
+# the decode, outputs of one channel)
 KERNELS = {
     "hiera2_fwd_kernel": ("hiera2_fwd_kernel", "MUFU", None),
     "hiera2_bwd_kernel": ("hiera2_bwd_kernel", "MUFU", None),
@@ -47,11 +55,13 @@ KERNELS = {
     "gram18_kernel<true>": ("gram18_kernelILb1E", "FFMA", 128),
     "grad_maps_kernel<false>": ("grad_maps_kernelILb0E", "FFMA", 128),
     "grad_maps_kernel<true>": ("grad_maps_kernelILb1E", "FFMA", 128),
-    "residual_partial_kernel<false>": ("residual_partial_kernelILb0E", "FFMA", 32),
-    "residual_partial_kernel<true>": ("residual_partial_kernelILb1E", "FFMA", 32),
+    "residual_f32_kernel": ("residual_f32_kernel", "FFMA", 3 * 128),
     "residual_mma_kernel": ("residual_mma_kernel", "HMMA", 64),
+    "upsample_argmax_kernel<float>": ("upsample_argmax_kernelIfE", "FMUL", 16 * 32),
+    "upsample_argmax_kernel<bf16>": ("upsample_argmax_kernelI13__nv_bfloat16E", "FMUL", 16 * 32),
 }
-LOOP_OPS = ("MUFU", "FFMA", "HMMA", "F2FP", "LDS", "LDG", "LDGSTS", "LDL", "STL")
+LOOP_OPS = ("MUFU", "FFMA", "HMMA", "F2FP", "FMUL", "FADD", "LDS", "LDG", "LDGSTS", "LDL",
+            "STL")
 
 
 def _mnemonic(op: str) -> str:

@@ -69,13 +69,21 @@ def test_cuda_kernels_equal_plain_versions():
                 assert port_dw.launches == before + 1
                 assert torch.equal(got, port_dw.depthwise3x3_plain(x, k9)), (dtype, shape,
                                                                               misaligned)
+        # the decode's blocks take 128 low-res pixels of a row: widths of 1,
+        # one past a block (131, 3 levels) and two past (130), h of 1
         for shape, slices in (((2, 13, 6, 10), [(0, 9), (9, 13)]),
                               ((1, 15, 7, 9), [(0, 9), (9, 13), (13, 15)]),
+                              ((2, 15, 3, 131), [(0, 9), (9, 13), (13, 15)]),
+                              ((2, 13, 5, 130), [(0, 9), (9, 13)]),
+                              ((3, 15, 1, 7), [(0, 9), (9, 13), (13, 15)]),
+                              ((2, 13, 6, 1), [(0, 9), (9, 13)]),
                               ((8, 13, 128, 128), [(0, 9), (9, 13)])):
             lo = torch.randn(shape, generator=gen, device=dev).to(dtype)
             lo[:, 4] = lo[:, 2]
-            for g, w in zip(port_ua.upsample_argmax(lo, slices),
-                            port_ua.upsample_argmax_plain(lo, slices)):
+            before = port_ua.launches
+            got = port_ua.upsample_argmax(lo, slices)
+            assert port_ua.launches == before + 1 and len(got) == len(slices)
+            for g, w in zip(got, port_ua.upsample_argmax_plain(lo, slices)):
                 assert torch.equal(g, w), (dtype, shape)
     x = torch.randn((1, 8, 8, 4), device=dev)
     with pytest.raises(ValueError, match="refusing to copy"):
@@ -239,25 +247,29 @@ def _rmi_maps(gen, dev, BC, H, W):
     return la, pr
 
 
-# the RMI kernels' shapes: ragged against #7's 32-row, 128-column blocks;
-# the interior (H−4, W−4) of #6 and #8 one past (33, 257) or one short
-# (63, 511) of their 32-row, 256-column tiles; all frame (4 × 4: no
-# interior pixel) or mostly frame (an interior 1 pixel wide); the output
-# (H−2, W−2) one past #7f's 32 × 256 tiles (129 rows, 513 columns) or one
-# short (63 rows, 255 columns), and W−2 not a multiple of its 16-pixel
-# segments
+# the RMI kernels' shapes: the interior (H−4, W−4) of #6 and #8 one past
+# (33, 257) or one short (63, 511) of their 32-row, 256-column tiles; all
+# frame (4 × 4: no interior pixel) or mostly frame (an interior 1 pixel
+# wide); the output (H−2, W−2) of #7 and #7f one past their 32 × 256 tiles
+# (129 rows, 513 columns; 33, 257), one short (63 rows, 255 columns; 31,
+# 255) or exactly one (32, 256), W−2 not a multiple of #7f's 16-pixel
+# segments nor of #7's 4 columns a thread; config 4's width of 769 (rows not
+# 16-byte aligned: #7 reads its staged rows at an offset); 65536 tiles of
+# rows, past the 65535 row bands the earlier #7 launch took
 RMI_SHAPES = ((3, 18, 20), (2, 37, 131), (1, 3, 3), (2, 70, 257), (4, 131, 40),
               (2, 4, 4), (1, 5, 300), (3, 300, 5), (2, 37, 261), (1, 67, 515),
-              (1, 65, 259))
+              (1, 65, 259), (1, 35, 259), (1, 33, 257), (2, 34, 258), (2, 41, 769),
+              (1, 32 * 65535 + 3, 3))
 
 
 @pytest.mark.gpu
 def test_rmi_gram_kernels_equal_plain_versions():
     """Card-only: the RMI kernels #6–#8 against their plain versions at small
-    and ragged shapes (H−2 and W−2 not multiples of #7's 32-row,
-    128-column blocks; W < 128; several row bands; the interior of #6 and
-    #8, H−4 and W−4, one past or one short of their 32-row, 256-column
-    tiles; maps that are all or mostly their 2-pixel frame): the Grams per entry
+    and ragged shapes (H−2 and W−2 one past, one short of or equal to #7's
+    32-row, 256-column tiles; W < 256; several row tiles; rows of 769; the
+    interior of #6 and #8, H−4 and W−4, one past or one short of their
+    32-row, 256-column tiles; maps that are all or mostly their 2-pixel
+    frame; 65536 row tiles): the Grams per entry
     within 1e-5·Σ|z_i·z_j| (for #7 with |y| bounded by |z_la| + |W|ᵀ·|z_pr|),
     d pr per pixel within 1e-5·Σ|P|·|z| (f32 sums in another order), and
     two runs give the same bits."""

@@ -7,6 +7,10 @@ are held against the plain versions by tests/test_torch_port_cuda.py (on
 the card) and by chip_smoke.py at the serving shapes.
 """
 
+import itertools
+import os
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -113,6 +117,69 @@ def test_upsample_argmax_plain_equals_pallas(dtype, shape, slices):
     # the all-equal block decodes to the first channel of every level
     for g in got:
         assert int(g[:, :4, :8].max()) == 0
+
+
+def _decode_threads() -> int:
+    """Low-res pixels of one row a block of csrc/upsample_argmax.cu."""
+    path = os.path.join(os.path.dirname(__file__), os.pardir, "seghiero_torch", "csrc",
+                        "upsample_argmax.cu")
+    with open(path) as f:
+        return int(re.search(r"constexpr int kThreads = (\d+);", f.read()).group(1))
+
+
+def _decode_per_lowres_pixel(logits, slices):
+    """The CUDA decode's form: each low-res pixel (b, i, j) loads its
+    clamped 3×3 neighbourhood per channel, blends its 3 tap rows at the 4
+    column phases (12 horizontal blends ``ax·t[r][c] + bx·t[r][c+1]``),
+    then the 16 outputs from two of them (``ay·h[ro] + by·h[ro+1]``), f32,
+    one operation at a time, and keeps 16 running (best, index) pairs per
+    level, taking a later channel only when strictly larger; written as
+    output rows 4i … 4i+3, columns 4j … 4j+3. Every pixel at once, each
+    with only its own values."""
+    B, C, h, w = logits.shape
+    x = logits.to(torch.float32)
+    ri, cj = torch.arange(h), torch.arange(w)
+    rows = ((ri - 1).clamp(min=0), ri, (ri + 1).clamp(max=h - 1))
+    cols = ((cj - 1).clamp(min=0), cj, (cj + 1).clamp(max=w - 1))
+    t = [[x[:, :, r][:, :, :, c] for c in cols] for r in rows]  # [B, C, h, w] each
+    hb = [[ax * t[r][co] + bx * t[r][co + 1] for co, ax, bx in port_ua.PHASE] for r in range(3)]
+    v = [[ay * hb[ro][px] + by * hb[ro + 1][px] for px in range(4)]
+         for ro, ay, by in port_ua.PHASE]
+    outs = []
+    for lo, hi in slices:
+        out = torch.empty((B, h, 4, w, 4), dtype=torch.int32)
+        for py, px in itertools.product(range(4), range(4)):
+            best = v[py][px][:, lo]
+            idx = torch.zeros_like(best, dtype=torch.int32)
+            for c in range(lo + 1, hi):
+                take = v[py][px][:, c] > best
+                best = torch.where(take, v[py][px][:, c], best)
+                idx = torch.where(take, c - lo, idx)
+            out[:, :, py, :, px] = idx
+        outs.append(out.reshape(B, 4 * h, 4 * w))
+    return outs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["2-level", "3-level", "h=1", "w=1", "ragged"])
+def test_upsample_argmax_shared_blends_equal_the_plain_version(dtype, case):
+    """Kernel #3's form (one thread per low-res pixel, its 12 horizontal
+    blends shared by the 16 outputs) gives the plain version's masks bit
+    for bit, in f32 and bf16, at 2 and 3 levels, with h or w of 1 and a
+    width one block and 3 low-res pixels wide (the block's threads read
+    from the .cu); channels 2 and 4 tie everywhere."""
+    two, three = [(0, 9), (9, 13)], [(0, 9), (9, 13), (13, 15)]
+    shape, slices = {"2-level": ((2, 13, 6, 10), two), "3-level": ((1, 15, 5, 7), three),
+                     "h=1": ((2, 15, 1, 9), three), "w=1": ((2, 13, 7, 1), two),
+                     "ragged": ((1, 15, 3, _decode_threads() + 3), three)}[case]
+    gen = torch.Generator().manual_seed(shape[2] * 1000 + shape[3])
+    lo = torch.randn(shape, generator=gen).to(dtype)
+    lo[:, 4] = lo[:, 2]
+    got = _decode_per_lowres_pixel(lo, slices)
+    want = port_ua.upsample_argmax_plain(lo, slices)
+    assert len(got) == len(want) == len(slices)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 def test_port_library_decode_agrees_with_jax_decode():

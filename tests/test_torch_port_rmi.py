@@ -10,6 +10,8 @@ the plain versions by tests/test_torch_port_cuda.py and chip_smoke.py.
 """
 
 import itertools
+import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -403,6 +405,123 @@ def test_rmi_knobs():
     assert port_fast.FastRMIHieraTripletLoss(PH, rmi_precision="fast").rmi_precision == "fast"
     with pytest.raises(NotImplementedError, match="not yet ported"):
         port_fast.FastRMIHieraTripletLoss(PH, hiera_variant="focal")
+
+
+def test_rmi_route_takes_the_kernels_only_at_shapes_their_launch_takes():
+    """``rmi_backend: auto`` on the card picks the kernels only where their
+    launch takes the shape (``kernel_shape_ok``): at most 65535 maps (they
+    lie along gridDim.y) of fewer than 2^31 floats (32-bit offsets in a
+    map). Past either limit it falls through to streaming or the
+    materialized op, which compute a value, as JAX's Pallas kernel does at
+    any shape. The tiles of a map lie along gridDim.x (up to 2^31 − 1), so
+    a map with more row tiles than the launch takes is past the float
+    limit too, and the 65535 row bands the earlier #7 launch allowed are no
+    limit now. ``backend: pallas`` asks for the kernels by name, and the
+    wrapper raises at such a shape. Only the shape is read: nothing is
+    allocated."""
+    cuda = torch.device("cuda")
+
+    def auto(shape):
+        return port_rmi.rmi_route(shape, 3, False, "auto", "auto", cuda)
+
+    assert auto((4, 15, 512, 512)) == "kernels"  # config 3
+    assert auto((2, 15, 769, 769)) == "kernels"  # config 4
+    assert auto((1, 65535, 8, 8)) == "kernels"
+    assert auto((1, 65536, 8, 8)) != "kernels"  # 65536 maps
+    assert auto((256, 256, 8, 8)) != "kernels"
+    assert auto((1, 1, 2**16, 2**15)) != "kernels"  # a map of 2^31 floats
+    assert auto((1, 1, 2**16, 2**15 - 1)) == "kernels"
+    th = port_rg.RES_TILE_H
+    assert auto((1, 1, th * 2**31 + 3, 3)) != "kernels"  # 2^31 row tiles of #7 / #7f
+    assert auto((1, 1, th * 65535 + 3, 3)) == "kernels"  # 65536 row tiles
+    assert port_rmi.rmi_route((1, 65536, 8, 8), 3, False, "auto", "pallas", cuda) == "kernels"
+    for shape in ((65536, 3, 3), (1, 2**16, 2**15)):
+        maps = torch.empty(shape, device="meta")
+        with pytest.raises(ValueError, match="at most 65535 maps"):
+            port_rg._check_maps(maps, maps, "rmi gram18")
+
+
+CU = os.path.join(os.path.dirname(__file__), os.pardir, "seghiero_torch", "csrc", "rmi_gram.cu")
+
+
+def _cu_ints(names):
+    """The ``constexpr int`` constants ``names`` of csrc/rmi_gram.cu, their
+    expressions evaluated in order."""
+    with open(CU) as f:
+        src = f.read()
+    vals = {}
+    for name, expr in re.findall(r"constexpr int (k\w+) = ([^;]+);", src):
+        try:
+            vals[name] = int(eval(expr.replace("/", "//"), {"__builtins__": {}}, dict(vals)))
+        except (NameError, SyntaxError, TypeError):
+            pass
+    return [vals[n] for n in names]
+
+
+@pytest.mark.parametrize("shape", [(3, 18, 20), (2, 37, 131), (1, 5, 300), (1, 3, 3),
+                                   (1, 67, 769)])
+def test_residual_f32_tiles_and_staged_chunks_cover_each_pixel_once(shape):
+    """Kernel #7's geometry (csrc/rmi_gram.cu ``residual_f32_kernel``), its
+    constants read from the source: tiles of kResTileH × kResTileW output
+    pixels, one per block along gridDim.x (``residual_tiles`` is the
+    wrapper's count); each input row of a tile (its rows and the 2 halo
+    rows) staged as kF32Chunks 16-byte chunks from the one holding the
+    tile's first column, a chunk copied only where it holds a needed column
+    (and so a float of the maps), else zeros; kF32Threads threads reading
+    6 staged floats each at the row's offset in its first chunk. With the
+    maps starting 0, 1 or 3 floats into a 16-byte chunk (so rows of any
+    width start anywhere in one) and NaN outside them, every output pixel
+    is one thread's exactly once, and the Gram of the staged values is the
+    plain version's in f64."""
+    TH, TW, V, T, NQ = _cu_ints(("kResTileH", "kResTileW", "kF32Cols", "kF32Threads",
+                                 "kF32Chunks"))
+    assert T * V == TW and 4 * NQ >= 3 + TW + 2
+    assert (port_rg.RES_TILE_H, port_rg.RES_TILE_W) == (TH, TW)
+    BC, H, W = shape
+    nh, nw, n = H - 2, W - 2, BC * H * W
+    ntc, ntr = -(-nw // TW), -(-nh // TH)
+    assert port_rg.residual_tiles(H, W) == ntc * ntr
+    rng = np.random.default_rng(sum(shape))
+    la = (rng.random(shape) < 0.3).astype(np.float64)
+    pr = rng.random(shape) + 1e-6
+    w = rng.standard_normal((BC, 9, 9)) * 0.3
+    want = port_rg.residual_gram_plain(*map(torch.from_numpy, (la, pr, w))).numpy()
+    cols = np.arange(TW)
+    for lead_a, lead_p in ((0, 0), (1, 3), (3, 1)):
+        maps = []
+        for m, lead in ((la, lead_a), (pr, lead_p)):
+            flat = np.full(lead + n + 4, np.nan)  # the allocation's last chunk
+            flat[lead:lead + n] = m.ravel()
+            maps.append((flat, lead))
+        cover = np.zeros((BC, nh, nw), dtype=np.int64)
+        got = np.zeros((BC, 9, 9))
+        for bc, blk in itertools.product(range(BC), range(ntc * ntr)):
+            tr, tc = divmod(blk, ntc)
+            c0, r0 = tc * TW, tr * TH
+            n_out, need = min(TH, nh - r0), min(TW + 2, W - c0)
+            staged = []  # per map, the input rows as the threads read them
+            for flat, lead in maps:
+                rows = []
+                for s in range(n_out + 2):
+                    g = lead + bc * H * W + (r0 + s) * W + c0  # column c0's float
+                    off = g % 4
+                    row = np.zeros(4 * NQ)
+                    for q in range(NQ):
+                        if 4 * q < off + need:
+                            lo = g - off + 4 * q
+                            assert lo < g + need and lo + 4 > lead and lo < lead + n
+                            row[4 * q:4 * q + 4] = flat[lo:lo + 4]
+                    rows.append(row[off:off + TW + 2])  # thread t: [4t, 4t + 6)
+                staged.append(rows)
+            for o in range(n_out):
+                valid = c0 + cols < nw  # the thread's nvalid columns
+                za, zp = (np.stack([rows[o + dy][dx:dx + TW][valid] for dy in range(3)
+                                    for dx in range(3)]) for rows in staged)
+                y = za - w[bc].T @ zp
+                got[bc] += y @ y.T
+                cover[bc, r0 + o, c0 + cols[valid]] += 1
+        assert (cover == 1).all(), (lead_a, lead_p)
+        np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
 
 
 def _loss_inputs(seed, B=2, h=8, w=8, D=16):
