@@ -2,7 +2,6 @@
 """Smoke run of the PyTorch port (``seghiero_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--profile DIR]
-    python3 chip_smoke.py --turns DIR [DIR ...]
 
 Run from the root of a checkout on a machine with a CUDA card and the
 CUDA toolkit (an H100: the kernels are built for sm_90a). Phases, each
@@ -20,7 +19,8 @@ printed as one line, any failure exits non-zero:
    RMI Gram kernels, which have none, the port's library-op path of the
    same loss term), and the least time the card could take; the
    depthwise kernels also at config 4's shapes (193², odd); the decode
-   in f32 and bf16, by CUDA-graph replay (it is shorter than a launch's
+   in f32 and bf16, eagerly (as a served batch launches it) and by
+   CUDA-graph replay (the kernel alone: it is shorter than a launch's
    host cost); the fused
    loss kernels also at the 150-class config's (``[8, 165, 128, 128]``);
    the RMI Gram
@@ -66,12 +66,6 @@ printed as one line, any failure exits non-zero:
 
 Then one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` name/power
 line, and as the last line ``{"ok": true, "device": {...}}``.
-
-``--turns`` runs phases 1 and 2 and then, in place of the others, compares
-kernels #7 (f32) and #3 built from other source trees (another checkout,
-or a copy with edited sources) with this checkout's, in turns on the same
-card (``phase_turns``): one ``{"turns": ...}`` line before the same last
-two.
 """
 
 from __future__ import annotations
@@ -80,7 +74,6 @@ import argparse
 import dataclasses
 import io
 import json
-import re
 import subprocess
 import sys
 import threading
@@ -325,10 +318,12 @@ def phase_kernels(seed: int):
 def decode_checks(gen):
     """The decode kernel (#3) at the serving shape ``[8, 13, 128, 128]``, 2
     levels, in f32 and bf16: its masks equal the plain version's (stated
-    tolerance: exact); timed by CUDA-graph replay (the kernel is shorter
-    than the host's cost of a launch, which the eager timing, also kept,
-    includes) beside the plain version and the library decode
-    (``F.interpolate`` + ``argmax``, also by graph replay), with its bound.
+    tolerance: exact); timed beside the plain version and the library
+    decode (``F.interpolate`` + ``argmax``), with its bound. ``ms`` and
+    ``library_ms`` are eager event timings, what a served batch sees (it
+    launches the kernel eagerly, host cost included); ``graph_ms`` and
+    ``library_graph_ms`` replay a CUDA graph of the same calls, the
+    kernel's own time (it is shorter than the host's cost of a launch).
     Returns the f32 entry with the bf16 one under ``"bfloat16"``."""
     import torch
     import torch.nn.functional as F
@@ -356,10 +351,11 @@ def decode_checks(gen):
         lib_agree = min(float((g == r).float().mean().item())
                         for g, r in zip(got, library_decode()))
         t = {
-            "ms": time_ms_graph(lambda: upsample_argmax(lo, slices)),
-            "eager_ms": time_ms(lambda: upsample_argmax(lo, slices)),
+            "ms": time_ms(lambda: upsample_argmax(lo, slices)),
+            "graph_ms": time_ms_graph(lambda: upsample_argmax(lo, slices)),
             "plain_ms": time_ms(lambda: upsample_argmax_plain(lo, slices), iters=5),
-            "library_ms": time_ms_graph(library_decode),
+            "library_ms": time_ms(library_decode),
+            "library_graph_ms": time_ms_graph(library_decode),
         }
         nbytes = lo.nbytes + sum(o.nbytes for o in got)
         # per output pixel and channel: 6 multiplies, 3 adds, 1 compare
@@ -368,7 +364,8 @@ def decode_checks(gen):
         say("kernels", kernel="upsample_argmax", shape=[B, C, h, w], dtype=name,
             levels=slices, max_abs_err=err, library_pixel_agreement=lib_agree, bytes=nbytes,
             bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / t["ms"],
-            timing="CUDA graph of 30 calls, replayed 5 times", **t)
+            graph_share_of_bound=b_ms / t["graph_ms"],
+            graph_timing="CUDA graph of 30 calls, replayed 5 times", **t)
         out[name] = dict(t, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
                          shapes=[[B, C, h, w]])
     return dict(out["float32"], bfloat16=out["bfloat16"])
@@ -693,8 +690,8 @@ def rmi_kernel_checks(seed: int):
     # to O(H + W) terms on the 2-pixel frame: 51 FMAs per output pixel for
     # #6. #8's dpr is, inside the frame, a 5×5 correlation of each map with
     # taps folded from P once per map: 50 FMAs per pixel. #7's residual y
-    # is needed per pixel for its numerics: 81 FMAs for Wᵀ·z_pr, 9
-    # subtractions and 45 FMAs, as it computes them.
+    # is needed per pixel for its numerics: 81 FMAs for −y = Wᵀ·z_pr − z_la
+    # (summed from −z_la, so no subtraction is left) and 45 for y·yᵀ.
     pixels = BC * n
     out = {}
     for name, fn, plain, nbytes, flops, err, extra in (
@@ -705,7 +702,7 @@ def rmi_kernel_checks(seed: int):
           "pallas (kernel_path_ms)"}),
         ("rmi_residual_gram", lambda: rg.residual_gram(la, pr, w),
          lambda: rg.residual_gram_plain(la, pr, w),
-         la.nbytes + pr.nbytes + w.nbytes + a.nbytes, (2 * 81 + 9 + 2 * 45) * pixels, err7,
+         la.nbytes + pr.nbytes + w.nbytes + a.nbytes, 2 * (81 + 45) * pixels, err7,
          {"unfused_ms": fwd["xla"], "kernel_path_ms": fwd["pallas"],
           "unfused_what": "the same forward"}),
         ("rmi_grad_maps", lambda: rg.grad_maps(la, pr, p), lambda: rg.grad_maps_plain(la, pr, p),
@@ -838,7 +835,7 @@ def rmi_fast_checks(seed: int):
         ("rmi_gram18_fast", (la, pr), rg.gram18, la.nbytes + pr.nbytes + g18.nbytes,
          2 * 51 * pixels, err6),
         ("rmi_residual_gram_fast", (la, pr, w), rg.residual_gram,
-         la.nbytes + pr.nbytes + w.nbytes + a.nbytes, (2 * 81 + 9 + 2 * 45) * pixels, err7),
+         la.nbytes + pr.nbytes + w.nbytes + a.nbytes, 2 * (81 + 45) * pixels, err7),
         ("rmi_grad_maps_fast", (la, pr, p), rg.grad_maps,
          la.nbytes + pr.nbytes + p.nbytes + dpr.nbytes, 2 * 50 * BC * H * W, err8),
     ):
@@ -891,147 +888,6 @@ def rmi_fast_checks(seed: int):
     del routes, oh_map, pr_map
     torch.cuda.empty_cache()
     return out
-
-
-# ---------------------------------------------------------------------------
-def _turn_library(csrc: Path, out: Path):
-    """``nvcc`` of ``csrc``'s RMI and decode kernels into ``out/lib.so``,
-    with the port's flags; returns (path, process)."""
-    from seghiero_torch.ops import _build
-
-    out.mkdir(parents=True, exist_ok=True)
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS[:-1], f"-I{csrc}", "-shared",
-           str(csrc / "rmi_gram.cu"), str(csrc / "upsample_argmax.cu"), "-o", str(out / "lib.so")]
-    return out / "lib.so", subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                             stderr=subprocess.STDOUT, text=True)
-
-
-def _residual_blocks(src: str, H: int, W: int) -> int:
-    """Partial rows per map of the f32 residual kernel #7 built from ``src``:
-    one per tile of #7f (kResTileH × kResTileW output pixels), or, in
-    sources whose #7 is ``residual_partial_kernel``, one per block of kRows
-    rows × kCols columns."""
-    num = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
-    th, tw = ((num["kRows"], num["kCols"]) if "residual_partial_kernel" in src
-              else (num["kResTileH"], num["kResTileW"]))
-    return -(-(W - 2) // tw) * -(-(H - 2) // th)
-
-
-def phase_turns(dirs):
-    """Kernels #7 (f32) and #3 built from each of ``dirs`` (other checkouts,
-    or copies with edited sources: ``DIR/seghiero_torch/csrc``) and from this
-    checkout ("this"), called through their C entries: #7 on config 3's and
-    config 4's maps (``rmi_kernel_checks``' inputs), within 1e-5 of
-    ``yb·ybᵀ`` of the plain version in f64 and the same bits twice; #3 on
-    the serving decode's logits in f32 and bf16, equal to the plain
-    version. A DIR whose name starts with "probe" is timed unchecked (an
-    edit that breaks the result to isolate a cost). Each is timed in turns
-    (the DIRs, this, this, the DIRs reversed) by events and by CUDA-graph
-    replay, and its SASS counted (``ops/sass_counts.py``)."""
-    import ctypes
-
-    import torch
-
-    from seghiero_torch.ops import _build
-    from seghiero_torch.ops import rmi_gram as rg
-    from seghiero_torch.ops import sass_counts as sc
-    from seghiero_torch.ops.upsample_argmax import upsample_argmax_plain
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    srcs = {Path(d).name: Path(d) / "seghiero_torch" / "csrc" for d in dirs}
-    srcs["this"] = ROOT / "seghiero_torch" / "csrc"
-    builds = {k: _turn_library(c, ROOT / "seghiero_torch" / "build" / "turns" / k)
-              for k, c in srcs.items()}
-    kernels = {**sc.KERNELS,
-               "residual_partial_kernel<false>": ("residual_partial_kernelILb0E", "FFMA", 32)}
-    libs = {}
-    for k, (so, proc) in builds.items():
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {k}:\n{log[-3000:]}")
-        so.with_suffix(".log").write_text(log)
-        libs[k] = ctypes.CDLL(str(so))
-        for fn in ("seghiero_rmi_residual", "seghiero_upsample_argmax"):
-            getattr(libs[k], fn).argtypes = _build.SIGNATURES[fn]
-        for name, c in sc.sass_counts(str(so), kernels).items():
-            if name.startswith(("residual_f32", "residual_partial", "upsample")):
-                say("turns", tree=k, kernel=name, **c)
-    order = [k for k in srcs if k != "this"] + ["this"]
-    order += order[::-1]
-
-    def stream():  # the current stream: a CUDA graph's while one is captured
-        return torch.cuda.current_stream().cuda_stream
-
-    def timed(fns, checked):
-        out = {k: {"ms": [], "graph_ms": [], **checked[k]} for k in fns}
-        for k in order:
-            out[k]["ms"].append(time_ms(fns[k]))
-            out[k]["graph_ms"].append(time_ms_graph(fns[k]))
-        return out
-
-    results = {}
-    for (B, C, H, W), seed in (((4, 15, 512, 512), SEED + 2), ((2, 15, 769, 769), SEED + 3)):
-        gen = torch.Generator(device="cuda").manual_seed(seed)
-        BC, n = B * C, (H - 2) * (W - 2)
-        oh_map, pr_map = _rmi_maps(gen, B, C, H, W)
-        la, pr = oh_map.reshape(BC, H, W), pr_map.reshape(BC, H, W)
-        w = rg._solve_w(rg.gram18(la, pr), n)
-        want = rg.residual_gram_plain(la.double(), pr.double(), w.double())
-        yb = rg._views(la.double()) + w.double().abs().mT @ rg._views(pr.double())
-        mag = yb @ yb.mT
-        del yb
-        fns, checked = {}, {}
-        for k, c in srcs.items():
-            nblk = _residual_blocks((c / "rmi_gram.cu").read_text(), H, W)
-            partial = torch.empty((BC, nblk, 45), device="cuda")
-            a = torch.empty((BC, 9, 9), device="cuda")
-
-            def f(lib=libs[k], nblk=nblk, partial=partial, a=a):
-                err = lib.seghiero_rmi_residual(la.data_ptr(), pr.data_ptr(), w.data_ptr(),
-                                                partial.data_ptr(), a.data_ptr(), BC, H, W,
-                                                nblk, 0, 0, stream())
-                if err:
-                    raise RuntimeError(f"seghiero_rmi_residual returned {err}")
-                return a
-
-            got = f().clone()
-            rel = ((got.double() - want).abs() / mag).max().item()
-            same = torch.equal(got, f())
-            if not k.startswith("probe") and not (rel <= 1e-5 and same):
-                raise AssertionError(f"#7 of {k}: max |Δ|/mag = {rel}, same bits {same}")
-            fns[k], checked[k] = f, {"max_rel_err_of_mag": rel, "same_bits": same}
-        results[f"rmi_residual_gram {BC}x{H}x{W}"] = timed(fns, checked)
-        del la, pr, oh_map, pr_map, want, mag, fns
-        torch.cuda.empty_cache()
-
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    B, C, h, w = 8, 13, 128, 128
-    lo32 = torch.randn((B, C, h, w), generator=gen, device="cuda")
-    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
-        lo = lo32.to(dtype)
-        want = upsample_argmax_plain(lo, [(0, 9), (9, 13)])
-        fns, checked = {}, {}
-        for k in srcs:
-            outs = [torch.empty((B, 4 * h, 4 * w), dtype=torch.int32, device="cuda")
-                    for _ in range(2)]
-
-            def f(lib=libs[k], outs=outs):
-                err = lib.seghiero_upsample_argmax(lo.data_ptr(), B, C, h, w, code, 2, 0, 9, 9,
-                                                   13, 0, 0, outs[0].data_ptr(),
-                                                   outs[1].data_ptr(), None, 0, stream())
-                if err:
-                    raise RuntimeError(f"seghiero_upsample_argmax returned {err}")
-                return outs
-
-            exact = all(torch.equal(o, r) for o, r in zip(f(), want))
-            if not k.startswith("probe") and not exact:
-                raise AssertionError(f"#3 of {k} ({dtype}) differs from the plain version")
-            fns[k], checked[k] = f, {"exact": exact}
-        results[f"upsample_argmax {str(dtype).replace('torch.', '')}"] = timed(fns, checked)
-    for what, by_tree in results.items():
-        for k, r in by_tree.items():
-            say("turns", what=what, tree=k, **r)
-    return results
 
 
 # ---------------------------------------------------------------------------
@@ -1692,11 +1548,6 @@ def main(argv=None) -> int:
                    help="also write torch.profiler tables and traces of batch-8 "
                    "predictions and of one train step of each train config into "
                    "this directory")
-    p.add_argument("--turns", nargs="+", default=None, metavar="DIR",
-                   help="instead of the phases: build kernels #7 (f32) and #3 from each "
-                   "DIR/seghiero_torch/csrc (another checkout, or a copy with edited "
-                   "sources) and from this checkout, check them against the plain versions "
-                   "and time them in turns; a DIR named probe* is timed unchecked")
     args = p.parse_args(argv)
 
     import torch
@@ -1711,12 +1562,6 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     name, count, smi, sm_mhz = phase_device()
     phase_build()
-    if args.turns:
-        print(json.dumps({"turns": phase_turns(args.turns)}), flush=True)
-        print(smi, flush=True)
-        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
-                                                 "count": count}}), flush=True)
-        return 0
     kernels = phase_kernels(SEED)
     kernels.update(phase_train_kernels(SEED, sm_mhz))
     t_kernels = time.perf_counter()
@@ -1771,8 +1616,8 @@ def main(argv=None) -> int:
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
             "shapes": k["shapes"],
-            **{x: k[x] for x in ("eager_ms", "unfused_ms", "unfused_what", "kernel_path_ms",
-                                 "kernel_over_library", "cudnn_two_call_ms",
+            **{x: k[x] for x in ("graph_ms", "library_graph_ms", "unfused_ms", "unfused_what",
+                                 "kernel_path_ms", "kernel_over_library", "cudnn_two_call_ms",
                                  "kernel_over_cudnn_two_call") if x in k},
             # the depthwise kernels also at config 4's shapes (train4's path),
             # the fused loss at the 150-class config's (train150's)

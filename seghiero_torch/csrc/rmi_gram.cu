@@ -49,7 +49,8 @@
 //    (0.024 ms at 67 TFLOP/s f32). Bound by bytes; it does those 51 inside
 //    the frame (171 per anchor on the frame, 1.6 % of the pixels).
 //  * #7 reads the same bytes and needs the residual y per pixel: 81 + 45
-//    FMAs and 9 subtractions (4.07 G flop, 0.061 ms at the f32 rate).
+//    FMAs, the 9 subtractions folded into the first 81 (−y summed from
+//    −z_la): 3.93 G flop, 0.059 ms at the f32 rate.
 //    Bound by operations: an FFMA takes an issue slot of its own, so the
 //    kernel's time is its instructions per pixel. Measured on an H100
 //    (PERF.md §6), its loop (1512 FFMAs in 1847 instructions) issues in

@@ -458,6 +458,22 @@ def _cu_ints(names):
     return [vals[n] for n in names]
 
 
+def test_kernel_shape_ok_is_the_launch_check_of_the_source():
+    """``kernel_shape_ok`` holds the limits of csrc/rmi_gram.cu ``shape_ok``:
+    its body, read from the source and evaluated in Python, agrees with the
+    wrapper's check on both sides of each limit."""
+    with open(CU) as f:
+        body = re.search(r"inline bool shape_ok\(int BC, int H, int W\) \{\s*return ([^;]+);",
+                         f.read()).group(1)
+    expr = re.sub(r"static_cast<long long>\((\w+)\)", r"\1", " ".join(body.split()))
+    expr = expr.replace("1LL", "1").replace("&&", " and ")
+    for BC, H, W in ((1, 3, 3), (port_rg.MAX_MAPS, 8, 8), (port_rg.MAX_MAPS + 1, 8, 8),
+                     (1, 2**16, 2**15 - 1), (1, 2**16, 2**15), (1, 2**31 - 1, 3),
+                     (1, 3, port_rg.MAX_MAP_FLOATS // 3), (1, 3, port_rg.MAX_MAP_FLOATS // 3 + 1)):
+        want = eval(expr, {"__builtins__": {}}, {"BC": BC, "H": H, "W": W})
+        assert port_rg.kernel_shape_ok(BC, H, W) == want, (BC, H, W)
+
+
 @pytest.mark.parametrize("shape", [(3, 18, 20), (2, 37, 131), (1, 5, 300), (1, 3, 3),
                                    (1, 67, 769)])
 def test_residual_f32_tiles_and_staged_chunks_cover_each_pixel_once(shape):
