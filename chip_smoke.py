@@ -36,6 +36,19 @@ printed as one line, any failure exits non-zero:
    the same batch, the library-op predictor (both backends ``xla``) must
    agree on ≥99.5% of pixels per level, and each kernel's launch counter
    must show the serving run went through it;
+4b. infer5 — ``configs/example-serving-3level-r101-hopper.yaml`` (BASELINE
+   config 5: ResNet-101, 3 levels, 1024², batch 4, bf16) at full width and
+   depth: the depthwise forward (#1) and the decode (#3) at its shapes
+   against their plain versions, timed; weights from the seed saved as a
+   port checkpoint directory (``best.json``); the port's infer CLI
+   (``python -m seghiero_torch.infer``, in-process, no ``--checkpoint``) on
+   8 PNGs of 1024² and 3 of 1280×960, whose written masks must equal
+   ``Predictor.predict_array`` on the same batches; the batch-4
+   ``predict_masks`` time; a sliding window over a 1536×2048 image (6
+   windows of 1024²) and TTA at scales 0.75 / 1.0 / 1.25 with flip — every
+   run's masks within 99.5 % per level of the library-op predictor's, and
+   its launches exactly 2 of #1 per forward and 1 of #3 per 1024² batch
+   (none in the 1280×960 group, the sliding window or TTA);
 5. train   — ``configs/example-train-hopper.yaml`` (ResNet-50, 512², batch
    8, bf16) with weights made from the seed: the kernel path against the
    library path (``depthwise_backend: xla``, ``pallas_fused_loss: false``)
@@ -209,19 +222,21 @@ def _sum_entries(entries):
 # the head's two sep-bottleneck depthwise convolutions (bf16, NHWC): one
 # serving batch or config-2 step, and a config-4 step (193²: odd)
 DW_SHAPES = {"config 2": ((8, 128, 128, 560), (8, 128, 128, 512)),
-             "config 4": ((2, 193, 193, 560), (2, 193, 193, 512))}
+             "config 4": ((2, 193, 193, 560), (2, 193, 193, 512)),
+             "config 5": ((4, 256, 256, 560), (4, 256, 256, 512))}
+DW_KERNELS = ("depthwise3x3", "depthwise3x3_dgrad", "depthwise3x3_wgrad")
 
 
-def depthwise_checks(gen, shapes):
+def depthwise_checks(gen, shapes, timed=DW_KERNELS):
     """The three depthwise kernels at ``shapes``: the forward (#1) and the
     input gradient (#1b, the forward kernel with reversed taps) bit-exact
     against their plain versions (the same f32 order, no FMA); the weight
     gradient (#2) within 1e-5 · Σ|x·g| per entry (f32 sums in another order
     than torch.sum's) and the same bits twice. Each is timed beside its
     plain version and, in turns (kernel, library, library, kernel), the
-    PyTorch library call computing it; returns each kernel's entry summed
-    over the shapes, with its time over the library's and its share of the
-    bound."""
+    PyTorch library call computing it; returns the entry of each kernel in
+    ``timed`` summed over the shapes, with its time over the library's and
+    its share of the bound."""
     import torch
     import torch.nn.functional as F
 
@@ -234,7 +249,7 @@ def depthwise_checks(gen, shapes):
     )
 
     dev = torch.device("cuda")
-    entries = {"depthwise3x3": [], "depthwise3x3_dgrad": [], "depthwise3x3_wgrad": []}
+    entries = {name: [] for name in timed}
     for shape in shapes:
         C = shape[-1]
         x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
@@ -273,6 +288,8 @@ def depthwise_checks(gen, shapes):
              x.nbytes + g.nbytes + dk.nbytes,
              {"max_rel_err_of_sum_abs": (diff / mag).max().item()}),
         ):
+            if name not in timed:
+                continue
             lib_err = lib_as_kernel(lib()).abs().max().item()
             # in turns: kernel, library, library, kernel
             turns = [time_ms(f) for f in (fn, lib, lib, fn)]
@@ -315,9 +332,10 @@ def phase_kernels(seed: int):
     return results
 
 
-def decode_checks(gen):
-    """The decode kernel (#3) at the serving shape ``[8, 13, 128, 128]``, 2
-    levels, in f32 and bf16: its masks equal the plain version's (stated
+def decode_checks(gen, shape=(8, 13, 128, 128), slices=((0, 9), (9, 13))):
+    """The decode kernel (#3) at ``shape`` (default the serving shape, 2
+    levels; config 5's is ``[4, 15, 256, 256]``, 3 levels), in f32 and
+    bf16: its masks equal the plain version's (stated
     tolerance: exact); timed beside the plain version and the library
     decode (``F.interpolate`` + ``argmax``), with its bound. ``ms`` and
     ``library_ms`` are eager event timings, what a served batch sees (it
@@ -330,8 +348,8 @@ def decode_checks(gen):
 
     from seghiero_torch.ops.upsample_argmax import upsample_argmax, upsample_argmax_plain
 
-    B, C, h, w = 8, 13, 128, 128
-    slices = [(0, 9), (9, 13)]
+    B, C, h, w = shape
+    slices = [tuple(sl) for sl in slices]
     lo32 = torch.randn((B, C, h, w), generator=gen, device="cuda")
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -1110,6 +1128,226 @@ def phase_serve(seed: int, n_requests: int, device_line: str, profile_dir):
     return launches
 
 
+# config 5 (bench.py:88): the inference phase's config, its decode shape
+# and levels, and its image sets: the CLI's two size groups, the sliding
+# window's image, window and stride, and TTA's scales
+INFER5_CONFIG = "example-serving-3level-r101-hopper.yaml"
+DECODE5 = ((4, 15, 256, 256), ((0, 9), (9, 13), (13, 15)))
+CLI_IMAGES = {(1024, 1024): 8, (960, 1280): 3}  # (H, W): count
+SLIDING = {"hw": (1536, 2048), "window": (1024, 1024), "stride": (512, 512), "windows": 6}
+TTA_SCALES = (0.75, 1.0, 1.25)
+
+
+def _event_ms(fn, n: int = 10, warmup: int = 2):
+    """Device ms of each of ``n`` calls of ``fn`` after ``warmup`` calls,
+    from CUDA events around each call."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    events = []
+    for _ in range(n):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        fn()
+        ev[1].record()
+        events.append(ev)
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in events]
+
+
+def _levels_agree(a, b):
+    """Per level, the smallest share over the batch's images of pixels
+    where the two masks agree."""
+    return {lvl: min(float((a[lvl][j] == b[lvl][j]).mean()) for j in range(len(a[lvl])))
+            for lvl in a}
+
+
+def _counted(fn, want):
+    """Run ``fn`` with the launch counters set to 0; the counts it made,
+    which must equal ``want`` for each kernel ``want`` names."""
+    zero_counts()
+    out = fn()
+    counts = read_counts()
+    if any(counts[k] != n for k, n in want.items()):
+        raise AssertionError(f"launches {counts}, want {want}")
+    return out, counts
+
+
+def phase_infer5(seed: int, device_line: str, profile_dir):
+    """Config 5's inference (ResNet-101, 3 levels, 1024², batch 4, bf16) at
+    full width and depth: the kernels #1 and #3 at its shapes against their
+    plain versions; weights from ``seed`` saved as a port checkpoint
+    directory; then the port's infer CLI on PNGs of two sizes, the batch-4
+    ``predict_masks`` time, the sliding window and TTA, each checked
+    against the library-op predictor on the same batches. Returns (the
+    kernels' config-5 entries, the launch counts of the phase's runs)."""
+    import contextlib
+    import shutil
+    import tempfile
+
+    import torch
+    import yaml
+    from PIL import Image
+
+    from seghiero_torch.config import load_config
+    from seghiero_torch.infer.__main__ import main as infer_main
+    from seghiero_torch.infer.predictor import Predictor, preprocess_image
+    from seghiero_torch.models.convert import load_reference_checkpoint
+    from seghiero_torch.models.segmenter import build_model
+    from seghiero_torch.train.checkpoint import CheckpointManager
+
+    torch.cuda.empty_cache()  # what the previous phase left cached
+    cfg = load_config(str(ROOT / "configs" / INFER5_CONFIG))
+    m, h = cfg.model, cfg.hierarchy
+    if ((m.depth, m.dtype, m.depthwise_backend, m.argmax_backend, tuple(cfg.transform.resize),
+         cfg.training.batch_size, h.has_super, h.total_classes)
+            != (101, "bfloat16", "pallas", "pallas", (1024, 1024), 4, True, 15)):
+        raise AssertionError("the infer5 config must be config 5 with both kernels on")
+    levels = ("fine", "coarse", "super")
+
+    # -- #1 and #3 at config 5's shapes against their plain versions
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    k5 = depthwise_checks(gen, DW_SHAPES["config 5"], timed=("depthwise3x3",))
+    k5["upsample_argmax"] = decode_checks(gen, *DECODE5)
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-infer5-") as tmp:
+        tmp = Path(tmp)
+        # -- weights from the seed, saved as the port trainer saves them
+        t0 = time.perf_counter()
+        weights = made_up_checkpoint(cfg, seed)
+        model = load_reference_checkpoint(build_model(cfg), weights)
+        cfg = dataclasses.replace(cfg, output=dataclasses.replace(
+            cfg.output, checkpoint_dir=str(tmp / "ckpt")))
+        raw = dict(cfg.raw, output={"checkpoint_dir": cfg.output.checkpoint_dir,
+                                    "project_name": cfg.output.project_name})
+        CheckpointManager(cfg.output.checkpoint_dir, cfg.output.project_name).save(
+            model, torch.optim.SGD(model.parameters(), lr=0.0), None, step=1, epoch=1,
+            metrics={}, best_val_loss=0.0, config_raw=raw, is_best=True)
+        del model
+        cfg_path = tmp / "config.yaml"
+        cfg_path.write_text(yaml.safe_dump(raw))
+        predictor = Predictor.from_checkpoint(cfg, None, device="cuda")  # best.json, as the CLI
+        cfg_xla = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, depthwise_backend="xla", argmax_backend="xla"))
+        predictor_xla = Predictor(cfg_xla, weights, device="cuda")
+        rng = np.random.default_rng(seed)
+        images = tmp / "images"
+        images.mkdir()
+        for (H, W), n in CLI_IMAGES.items():
+            for i in range(n):
+                Image.fromarray(rng.integers(0, 256, (H, W, 3), dtype=np.uint8)).save(
+                    images / f"img{W}x{H}_{i}.png")
+        setup_s = time.perf_counter() - t0
+
+        # -- the CLI, in-process: every image in batches of 4 per size group
+        out_dir = tmp / "out"
+        size = tuple(cfg.transform.resize)  # the group the fused decode takes
+        n_fused = -(-CLI_IMAGES[size] // 4)
+        n_batches = sum(-(-n // 4) for n in CLI_IMAGES.values())
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            rc, cli_counts = _counted(lambda: infer_main([
+                "--config", str(cfg_path), "--image-dir", str(images),
+                "--batch-size", "4", "--output-dir", str(out_dir)]),
+                {"depthwise3x3": 2 * n_batches, "upsample_argmax": n_fused})
+        cli_s = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"infer CLI exited {rc}")
+        names = sorted(p.stem for p in images.iterdir())
+        want_files = {f"{n}_{lvl}{sfx}.png" for n in names for lvl in levels
+                      for sfx in ("", "_color")}
+        written = {p.name for p in out_dir.iterdir()}
+        if written != want_files:
+            raise AssertionError(f"CLI wrote {sorted(written)}, want {sorted(want_files)}")
+        cli_agree = {lvl: [] for lvl in levels}
+        for (H, W), n in CLI_IMAGES.items():
+            group = [f"img{W}x{H}_{i}" for i in range(n)]
+            for start in range(0, n, 4):
+                chunk = group[start:start + 4]
+                batch = np.stack([preprocess_image(str(images / f"{b}.png"),
+                                                   cfg.transform.resize)[0] for b in chunk])
+                direct = predictor.predict_array(batch, out_hw=(H, W))
+                ref = predictor_xla.predict_array(batch, out_hw=(H, W))
+                for j, b in enumerate(chunk):
+                    for lvl in levels:
+                        got = np.asarray(Image.open(out_dir / f"{b}_{lvl}.png"))
+                        if not np.array_equal(got, direct[lvl][j]):
+                            raise AssertionError(f"CLI {b} {lvl}: differs from predict_array")
+                for lvl, v in _levels_agree(direct, ref).items():
+                    cli_agree[lvl].append(v)
+        cli_agree = {lvl: min(v) for lvl, v in cli_agree.items()}
+
+    # -- the batch-4 predict_masks, by CUDA events
+    batch4 = rng.integers(0, 256, (4, *size, 3), dtype=np.uint8)
+    n_timed, n_warm = 10, 2
+    predict_ms, predict_counts = _counted(
+        lambda: _event_ms(lambda: predictor.predict_masks(batch4), n_timed, n_warm),
+        {"depthwise3x3": 2 * (n_timed + n_warm), "upsample_argmax": n_timed + n_warm})
+    predict_ms_xla = _event_ms(lambda: predictor_xla.predict_masks(batch4), n_timed, n_warm)
+    with torch.inference_mode():
+        if not bool(torch.isfinite(predictor.logits(batch4)).all().item()):
+            raise AssertionError("non-finite logits")
+
+    # -- sliding window and TTA, batch 1: timed runs after one warm-up run,
+    # peak memory, and the masks against the library-op predictor's
+    big = rng.integers(0, 256, (1, *SLIDING["hw"], 3), dtype=np.uint8)
+    img = batch4[:1]
+    runs = {
+        "sliding": (lambda p: p.predict_sliding(big, SLIDING["window"], SLIDING["stride"]),
+                    SLIDING["windows"]),
+        "tta": (lambda p: p.predict_tta(img, scales=TTA_SCALES, flip=True),
+                2 * len(TTA_SCALES)),
+    }
+    report, counts = {}, {"cli": cli_counts, "predict_masks": predict_counts}
+    for what, (run, forwards) in runs.items():
+        run(predictor)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        n_runs = 3
+
+        def timed():
+            ms = []
+            for _ in range(n_runs):
+                t0 = time.perf_counter()
+                out = run(predictor)  # masks on the host: the run has ended
+                ms.append((time.perf_counter() - t0) * 1e3)
+            return out, ms
+
+        (masks, ms), c = _counted(timed, {"depthwise3x3": 2 * forwards * n_runs,
+                                          "upsample_argmax": 0})
+        counts[what] = c
+        peak_mb = torch.cuda.max_memory_allocated() / 2**20
+        agree = _levels_agree(masks, run(predictor_xla))
+        report[what] = {"ms": ms, "ms_median": float(np.median(ms)), "forwards": forwards,
+                        "peak_mb": peak_mb, "min_pixel_agreement_vs_library": agree,
+                        "shape": list(masks["fine"].shape)}
+    worst = min([*cli_agree.values()] + [v for r in report.values()
+                                         for v in r["min_pixel_agreement_vs_library"].values()])
+    if worst < AGREE_MIN:
+        raise AssertionError(f"kernel path vs library path agreement {worst} < {AGREE_MIN}: "
+                             f"CLI {cli_agree}, {report}")
+    launches = {run: {k: c[k] for k in ("depthwise3x3", "upsample_argmax")}
+                for run, c in counts.items()}
+    total = {k: sum(c[k] for c in counts.values()) for k in cli_counts}
+    say("infer5", cli_images=sum(CLI_IMAGES.values()), cli_batches=n_batches, cli_s=cli_s,
+        cli_images_per_s=sum(CLI_IMAGES.values()) / cli_s,
+        cli_timing="in-process main(): model build, checkpoint load, PNG decode, predict and "
+        "PNG encode of 6 masks per image",
+        cli_min_pixel_agreement_vs_library=cli_agree,
+        predict_b4_ms_median=float(np.median(predict_ms)), predict_b4_ms=predict_ms,
+        predict_b4_library_ms_median=float(np.median(predict_ms_xla)),
+        sliding=report["sliding"], tta=report["tta"],
+        launches_by_run=launches,
+        setup_s=round(setup_s, 2), card=device_line)
+    if profile_dir:
+        profile(lambda: predictor.predict_masks(batch4), 3, "infer5_b4", Path(profile_dir))
+        for what, (run, _) in runs.items():
+            profile(lambda run=run: run(predictor), 1, f"infer5_{what}", Path(profile_dir))
+    return k5, total
+
+
 def sync_audit(fn, what: str) -> int:
     """Host synchronizations in one call of ``fn`` (after one warm-up call),
     from PyTorch's sync debug mode: how many, and the Python lines that
@@ -1275,7 +1513,7 @@ TRAIN_PHASES = {
 
 
 def _counters():
-    from seghiero_torch.ops import depthwise, hiera2_fused, rmi_gram
+    from seghiero_torch.ops import depthwise, hiera2_fused, rmi_gram, upsample_argmax
 
     return {"depthwise3x3": (depthwise, "launches"),
             "depthwise3x3_dgrad": (depthwise, "dgrad_launches"),
@@ -1288,6 +1526,7 @@ def _counters():
             "rmi_gram18_fast": (rmi_gram, "gram18_fast_launches"),
             "rmi_residual_gram_fast": (rmi_gram, "residual_fast_launches"),
             "rmi_grad_maps_fast": (rmi_gram, "grad_fast_launches"),
+            "upsample_argmax": (upsample_argmax, "launches"),
             "backward_copies": (depthwise, "backward_copies")}
 
 
@@ -1546,8 +1785,9 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--profile", type=str, default=None,
                    help="also write torch.profiler tables and traces of batch-8 "
-                   "predictions and of one train step of each train config into "
-                   "this directory")
+                   "predictions, of config 5's batch-4 prediction, sliding window "
+                   "and TTA, and of one train step of each train config into this "
+                   "directory")
     args = p.parse_args(argv)
 
     import torch
@@ -1567,13 +1807,16 @@ def main(argv=None) -> int:
     t_kernels = time.perf_counter()
     paths = {"serve": phase_serve(SEED, N_REQUESTS, smi, args.profile)}
     t_serve = time.perf_counter()
+    kernels["config5"], paths["infer5"] = phase_infer5(SEED, smi, args.profile)
+    t_infer5 = time.perf_counter()
     train_s = {}
     for phase in TRAIN_PHASES:
         t_phase = time.perf_counter()
         paths[phase] = phase_train(phase, SEED, smi, args.profile)
         train_s[phase] = round(time.perf_counter() - t_phase, 1)
     say("elapsed", seconds_to_kernels_end=round(t_kernels - t_start, 1),
-        serve_s=round(t_serve - t_kernels, 1), train_s=train_s,
+        serve_s=round(t_serve - t_kernels, 1), infer5_s=round(t_infer5 - t_serve, 1),
+        train_s=train_s,
         total_s=round(time.perf_counter() - t_start, 1))
     sources = {
         "depthwise3x3": ("seghiero_torch/csrc/depthwise3x3.cu",
@@ -1607,6 +1850,8 @@ def main(argv=None) -> int:
             raise AssertionError(f"{kname} was not launched on its path")
         if kname.endswith("_fast") and not by_path.get("train4"):
             raise AssertionError(f"{kname} was not launched on train4")
+        if kname in kernels["config5"] and not by_path.get("infer5"):
+            raise AssertionError(f"{kname} was not launched on infer5")
         line.append({
             "name": kname, "route": "cuda", "source": src, "replaces": replaces,
             **({"instantiation": "bf16 views (training.rmi_precision: fast)",
@@ -1620,8 +1865,10 @@ def main(argv=None) -> int:
                                  "kernel_path_ms", "kernel_over_library", "cudnn_two_call_ms",
                                  "kernel_over_cudnn_two_call") if x in k},
             # the depthwise kernels also at config 4's shapes (train4's path),
-            # the fused loss at the 150-class config's (train150's)
+            # #1 and #3 at config 5's (infer5's), the fused loss at the
+            # 150-class config's (train150's)
             **({"config4": kernels["config4"][kname]} if kname in kernels["config4"] else {}),
+            **({"config5": kernels["config5"][kname]} if kname in kernels["config5"] else {}),
             # the decode also in bf16, the dtype of the serving model's logits
             **({"bfloat16": k["bfloat16"]} if "bfloat16" in k else {}),
             **({"config150": kernels["config150"][kname]}

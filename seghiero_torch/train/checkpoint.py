@@ -27,6 +27,39 @@ import torch
 
 from seghiero_torch.models.convert import load_reference_checkpoint, reference_checkpoint
 
+MODEL_FILE = "model.pth"
+
+
+def step_dir(root: str, step: int) -> str:
+    return os.path.join(root, f"step_{step:08d}")
+
+
+def list_steps(root: str) -> List[int]:
+    """The saved steps under the project directory ``root``, ascending."""
+    if not os.path.isdir(root):
+        return []
+    return sorted(int(d[5:]) for d in os.listdir(root)
+                  if d.startswith("step_") and d[5:].isdigit()
+                  and os.path.isdir(os.path.join(root, d)))
+
+
+def read_best_step(root: str) -> Optional[int]:
+    """The step ``best.json`` under ``root`` points at, or None."""
+    p = os.path.join(root, "best.json")
+    if not os.path.exists(p):
+        return None
+    with open(p) as f:
+        return int(json.load(f)["step"])
+
+
+def best_model_file(root: str) -> Optional[str]:
+    """The model file of the best step under the project directory
+    ``root``, else of its latest step (the best step's directory may have
+    been removed by hand); None when ``root`` holds no saved step."""
+    files = [os.path.join(step_dir(root, s), MODEL_FILE)
+             for s in (read_best_step(root), *reversed(list_steps(root))) if s is not None]
+    return next((f for f in files if os.path.isfile(f)), None)
+
 
 class CheckpointManager:
     def __init__(self, directory: str, project_name: str, max_to_keep: int = 3):
@@ -35,15 +68,10 @@ class CheckpointManager:
         self.max_to_keep = max_to_keep
 
     def step_dir(self, step: int) -> str:
-        return os.path.join(self.root, f"step_{step:08d}")
+        return step_dir(self.root, step)
 
     def steps(self) -> List[int]:
-        out = []
-        for d in os.listdir(self.root):
-            if d.startswith("step_") and d[5:].isdigit() and os.path.isdir(
-                    os.path.join(self.root, d)):
-                out.append(int(d[5:]))
-        return sorted(out)
+        return list_steps(self.root)
 
     def save(self, model, optimizer, scheduler, *, step: int, epoch: int, metrics: Dict,
              best_val_loss: float, config_raw: Dict, is_best: bool) -> str:
@@ -53,7 +81,7 @@ class CheckpointManager:
         os.makedirs(tmp)
         ckpt = reference_checkpoint(model)
         ckpt["epoch"] = epoch
-        torch.save(ckpt, os.path.join(tmp, "model.pth"))
+        torch.save(ckpt, os.path.join(tmp, MODEL_FILE))
         torch.save({
             "step": step,
             "optimizer": optimizer.state_dict(),
@@ -73,11 +101,7 @@ class CheckpointManager:
         return final
 
     def best_step(self) -> Optional[int]:
-        p = os.path.join(self.root, "best.json")
-        if not os.path.exists(p):
-            return None
-        with open(p) as f:
-            return int(json.load(f)["step"])
+        return read_best_step(self.root)
 
     def _gc(self) -> None:
         best = self.best_step()
@@ -89,7 +113,7 @@ class CheckpointManager:
         """Load step ``step`` into ``model`` (and the optimizer / schedule
         when given); returns its ``meta.json`` with the optimizer step."""
         d = self.step_dir(step)
-        ckpt = torch.load(os.path.join(d, "model.pth"), map_location="cpu", weights_only=True)
+        ckpt = torch.load(os.path.join(d, MODEL_FILE), map_location="cpu", weights_only=True)
         load_reference_checkpoint(model, ckpt)
         state = torch.load(os.path.join(d, "train_state.pt"), map_location="cpu",
                            weights_only=True)

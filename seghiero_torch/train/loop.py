@@ -130,10 +130,11 @@ class FitLoopMixin:
             names["super"] = self.cfg.super_names
         return acc.iou_table(names)
 
-    def evaluate(self):
+    def evaluate(self, with_table: bool = False):
         """Loss, pixel accuracy, mIoU and mAcc per level (fine, coarse and,
         for a 3-level hierarchy, super) over the val split (device results
-        gathered once at the end)."""
+        gathered once at the end); with ``with_table``, also the per-class
+        IoU table, as ``(summary, table)``."""
         h = self.cfg.hierarchy
         levels = {"fine": h.n_fine, "coarse": h.n_coarse}
         if h.has_super:
@@ -146,4 +147,6 @@ class FitLoopMixin:
                 lvl: {k: v.cpu().numpy() for k, v in s.items()}
                 for lvl, s in out["levels"].items()})
         self._last_eval = acc
+        if with_table:
+            return acc.summary(), self._iou_table(acc)
         return acc.summary()

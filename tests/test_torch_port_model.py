@@ -199,10 +199,14 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
 
 def test_orbax_checkpoint_directory_raises(tmp_path):
-    cfg = PortConfig.from_dict(_cfg_dict(18, 32, (1, 12, 24, 36)))
-    (tmp_path / "step_1").mkdir()
-    for ckpt in (str(tmp_path / "step_1"), None):
-        with pytest.raises(ValueError, match="Orbax"):
+    """An Orbax step directory (it holds ``state/``) raises with the way to
+    convert it; a missing file, and a config whose project holds no
+    checkpoint (``None``), raise ``FileNotFoundError``."""
+    cfg = PortConfig.from_dict(dict(_cfg_dict(18, 32, (1, 12, 24, 36)), output={
+        "checkpoint_dir": str(tmp_path / "ckpt"), "project_name": "p"}))
+    (tmp_path / "step_1" / "state").mkdir(parents=True)
+    with pytest.raises(ValueError, match="Orbax"):
+        Predictor.from_checkpoint(cfg, str(tmp_path / "step_1"), device="cpu")
+    for ckpt in (str(tmp_path / "missing.pth"), None):
+        with pytest.raises(FileNotFoundError):
             Predictor.from_checkpoint(cfg, ckpt, device="cpu")
-    with pytest.raises(FileNotFoundError):
-        Predictor.from_checkpoint(cfg, str(tmp_path / "missing.pth"), device="cpu")

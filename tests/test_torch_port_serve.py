@@ -1,9 +1,11 @@
 """The port's predictor and HTTP server against the JAX package.
 
 One reference-layout ``.pth`` (converted JAX weights, random BN
-statistics) is loaded through both packages' ``Predictor.from_checkpoint``;
-their masks must agree. Then the port's ``ServingModel`` + ``make_server``
-answer over a real socket on an ephemeral port.
+statistics) per hierarchy — 2 levels, and the 3 levels of config 5
+(``bench.py:77-81``) — is loaded through both packages'
+``Predictor.from_checkpoint``; their masks must agree. Then the port's
+``ServingModel`` + ``make_server`` answer over a real socket on an
+ephemeral port.
 """
 
 import io
@@ -40,22 +42,26 @@ CFG = {
     "transform": {"resize": [HW, HW]},
 }
 SLICES = {"fine": (0, 9), "coarse": (9, 13)}
+# config 5's hierarchy: 9 fine, 4 coarse and 2 super classes
+CFG3 = dict(CFG, classes=dict(CFG["classes"], super_coarse_to_coarse_map=[[0, 2], [3]],
+                              super_coarse_names={0: "x", 1: "y"}))
+SLICES3 = dict(SLICES, super=(13, 15))
 
 
-def _cfg(cls, argmax_backend):
-    d = dict(CFG, model=dict(CFG["model"], depthwise_backend=argmax_backend,
-                             argmax_backend=argmax_backend))
+def _cfg(cls, argmax_backend, base=CFG):
+    d = dict(base, model=dict(base["model"], depthwise_backend=argmax_backend,
+                              argmax_backend=argmax_backend))
     return cls.from_dict(d)
 
 
-@pytest.fixture(scope="module")
-def pth(tmp_path_factory):
-    """Converted JAX weights (random BN statistics) as a reference .pth."""
-    model = jax_build_model(JaxConfig.from_dict(CFG))
+def jax_weights_pth(path, cfg_dict, hw=HW, seed=5):
+    """Converted JAX weights (random BN statistics) of ``cfg_dict``'s model
+    (depth 18), saved as a reference .pth at ``path``."""
+    model = jax_build_model(JaxConfig.from_dict(cfg_dict))
     # jitted: an eager init dispatches every layer's ops one by one
     init = jax.jit(lambda key, x: model.init(key, x, train=False))
-    variables = jax.device_get(init(jax.random.key(5), jnp.zeros((1, HW, HW, 3))))
-    rng = np.random.default_rng(5)
+    variables = jax.device_get(init(jax.random.key(seed), jnp.zeros((1, hw, hw, 3))))
+    rng = np.random.default_rng(seed)
 
     def randomize(path, leaf):
         name = str(path[-1].key)
@@ -66,28 +72,36 @@ def pth(tmp_path_factory):
         return np.asarray(leaf)
 
     variables = jax.tree_util.tree_map_with_path(randomize, variables)
-    path = str(tmp_path_factory.mktemp("ckpt") / "model.pth")
     torch.save(export_reference_checkpoint(variables, 18), path)
     return path
 
 
-@pytest.mark.parametrize("backend", ["xla", "pallas"])
-def test_predict_array_matches_jax_from_one_pth(pth, backend):
-    jp = JaxPredictor.from_checkpoint(_cfg(JaxConfig, backend), pth)
-    pp = PortPredictor.from_checkpoint(_cfg(PortConfig, backend), pth, device="cpu")
+@pytest.fixture(scope="module")
+def pth(tmp_path_factory):
+    return jax_weights_pth(str(tmp_path_factory.mktemp("ckpt") / "model.pth"), CFG)
+
+
+@pytest.fixture(scope="module")
+def pth3(tmp_path_factory):
+    return jax_weights_pth(str(tmp_path_factory.mktemp("ckpt3") / "model.pth"), CFG3)
+
+
+@pytest.mark.parametrize("backend,levels", [("xla", 2), ("pallas", 2), ("xla", 3), ("pallas", 3)],
+                         ids=["xla", "pallas", "xla-3level", "pallas-3level"])
+def test_predict_array_matches_jax_from_one_pth(request, backend, levels):
+    base, slices = (CFG, SLICES) if levels == 2 else (CFG3, SLICES3)
+    pth = request.getfixturevalue("pth" if levels == 2 else "pth3")
+    jp = JaxPredictor.from_checkpoint(_cfg(JaxConfig, backend, base), pth)
+    pp = PortPredictor.from_checkpoint(_cfg(PortConfig, backend, base), pth, device="cpu")
     images = np.random.default_rng(2).integers(0, 256, (3, HW, HW, 3)).astype(np.uint8)
     # the top-2 logit gap of every pixel, from the JAX full-res logits
     _, logits = jp._predict(jp.variables, jnp.asarray(images), (HW, HW))
-    logits = np.asarray(logits)
-    gaps = {}
-    for lvl, (a, b) in SLICES.items():
-        top2 = np.sort(logits[:, a:b], axis=1)[:, -2:]
-        gaps[lvl] = top2[:, 1] - top2[:, 0]
+    gaps = top2_gaps(np.asarray(logits), slices)
     for consistent in (False, True):
         want = jp.predict_array(images, consistent=consistent)
         got = pp.predict_array(images, consistent=consistent)
-        assert set(got) == set(want) == set(SLICES)
-        for lvl in SLICES:
+        assert set(got) == set(want) == set(slices)
+        for lvl in slices:
             g, w = got[lvl], want[lvl]
             assert g.dtype == np.int32 and g.shape == w.shape == (3, HW, HW)
             # f32 convolutions sum in another order in XLA:CPU and oneDNN:
@@ -97,10 +111,18 @@ def test_predict_array_matches_jax_from_one_pth(pth, backend):
             np.testing.assert_array_equal(g[sure], w[sure])
 
 
-@pytest.fixture(scope="module")
-def served(pth):
-    """(base url, port predictor) of a running port server."""
-    pred = PortPredictor.from_checkpoint(_cfg(PortConfig, "pallas"), pth, device="cpu")
+def top2_gaps(logits, slices):
+    """Per level, the gap between the top two scores of every pixel of
+    C-major ``logits`` [B, C, H, W]."""
+    gaps = {}
+    for lvl, (a, b) in slices.items():
+        top2 = np.sort(logits[:, a:b], axis=1)[:, -2:]
+        gaps[lvl] = top2[:, 1] - top2[:, 0]
+    return gaps
+
+
+def _serve(pred):
+    """(base url, port predictor) of a running port server, shut down after."""
     server = make_server(ServingModel(pred), host="127.0.0.1", port=0,
                          max_batch=4, batch_timeout_ms=30.0)
     t = threading.Thread(target=server.serve_forever, daemon=True)
@@ -110,6 +132,18 @@ def served(pth):
     server.batcher.stop()
     server.server_close()
     t.join(timeout=30)
+
+
+@pytest.fixture(scope="module")
+def served(pth):
+    yield from _serve(PortPredictor.from_checkpoint(_cfg(PortConfig, "pallas"), pth,
+                                                    device="cpu"))
+
+
+@pytest.fixture(scope="module")
+def served3(pth3):
+    yield from _serve(PortPredictor.from_checkpoint(_cfg(PortConfig, "pallas", CFG3), pth3,
+                                                    device="cpu"))
 
 
 def _post(url, body, ctype="application/octet-stream"):
@@ -133,15 +167,25 @@ def _get(url):
         return json.loads(r.read())
 
 
-def test_healthz_and_meta(served):
-    url, _ = served
+def _check_healthz_and_meta(url, slices, levels):
     assert _get(url + "/healthz") == {"status": "ok", "platform": "cpu", "device": "cpu"}
     meta = _get(url + "/meta")
     assert meta["input"] == {"shape": ["b", HW, HW, 3], "dtype": "uint8", "layout": "NHWC (RGB)"}
-    assert meta["outputs"] == {lvl: {"shape": ["b", HW, HW], "dtype": "uint8"} for lvl in SLICES}
-    assert meta["levels"] == {"fine": 9, "coarse": 4}
+    assert meta["outputs"] == {lvl: {"shape": ["b", HW, HW], "dtype": "uint8"} for lvl in slices}
+    assert meta["levels"] == levels
     assert meta["class_names"]["coarse"] == ["a", "b", "c", "d"]
     assert meta["consistent_decode"] is False and meta["input_sizes"] == [[HW, HW]]
+
+
+def test_healthz_and_meta(served):
+    _check_healthz_and_meta(served[0], SLICES, {"fine": 9, "coarse": 4})
+
+
+def test_healthz_and_meta_three_levels(served3):
+    """Config 5's hierarchy: ``/meta`` lists the super level and its names."""
+    url, _ = served3
+    _check_healthz_and_meta(url, SLICES3, {"fine": 9, "coarse": 4, "super": 2})
+    assert _get(url + "/meta")["class_names"]["super"] == ["x", "y"]
 
 
 def test_predict_json_npz_png(served):
