@@ -59,7 +59,21 @@ printed as one line, any failure exits non-zero:
    step 1 a finite gradient for every parameter — the evaluation pass and
    a checkpoint, restored into a fresh ``Trainer`` whose eval loss must be
    the same bits;
-5b. train150 — ``configs/example-train-150-hopper.yaml`` (config 2 with
+5b. trainfiles — ``configs/example-train-files-hopper.yaml``: config 2
+   trained from files. It writes 64 train and 16 val image / mask PNGs of
+   1024×2048 (the synthetic shapes at the seed) and the seeded backbone as
+   a torchvision-layout ResNet-50 ``.pth`` into a temporary directory,
+   prebuilds the raw cache with ``python -m seghiero_torch.data.cache``'s
+   ``main`` in process, and checks that the ``Trainer``'s backbone holds
+   the ``.pth``'s tensors, that the first train batch from the cache equals
+   the uncached dataset's bit for bit, and that the native transforms equal
+   their plain versions on those images; then the checks of ``train`` with
+   the native transforms, scale-crop, colour jitter, the flip on the card,
+   the backbone at a tenth of the learning rate, no decay on norm and bias
+   and the gradient norm clipped, each ``fit`` step with exactly 2/2/2/1/1
+   launches; then one line setting its host syncs per step, loop images/s
+   and loader ms per batch beside ``train``'s;
+5c. train150 — ``configs/example-train-150-hopper.yaml`` (config 2 with
    the 150 + 15 classes of ``example-many-classes.yaml``), the same checks
    as ``train`` against its library path (``pallas_fused_loss: false``),
    each ``fit`` step with exactly 2/2/2/1/1 launches;
@@ -84,12 +98,15 @@ line, and as the last line ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import io
 import json
 import subprocess
 import sys
+import tempfile
 import threading
+import types
 import time
 import urllib.request
 from pathlib import Path
@@ -1475,6 +1492,21 @@ TRAIN_PHASES = {
         "compare": (("kernel", "library"),),
         "launches": dict(_DW, hiera2_fused_fwd=1, hiera2_fused_bwd=1, **_NO_RMI),
     },
+    "trainfiles": {
+        "config": "example-train-files-hopper.yaml",
+        "what": "config 2 from files (raw cache, native transforms, device flip, "
+                "backbone LR scale 0.1, no decay on norm and bias, clip 1.0)",
+        "model": (50, (512, 512)),
+        "selects": lambda m, t, h: (
+            t.pallas_fused_loss, t.batch_size, h.has_super, t.backbone_lr_scale,
+            t.wd_skip_norm_bias, t.grad_clip_norm, t.num_workers)
+        == (True, 8, False, 0.1, True, 1.0, 4),
+        "files": True,
+        "library": {"pallas_fused_loss": False},
+        "paths": {},
+        "compare": (("kernel", "library"),),
+        "launches": dict(_DW, hiera2_fused_fwd=1, hiera2_fused_bwd=1, **_NO_RMI),
+    },
     "train150": {
         "config": "example-train-150-hopper.yaml", "what": "the 150-class config",
         "model": (50, (512, 512)),
@@ -1572,26 +1604,175 @@ def _median_3_to_8(ms):
     return float(np.median(ms[2:8]))
 
 
+# the trainfiles phase's data: PNG frames of Cityscapes' size, in the
+# config's train and val directories
+FILES_HW = (1024, 2048)
+FILES_N = {"train": 64, "val": 16}
+
+
+def prepare_files(cfg, weights, seed: int, data_dir: Path):
+    """The data of a phase from files, in ``data_dir``: image and mask PNGs
+    of the synthetic shapes at ``FILES_HW`` made from ``seed``, the made-up
+    backbone in torchvision's layout (``conv1``, ``bn1``, a classifier
+    ``fc``) as a ``.pth``, and the config pointed at both, whose raw caches
+    the port's cache CLI then prebuilds in process. Returns that config and
+    a report (the ``.pth``'s state dict under ``pth``)."""
+    import copy
+    import re
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+    import yaml
+    from PIL import Image
+
+    from seghiero_torch.config import load_config
+    from seghiero_torch.data import cache
+    from seghiero_torch.data.synthetic import SyntheticShapesDataset
+
+    pth = {re.sub(r"^stem_bn\.", "bn1.", re.sub(r"^stem_conv\.", "conv1.", k)): v
+           for k, v in weights["backbone_state_dict"].items()}
+    gen = torch.Generator().manual_seed(seed + 2)
+    pth["fc.weight"] = torch.randn(1000, 2048, generator=gen) * 0.01
+    pth["fc.bias"] = torch.zeros(1000)
+    torch.save(pth, data_dir / "resnet50.pth")
+    raw = copy.deepcopy(cfg.raw)
+    raw["dataset"].update(root=str(data_dir / "data"), cache_dir=str(data_dir / "cache"))
+    raw["model"]["pretrained"] = str(data_dir / "resnet50.pth")
+    raw["output"] = dict(raw.get("output") or {}, checkpoint_dir=cfg.output.checkpoint_dir)
+    path = data_dir / "config.yaml"
+    path.write_text(yaml.safe_dump(raw))
+    cfg = load_config(str(path))
+
+    t0 = time.perf_counter()
+    for split, n in FILES_N.items():
+        ds = SyntheticShapesDataset(cfg, split=split, seed=seed, size=n, image_hw=FILES_HW)
+        img_dir, msk_dir = Path(cfg.dataset.image_dir(split)), Path(cfg.dataset.mask_dir(split))
+        img_dir.mkdir(parents=True)
+        msk_dir.mkdir(parents=True)
+
+        def write(i, ds=ds, img_dir=img_dir, msk_dir=msk_dir):
+            s = ds[i]
+            Image.fromarray(s["image"]).save(img_dir / f"{i:04d}.png", compress_level=1)
+            Image.fromarray(s["fine"].astype(np.uint8)).save(msk_dir / f"{i:04d}.png",
+                                                             compress_level=1)
+
+        with ThreadPoolExecutor(8) as pool:
+            list(pool.map(write, range(n)))
+    write_s = time.perf_counter() - t0
+    png_mb = sum(f.stat().st_size for f in (data_dir / "data").rglob("*.png")) / 2**20
+
+    t0 = time.perf_counter()
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        if cache.main(["--config", str(path)]) != 0:
+            raise AssertionError(f"the cache CLI failed:\n{log.getvalue()}")
+    build_s = time.perf_counter() - t0
+    cache_mb = sum(f.stat().st_size for f in (data_dir / "cache").rglob("*") if f.is_file())
+    return cfg, {"pngs": FILES_N, "png_hw": FILES_HW, "png_mb": png_mb,
+                 "png_write_s": round(write_s, 2), "cache_build_s": build_s,
+                 "cache_mb": cache_mb / 2**20,
+                 "cache_cli": log.getvalue().strip().splitlines(), "pth": pth}
+
+
+def check_files(trainer, cfg, pth):
+    """A phase from files, before its own checks: the backbone the
+    ``Trainer`` built holds the ``.pth``'s tensors; the first train batch
+    from the raw cache — through the loader, and through ``get_batch`` in
+    its uint8 storage — equals the uncached dataset's bit for bit; the
+    native transforms equal their plain versions on the phase's images."""
+    import torch
+
+    from seghiero_torch.data import native
+    from seghiero_torch.data.dataset import HieroDataset, read_pair
+    from seghiero_torch.data.pipeline import BatchLoader
+    from seghiero_torch.models.convert import import_torchvision_backbone
+
+    if "conv1.weight" not in pth or "fc.weight" not in pth:
+        raise AssertionError("the .pth is not in torchvision's layout")
+    want = import_torchvision_backbone(pth, cfg.model.depth)
+    backbone = trainer.model.backbone.state_dict()
+    bad = [k for k in backbone if not torch.equal(backbone[k].cpu(), want[k])]
+    if bad or set(backbone) != set(want):
+        raise AssertionError(f"backbone differs from the .pth at {bad[:5]}")
+
+    t = cfg.training
+    loader = trainer.train_loader
+    loader.set_epoch(0)
+    idx = next(loader._batch_indices())
+    uncached = BatchLoader(HieroDataset(cfg, "train", seed=t.seed, include_levels=False),
+                           t.batch_size, shuffle=True, seed=t.seed, num_workers=t.num_workers)
+    uncached.set_epoch(0)
+    want = uncached.make_batch(idx)
+    for what, got in (("loader", loader.make_batch(idx)),
+                      ("get_batch", trainer.train_ds.get_batch(idx))):
+        if set(got) != set(want) or any(
+                not np.array_equal(got[k], want[k]) for k in want):
+            raise AssertionError(f"the cached first batch ({what}) differs from the uncached")
+    if trainer.train_ds.get_batch(idx)["fine"].dtype != np.uint8:
+        raise AssertionError("the cache's labels are not stored as uint8")
+
+    img, fine = read_pair(trainer.train_ds.base.img_paths[0],
+                          trainer.train_ds.base.msk_paths[0])
+    img, fine = np.asarray(img), fine.astype(np.int32)
+    base = np.asarray(trainer.train_ds.images[0])
+    lut = cfg.hierarchy.fine_to_coarse
+    ops = {
+        "resize_bilinear_u8": lambda m: m.resize_bilinear_u8(img, cfg.transform.resize),
+        "resize_bilinear_u8 up": lambda m: m.resize_bilinear_u8(base, (701, 701)),
+        "resize_bilinear_u8 down": lambda m: m.resize_bilinear_u8(base, (301, 301)),
+        "resize_nearest_i32": lambda m: m.resize_nearest_i32(fine, cfg.transform.resize),
+        "hflip_u8": lambda m: m.hflip_u8(base),
+        "hflip_i32": lambda m: m.hflip_i32(fine),
+        "lut_remap_i32": lambda m: m.lut_remap_i32(fine, lut),
+    }
+    plain = types.SimpleNamespace(**{
+        k: getattr(native, k + "_plain") for k in
+        ("resize_bilinear_u8", "resize_nearest_i32", "hflip_u8", "hflip_i32", "lut_remap_i32")})
+    timings = {}
+    for what, op in ops.items():
+        t0 = time.perf_counter()
+        a = op(native)
+        t1 = time.perf_counter()
+        b = op(plain)
+        t2 = time.perf_counter()
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            raise AssertionError(f"native {what} differs from its plain version")
+        timings[what] = {"native_ms": (t1 - t0) * 1e3, "plain_ms": (t2 - t1) * 1e3}
+    return {"first_batch_cached_equals_uncached": True, "backbone_tensors_equal_pth": len(backbone),
+            "native_equals_plain_ms": timings}
+
+
+def loader_ms_per_batch(loader) -> float:
+    """Host ms per batch of one pass over ``loader`` with nothing else to
+    do (epoch 1's augmentation; the copy to the card included)."""
+    import torch
+
+    loader.set_epoch(1)
+    n = 0
+    t0 = time.perf_counter()
+    for _ in loader:
+        n += 1
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / max(n, 1)
+    loader.set_epoch(0)
+    return ms
+
+
 def phase_train(name: str, seed: int, device_line: str, profile_dir):
     """One train phase of ``TRAIN_PHASES``; returns the launch counts of
-    its ``fit`` run."""
-    import copy
+    its ``fit`` run, its host syncs per step, loop images/s and loader ms
+    per batch. A phase from files first writes its data and backbone
+    weights (``prepare_files``) and checks them (``check_files``)."""
     import shutil
 
     import torch
 
     from seghiero_torch.config import load_config
-    from seghiero_torch.losses import fast as loss_fast
     from seghiero_torch.models.convert import load_reference_checkpoint
-    from seghiero_torch.models.segmenter import build_model
-    from seghiero_torch.train import loop
-    from seghiero_torch.train.optim import make_optimizer
-    from seghiero_torch.train.steps import make_composite_loss, train_step
     from seghiero_torch.train.trainer import Trainer
 
     torch.cuda.empty_cache()  # what the previous phase left cached
     spec = TRAIN_PHASES[name]
-    step_launches = spec["launches"]
     cfg = load_config(str(ROOT / "configs" / spec["config"]))
     m, t = cfg.model, cfg.training
     depth, hw = spec["model"]
@@ -1603,10 +1784,40 @@ def phase_train(name: str, seed: int, device_line: str, profile_dir):
     cfg = dataclasses.replace(cfg, output=dataclasses.replace(
         cfg.output, checkpoint_dir=str(ckpt_dir)))
     t0 = time.perf_counter()
-    trainer = Trainer(cfg, device="cuda")
     weights = made_up_checkpoint(cfg, seed)
-    load_reference_checkpoint(trainer.model, weights)
-    setup_s = time.perf_counter() - t0
+    with contextlib.ExitStack() as stack:
+        files = None
+        if spec.get("files"):
+            data_dir = Path(stack.enter_context(tempfile.TemporaryDirectory()))
+            cfg, files = prepare_files(cfg, weights, seed, data_dir)
+        trainer = Trainer(cfg, device="cuda")
+        if files is not None:
+            files.update(check_files(trainer, cfg, files.pop("pth")))
+        load_reference_checkpoint(trainer.model, weights)
+        setup_s = time.perf_counter() - t0
+        return _train_checks(name, spec, cfg, trainer, weights, setup_s, files, device_line,
+                             profile_dir, ckpt_dir)
+
+
+def _train_checks(name, spec, cfg, trainer, weights, setup_s, files, device_line,
+                  profile_dir, ckpt_dir):
+    """The checks and measurements every train phase runs, on its
+    ``Trainer`` with the made-up ``weights`` loaded."""
+    import copy
+    import shutil
+
+    import torch
+
+    from seghiero_torch.losses import fast as loss_fast
+    from seghiero_torch.models.convert import load_reference_checkpoint
+    from seghiero_torch.models.segmenter import build_model
+    from seghiero_torch.train import loop
+    from seghiero_torch.train.optim import make_optimizer
+    from seghiero_torch.train.steps import make_composite_loss, train_step
+    from seghiero_torch.train.trainer import Trainer
+
+    step_launches = spec["launches"]
+    m, t = cfg.model, cfg.training
 
     # -- the paths compared on one batch with the same weights: the
     # config's own ("kernel"), the library ops ("library") and the
@@ -1679,7 +1890,7 @@ def phase_train(name: str, seed: int, device_line: str, profile_dir):
 
     # -- device step time of every path on the batch already on the card,
     # in the order kernel, others, library, library, others, kernel
-    opts = {p: make_optimizer(c.training, mdl.parameters())
+    opts = {p: make_optimizer(c.training, mdl)
             for p, (mdl, _, c, _) in paths.items()}
     times = {p: {"step_ms_median_3_8": [], "peak_mb_above_resident": 0.0} for p in paths}
     order = ["kernel", *spec["paths"], "library"]
@@ -1696,6 +1907,7 @@ def phase_train(name: str, seed: int, device_line: str, profile_dir):
     model, composite, c, _ = paths["kernel"]
     syncs = sync_audit(lambda: train_step(model, composite, opts["kernel"], c, batch, 0),
                        f"{name} train_step, kernel path")
+    loader_ms = loader_ms_per_batch(trainer.train_loader)
     if profile_dir:
         profile(lambda: train_step(model, composite, opts["kernel"], c, batch, 0), 1,
                 f"{name}_step", Path(profile_dir))
@@ -1776,8 +1988,10 @@ def phase_train(name: str, seed: int, device_line: str, profile_dir):
         fit_step_ms=fit_ms, fit_step_ms_median_3_8=_median_3_to_8(fit_ms),
         fit_images_per_s=rec["train_images_per_sec"], fit_train_seconds=rec["train_seconds"],
         fit_s=round(fit_s, 2), fit_max_memory_allocated_mb=peak_mb,
-        host_syncs_per_step=syncs, card=device_line)
-    return fit_counts
+        host_syncs_per_step=syncs, loader_ms_per_batch=loader_ms,
+        **({"files": files} if files else {}), card=device_line)
+    return {"counts": fit_counts, "host_syncs_per_step": syncs,
+            "fit_images_per_s": rec["train_images_per_sec"], "loader_ms_per_batch": loader_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -1809,11 +2023,16 @@ def main(argv=None) -> int:
     t_serve = time.perf_counter()
     kernels["config5"], paths["infer5"] = phase_infer5(SEED, smi, args.profile)
     t_infer5 = time.perf_counter()
-    train_s = {}
+    train_s, reports = {}, {}
     for phase in TRAIN_PHASES:
         t_phase = time.perf_counter()
-        paths[phase] = phase_train(phase, SEED, smi, args.profile)
+        reports[phase] = phase_train(phase, SEED, smi, args.profile)
+        paths[phase] = reports[phase]["counts"]
         train_s[phase] = round(time.perf_counter() - t_phase, 1)
+    # config 2 from files against config 2 on synthetic batches made in memory
+    say("trainfiles vs train", **{k: {p: reports[p][k] for p in ("train", "trainfiles")} for k in
+                                  ("host_syncs_per_step", "fit_images_per_s",
+                                   "loader_ms_per_batch")}, card=smi)
     say("elapsed", seconds_to_kernels_end=round(t_kernels - t_start, 1),
         serve_s=round(t_serve - t_kernels, 1), infer5_s=round(t_infer5 - t_serve, 1),
         train_s=train_s,

@@ -77,13 +77,17 @@ class BatchLoader:
             yield idx[i : i + self.batch_size]
 
     def make_batch(self, indices) -> Dict[str, np.ndarray]:
-        """The collated numpy batch of ``indices`` (padded to the batch size)."""
-        if self._pool is not None:
-            samples = list(self._pool.map(self.dataset.__getitem__, map(int, indices)))
+        """The collated numpy batch of ``indices`` (padded to the batch
+        size). A dataset with ``get_batch`` (the raw cache) collates it
+        itself, its labels in their storage dtype, unless a thread pool
+        fetches the samples."""
+        if hasattr(self.dataset, "get_batch") and self._pool is None:
+            batch = self.dataset.get_batch(indices)
+        elif self._pool is not None:
+            batch = _collate(list(self._pool.map(self.dataset.__getitem__, map(int, indices))))
         else:
-            samples = [self.dataset[int(i)] for i in indices]
-        batch = _collate(samples)
-        pad = self.batch_size - len(samples)
+            batch = _collate([self.dataset[int(i)] for i in indices])
+        pad = self.batch_size - len(indices)
         if pad > 0:
             for k, v in batch.items():
                 filler = np.repeat(v[:1], pad, axis=0)

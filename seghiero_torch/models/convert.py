@@ -15,10 +15,16 @@ original SegHiero saves. It is the port's own copy of that logic:
 
 ``load_reference_checkpoint`` loads such a dict into the port's model,
 each part with ``strict=True``.
+
+``import_torchvision_backbone`` takes a torchvision ResNet state dict
+(``model.pretrained: <path>``, read by ``load_torch_file``) to the
+backbone's own names, and ``load_pretrained_backbone`` loads it.
 """
 
 from __future__ import annotations
 
+import pickle
+import re
 from typing import Dict, Mapping
 
 import numpy as np
@@ -144,3 +150,56 @@ def reference_checkpoint(model: nn.Module) -> Dict:
     for key, attr in PARTS.items():
         out[key] = {k: v.detach().cpu() for k, v in getattr(model, attr).state_dict().items()}
     return out
+
+
+def load_torch_file(path: str) -> Dict:
+    """The dict a ``.pth`` file holds, on the CPU: read with
+    ``weights_only=True`` (tensors and containers alone), and only where
+    the file needs other objects with a full unpickle."""
+    try:
+        return torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError:
+        return torch.load(path, map_location="cpu", weights_only=False)
+
+
+def import_torchvision_backbone(sd: Mapping, depth: int) -> Dict:
+    """A torchvision ResNet state dict → the state dict of the port's
+    ``ResNetBackbone`` of ``depth``. Takes torchvision's stem names
+    (``conv1``, ``bn1``) or the reference wrapper's (``stem_conv``,
+    ``stem_bn``); drops the classifier (``fc.*``). Raises when the blocks
+    the dict holds are not those of ``depth``. (A dict without
+    ``num_batches_tracked``, as older files have, still loads strictly:
+    BatchNorm fills it in.)"""
+    out: Dict = {}
+    for k, v in sd.items():
+        if k.startswith("fc."):
+            continue
+        k = re.sub(r"^conv1\.", "stem_conv.", k)
+        k = re.sub(r"^bn1\.", "stem_bn.", k)
+        out[k] = v
+    blocks = [0, 0, 0, 0]
+    bottleneck = False
+    for k in out:
+        m = re.match(r"layer([1-4])\.(\d+)\.conv(\d)\.weight$", k)
+        if m:
+            stage, b = int(m.group(1)) - 1, int(m.group(2))
+            blocks[stage] = max(blocks[stage], b + 1)
+            bottleneck |= m.group(3) == "3"
+    want = (tuple(STAGE_BLOCKS[depth]), depth in BOTTLENECK_DEPTHS)
+    if (tuple(blocks), bottleneck) != want:
+        found = [d for d, n in STAGE_BLOCKS.items()
+                 if (tuple(n), d in BOTTLENECK_DEPTHS) == (tuple(blocks), bottleneck)]
+        raise ValueError(
+            f"the pretrained weights are a ResNet-{found[0] if found else '?'} "
+            f"(blocks per stage {blocks}), not the ResNet-{depth} of model.depth")
+    return out
+
+
+def load_pretrained_backbone(model: nn.Module, path: str, depth: int) -> nn.Module:
+    """Load a local torchvision-layout ResNet ``.pth`` (its state dict, or
+    a dict holding it under ``state_dict``) into ``model.backbone`` with
+    ``strict=True``: parameters and BatchNorm running statistics."""
+    sd = load_torch_file(path)
+    sd = sd.get("state_dict", sd)
+    model.backbone.load_state_dict(import_torchvision_backbone(sd, depth), strict=True)
+    return model

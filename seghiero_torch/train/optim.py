@@ -6,16 +6,29 @@ order the JAX package's optax chain copies from it
 (``add_decayed_weights`` → ``trace`` → ``scale_by_learning_rate``):
 ``g ← g + wd·p; buf ← μ·buf + g; p ← p − lr·buf``. ``make_schedule``
 builds the optax schedules (poly / cosine / constant, with linear warmup)
-as a ``LambdaLR`` multiplier of ``training.lr``, evaluated at the update
-count as optax does.
+as a ``LambdaLR`` multiplier of each parameter group's learning rate,
+evaluated at the update count as optax does.
+
+The fine-tuning options of the JAX package's optax chain:
+
+* ``backbone_lr_scale``: the backbone's parameters form groups of their
+  own at ``lr · scale`` (the schedule multiplies every group alike); at
+  ``0`` they are left out of the optimizer — no update, no decay, no
+  momentum, as ``optax.set_to_zero`` — and keep their bits.
+* ``wd_skip_norm_bias``: weight decay on conv and linear weights only
+  (flax's ``kernel`` leaves); BatchNorm affine parameters and the
+  classifier's bias get none.
+* ``grad_clip_norm``: ``clip_grad_global_norm_``, before weight decay and
+  momentum, over every gradient.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
+from torch import nn
 
 from seghiero_torch.config import TrainingConfig
 
@@ -28,14 +41,8 @@ def check_optimizer_options(cfg: TrainingConfig) -> None:
     """Raise for the optimizer options the port does not have yet."""
     if cfg.optimizer != "sgd":
         raise _not_yet_ported(f"training.optimizer: {cfg.optimizer}")
-    if cfg.grad_clip_norm:
-        raise _not_yet_ported("training.grad_clip_norm")
     if cfg.grad_accum_steps != 1:
         raise _not_yet_ported("training.grad_accum_steps > 1")
-    if cfg.backbone_lr_scale != 1.0:
-        raise _not_yet_ported("training.backbone_lr_scale != 1")
-    if cfg.wd_skip_norm_bias:
-        raise _not_yet_ported("training.wd_skip_norm_bias")
     if cfg.ema_decay:
         raise _not_yet_ported("training.ema_decay (parameter EMA)")
 
@@ -79,14 +86,44 @@ def schedule_fn(cfg: TrainingConfig, total_steps: int) -> Optional[Callable[[int
     return joined
 
 
-def make_optimizer(cfg: TrainingConfig, params) -> torch.optim.SGD:
+def param_groups(cfg: TrainingConfig, model: nn.Module) -> List[dict]:
+    """The model's parameters by learning rate and weight decay, in the
+    order of ``model.parameters()`` within each group (one group when no
+    fine-tuning option is set)."""
+    scale = cfg.backbone_lr_scale
+    backbone = {id(p) for p in model.backbone.parameters()}
+    kernels = {id(m.weight) for m in model.modules() if isinstance(m, (nn.Conv2d, nn.Linear))}
+    groups: Dict[Tuple[float, float], list] = {}
+    for p in model.parameters():
+        in_backbone = id(p) in backbone
+        if in_backbone and scale == 0.0:
+            continue  # frozen
+        lr = cfg.lr * scale if in_backbone and scale != 1.0 else cfg.lr
+        decays = not cfg.wd_skip_norm_bias or id(p) in kernels
+        groups.setdefault((lr, cfg.weight_decay if decays else 0.0), []).append(p)
+    return [{"params": ps, "lr": lr, "weight_decay": wd} for (lr, wd), ps in groups.items()]
+
+
+def make_optimizer(cfg: TrainingConfig, model: nn.Module) -> torch.optim.SGD:
     check_optimizer_options(cfg)
-    return torch.optim.SGD(params, lr=cfg.lr, momentum=cfg.momentum,
+    return torch.optim.SGD(param_groups(cfg, model), lr=cfg.lr, momentum=cfg.momentum,
                            weight_decay=cfg.weight_decay, dampening=0.0, nesterov=False)
 
 
+def clip_grad_global_norm_(params: Iterable[torch.Tensor], max_norm: float) -> torch.Tensor:
+    """``optax.clip_by_global_norm``: every gradient scaled by ``c /
+    max(‖g‖, c)``, ``‖g‖`` the norm of all of them together — exactly 1
+    below the limit, and no epsilon (``torch.nn.utils.clip_grad_norm_``
+    adds 1e-6 to the norm). No host sync. Returns the norm."""
+    grads = [p.grad for p in params if p.grad is not None]
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    torch._foreach_mul_(grads, max_norm / torch.clamp(norm, min=max_norm))
+    return norm
+
+
 def make_schedule(cfg: TrainingConfig, total_steps: int, optimizer):
-    """A ``LambdaLR`` stepping once per update, or None for a fixed lr."""
+    """A ``LambdaLR`` stepping once per update (each group's learning rate
+    times the schedule over ``training.lr``), or None for a fixed lr."""
     fn = schedule_fn(cfg, total_steps)
     if fn is None:
         return None

@@ -6,6 +6,9 @@ forward under bf16 autocast over f32 parameters (``model.dtype:
 bfloat16``; f32 runs without autocast), the loss in f32 outside autocast,
 backward, SGD update. The triplet schedule follows the global optimizer
 step (``training.triplet_schedule_unit: epoch`` uses the epoch index).
+``transform.device_hflip`` flips each sample's image and fine mask on the
+card inside the train step (``device_hflip``), and
+``training.grad_clip_norm`` clips the gradients before the update.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ import contextlib
 import warnings
 from typing import Dict
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -26,6 +30,7 @@ from seghiero_torch.losses.fast import (
 )
 from seghiero_torch.ops.resize import resize_bilinear
 from seghiero_torch.train.metrics import confusion_matrix, pixel_accuracy_counts
+from seghiero_torch.train.optim import clip_grad_global_norm_
 
 
 def _not_yet_ported(what: str) -> NotImplementedError:
@@ -73,9 +78,7 @@ def make_composite_loss(cfg: SegHieroConfig):
 
 
 def check_step_options(cfg: SegHieroConfig) -> None:
-    """Raise for step options the port does not have yet."""
-    if cfg.transform.device_hflip and cfg.transform.hflip_prob > 0:
-        raise _not_yet_ported("transform.device_hflip (on-device random flips)")
+    """Raise for step options the port does not take."""
     if cfg.model.dtype not in ("bfloat16", "float32"):
         raise ValueError(f"model.dtype must be bfloat16 or float32, got {cfg.model.dtype}")
 
@@ -87,14 +90,41 @@ def autocast_for(cfg: SegHieroConfig, device: torch.device):
     return contextlib.nullcontext()
 
 
+def flip_coins(cfg: SegHieroConfig, step: int, batch_size: int, device) -> torch.Tensor:
+    """``transform.device_hflip``'s coins of optimizer step ``step``: one
+    per sample, true with probability ``hflip_prob``, drawn on ``device``
+    by a ``torch.Generator`` seeded from ``(training.seed + 0x5E6, step)``
+    — as the JAX step folds that step into the key ``training.seed +
+    0x5E6``, though not JAX's PRNG stream: the two packages flip other
+    samples. Seeding is host arithmetic; the draw stays on the device (no
+    host sync)."""
+    seq = np.random.SeedSequence([cfg.training.seed + 0x5E6, int(step)])
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seq.generate_state(1, np.uint64)[0]) >> 1)
+    return torch.rand(batch_size, generator=gen, device=device) < cfg.transform.hflip_prob
+
+
+def device_hflip(images: torch.Tensor, fine: torch.Tensor, coins: torch.Tensor):
+    """Flip image ``[B, H, W, C]`` and fine mask ``[B, H, W]`` of each
+    sample whose coin is true along W: the JAX step's ``jnp.where``."""
+    return (torch.where(coins[:, None, None, None], images.flip(2), images),
+            torch.where(coins[:, None, None], fine.flip(2), fine))
+
+
 def forward_losses(model: nn.Module, composite, cfg: SegHieroConfig,
-                   batch: Dict[str, torch.Tensor], sched_step):
+                   batch: Dict[str, torch.Tensor], sched_step, flip_step=None):
     """Forward + loss assembly shared by train and eval (the model's mode
-    is the caller's). Returns ``(loss, main_loss, aux_loss, logits)`` with
-    the low-res logits ``[B, C, H/4, W/4]`` f32."""
+    is the caller's). With ``flip_step`` (the train step's optimizer step)
+    and ``transform.device_hflip`` on, the batch is flipped first. Returns
+    ``(loss, main_loss, aux_loss, logits)`` with the low-res logits
+    ``[B, C, H/4, W/4]`` f32."""
     images = normalize_images(batch["image"], cfg.transform.normalize_mean,
                               cfg.transform.normalize_std)
     fine = batch["fine"].to(torch.int32)
+    tf = cfg.transform
+    if flip_step is not None and tf.device_hflip and tf.hflip_prob > 0:
+        coins = flip_coins(cfg, flip_step, images.shape[0], images.device)
+        images, fine = device_hflip(images, fine, coins)
     with autocast_for(cfg, images.device):
         # NHWC viewed as NCHW is the channels_last layout cuDNN wants
         out = model(images.permute(0, 3, 1, 2))
@@ -115,12 +145,15 @@ def train_step(model: nn.Module, composite, optimizer: torch.optim.Optimizer,
     model.train()
     sched_step = step if cfg.training.triplet_schedule_unit == "step" else epoch
     optimizer.zero_grad(set_to_none=True)
-    loss, main, aux, _ = forward_losses(model, composite, cfg, batch, sched_step)
+    loss, main, aux, _ = forward_losses(model, composite, cfg, batch, sched_step,
+                                        flip_step=step)
     loss.backward()
     for group in optimizer.param_groups:
         for p in group["params"]:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+    if cfg.training.grad_clip_norm:
+        clip_grad_global_norm_(model.parameters(), cfg.training.grad_clip_norm)
     optimizer.step()
     if scheduler is not None:
         scheduler.step()

@@ -20,6 +20,7 @@ from seghiero_torch.config import SegHieroConfig
 from seghiero_torch.data.dataset import build_dataset
 from seghiero_torch.data.pipeline import BatchLoader
 from seghiero_torch.infer.predictor import resolve_device
+from seghiero_torch.models.convert import load_pretrained_backbone
 from seghiero_torch.models.segmenter import build_model, seeded_init_
 from seghiero_torch.train.checkpoint import CheckpointManager
 from seghiero_torch.train.loop import FitLoopMixin
@@ -28,16 +29,11 @@ from seghiero_torch.train.steps import check_step_options, make_composite_loss
 
 
 def _check_model_options(cfg: SegHieroConfig) -> None:
-    pre = cfg.model.pretrained
-    if pre is True:
+    if cfg.model.pretrained is True:
         raise ValueError(
             "model.pretrained: true needs a local weight file (there is no "
-            "download); set model.pretrained: false for a fresh init"
-        )
-    if isinstance(pre, str):
-        raise NotImplementedError(
-            "model.pretrained weight import is not yet ported to seghiero_torch "
-            "(ROADMAP queue 1); start from a reference .pth with --resume instead"
+            "download); set model.pretrained to a torchvision ResNet .pth path, "
+            "or to false for a fresh init"
         )
     if cfg.model.remat:
         raise NotImplementedError(
@@ -61,11 +57,18 @@ class Trainer(FitLoopMixin):
         self.composite = make_composite_loss(cfg)
         torch.manual_seed(cfg.training.seed)
         model = seeded_init_(build_model(cfg), cfg.training.seed)
+        if isinstance(cfg.model.pretrained, str):
+            load_pretrained_backbone(model, cfg.model.pretrained, cfg.model.depth)
+            if self.verbose:
+                print(f"→ Loaded pretrained backbone from {cfg.model.pretrained}")
         if self.device.type == "cuda":
             model = model.to(self.device, memory_format=torch.channels_last)
         self.model = model.to(self.device)
-        self.train_ds = build_dataset(cfg, "train", seed=cfg.training.seed)
-        self.val_ds = build_dataset(cfg, "val", seed=cfg.training.seed)
+        # the train step derives its targets on the card: the train set
+        # skips the level masks, eval keeps them for its metrics
+        self.train_ds = build_dataset(cfg, "train", seed=cfg.training.seed,
+                                      include_levels=False, verbose=self.verbose)
+        self.val_ds = build_dataset(cfg, "val", seed=cfg.training.seed, verbose=self.verbose)
         t = cfg.training
         self.train_loader = BatchLoader(self.train_ds, t.batch_size, shuffle=True,
                                         drop_last=True, seed=t.seed, device=self.device,
@@ -74,7 +77,7 @@ class Trainer(FitLoopMixin):
                                       drop_last=False, device=self.device,
                                       num_workers=t.num_workers)
         total_steps = len(self.train_loader) * t.epochs
-        self.optimizer = make_optimizer(t, self.model.parameters())
+        self.optimizer = make_optimizer(t, self.model)
         self.scheduler = make_schedule(t, total_steps, self.optimizer)
         self.step = 0
         self.start_epoch = 0

@@ -127,7 +127,7 @@ def test_two_sgd_steps_match_jax(tmp_path):
 
     model = port_build_model(pcfg)
     load_reference_checkpoint(model, export_reference_checkpoint(variables, 18))
-    opt = port_make_optimizer(pcfg.training, model.parameters())
+    opt = port_make_optimizer(pcfg.training, model)
     composite = port_composite(pcfg)
     assert composite.use_kernel
 
@@ -278,8 +278,8 @@ def test_train_entry_point_raises_without_a_card(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("optimizer", "adamw"), ("grad_clip_norm", 1.0), ("grad_accum_steps", 2),
-    ("backbone_lr_scale", 0.1), ("ema_decay", 0.99), ("extra_losses", [{"type": "dice"}]),
+    ("optimizer", "adamw"), ("fast_losses", False), ("grad_accum_steps", 2),
+    ("ohem_thresh", 0.7), ("ema_decay", 0.99), ("extra_losses", [{"type": "dice"}]),
 ])
 def test_unported_training_options_raise(tmp_path, key, value):
     cfg = PortConfig.from_dict(_cfg_dict(tmp_path, **{key: value}))
@@ -287,8 +287,16 @@ def test_unported_training_options_raise(tmp_path, key, value):
         PortTrainer(cfg, device="cpu", verbose=False)
 
 
-def test_file_datasets_raise_not_yet_ported(tmp_path):
+def test_file_datasets_build_a_hiero_dataset(tmp_path):
+    from PIL import Image
+
+    from seghiero_torch.data.dataset import HieroDataset
+
+    for sub, arr in (("i", np.zeros((8, 8, 3), np.uint8)), ("m", np.ones((8, 8), np.uint8))):
+        (tmp_path / sub).mkdir()
+        Image.fromarray(arr).save(tmp_path / sub / "a.png")
     d = copy.deepcopy(_cfg_dict(tmp_path))
     d["dataset"] = {"root": str(tmp_path), "train": {"image_subdir": "i", "mask_subdir": "m"}}
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        port_build_dataset(PortConfig.from_dict(d), "train")
+    ds = port_build_dataset(PortConfig.from_dict(d), "train")
+    assert isinstance(ds, HieroDataset) and len(ds) == 1
+    assert ds[0]["image"].shape == (64, 64, 3) and set(ds[0]) == {"image", "fine", "coarse"}

@@ -108,7 +108,7 @@ def test_one_sgd_step_matches_jax(tmp_path):
                        opt_state=tx.init(variables["params"]))
     model = port_build_model(pcfg)
     load_reference_checkpoint(model, export_reference_checkpoint(variables, 18))
-    opt = port_make_optimizer(pcfg.training, model.parameters())
+    opt = port_make_optimizer(pcfg.training, model)
     composite = port_composite(pcfg)
     assert composite.rmi_backend == "pallas"
 
