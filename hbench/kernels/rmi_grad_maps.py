@@ -1,0 +1,15 @@
+"""Kernel #8, RMI's gradient maps (a folded 5x5 correlation), f32: both maps
+read and the probability map's gradient written once; 50 multiply-adds a
+pixel. One launch a training step."""
+
+from hbench.core import peaks
+
+COUNTER = ("seghiero_torch.ops.rmi_gram", "grad_launches")
+NAMES = ('grad_maps_kernel',)
+
+
+def launches(u):
+    B, (H, W) = u["batch"], u["hw"]
+    maps = B * sum(u["levels"])
+    return [{"bytes": 3 * maps * H * W * 4, "flops": 100 * maps * H * W,
+             "flops_per_s": peaks.F32_FLOPS}]

@@ -1,0 +1,12 @@
+"""The training step's share of the card's bf16 peak (%): model FLOPs an
+image (forward and backward, counted on the plain reference,
+``hbench/core/flops.py``) times the window's images/s, over 989 TFLOP/s."""
+
+from hbench.core import peaks
+
+
+def read(run):
+    rate, fl = run.e2e.get("train_images_per_s"), run.extras.get("flops_per_image")
+    if run.kind != "train" or not rate or not fl:
+        return None
+    return 100.0 * fl * rate / peaks.BF16_FLOPS
