@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``seghiero_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile DIR]
+    python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with a CUDA card and the
 CUDA toolkit (an H100: the kernels are built for sm_90a). Phases, each
@@ -71,8 +71,8 @@ printed as one line, any failure exits non-zero:
    the native transforms, scale-crop, colour jitter, the flip on the card,
    the backbone at a tenth of the learning rate, no decay on norm and bias
    and the gradient norm clipped, each ``fit`` step with exactly 2/2/2/1/1
-   launches; then one line setting its host syncs per step, loop images/s
-   and loader ms per batch beside ``train``'s;
+   launches; then one line setting its loop images/s and loader ms per
+   batch beside ``train``'s;
 5c. train150 — ``configs/example-train-150-hopper.yaml`` (config 2 with
    the 150 + 15 classes of ``example-many-classes.yaml``), the same checks
    as ``train`` against its library path (``pallas_fused_loss: false``),
@@ -982,7 +982,7 @@ def _post(url: str, body: bytes):
     return status, data, (time.perf_counter() - t0) * 1e3
 
 
-def phase_serve(seed: int, n_requests: int, device_line: str, profile_dir):
+def phase_serve(seed: int, n_requests: int, device_line: str):
     import torch
 
     from seghiero_torch.config import load_config
@@ -1140,8 +1140,6 @@ def phase_serve(seed: int, n_requests: int, device_line: str, profile_dir):
         images_per_s_by_burst=[n_requests / t for t in burst_s],
         predict_b8_ms=batch_ms, predict_b8_library_ms=batch_ms_xla,
         setup_s=round(setup_s, 2), healthz=health, card=device_line)
-    if profile_dir:
-        profile(lambda: predictor.predict_masks(images[:8]), 3, "serve_b8", Path(profile_dir))
     return launches
 
 
@@ -1191,7 +1189,7 @@ def _counted(fn, want):
     return out, counts
 
 
-def phase_infer5(seed: int, device_line: str, profile_dir):
+def phase_infer5(seed: int, device_line: str):
     """Config 5's inference (ResNet-101, 3 levels, 1024², batch 4, bf16) at
     full width and depth: the kernels #1 and #3 at its shapes against their
     plain versions; weights from ``seed`` saved as a port checkpoint
@@ -1200,7 +1198,6 @@ def phase_infer5(seed: int, device_line: str, profile_dir):
     against the library-op predictor on the same batches. Returns (the
     kernels' config-5 entries, the launch counts of the phase's runs)."""
     import contextlib
-    import shutil
     import tempfile
 
     import torch
@@ -1358,84 +1355,7 @@ def phase_infer5(seed: int, device_line: str, profile_dir):
         sliding=report["sliding"], tta=report["tta"],
         launches_by_run=launches,
         setup_s=round(setup_s, 2), card=device_line)
-    if profile_dir:
-        profile(lambda: predictor.predict_masks(batch4), 3, "infer5_b4", Path(profile_dir))
-        for what, (run, _) in runs.items():
-            profile(lambda run=run: run(predictor), 1, f"infer5_{what}", Path(profile_dir))
     return k5, total
-
-
-def sync_audit(fn, what: str) -> int:
-    """Host synchronizations in one call of ``fn`` (after one warm-up call),
-    from PyTorch's sync debug mode: how many, and the Python lines that
-    asked for them."""
-    import collections
-    import warnings
-
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            fn()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    syncs = [w for w in caught if "synchroniz" in str(w.message)]
-    where = collections.Counter(
-        f"{'/'.join(Path(w.filename).parts[-2:])}:{w.lineno}" for w in syncs)
-    say("sync", what=what, host_syncs=len(syncs), where=dict(where.most_common(12)))
-    return len(syncs)
-
-
-# device kernels by kind, matched in this order on the lower-cased kernel
-# name (the first match wins)
-KERNEL_KINDS = (
-    ("port kernels", ("seghiero::",)),
-    ("batch norm", ("batch_norm",)),
-    ("convolution", ("conv", "cudnn", "xmma", "implicit_gemm", "dgrad", "wgrad")),
-    ("upsample", ("upsample",)),
-    ("matmul", ("gemm", "cutlass", "cublas")),
-    ("solver", ("potrf", "getrf", "getrs", "trsm", "trsv", "magma", "cusolver", "lu_")),
-    ("relu", ("threshold", "clamp")),
-    ("reduction", ("reduce", "softmax", "logsumexp")),
-    ("copy and fill", ("copy", "memcpy", "memset", "fill", "cat")),
-    ("elementwise", ("elementwise", "where", "index")),
-)
-
-
-def profile(fn, n_calls: int, stem: str, out_dir: Path) -> None:
-    """torch.profiler over ``n_calls`` calls of ``fn`` after one warm-up
-    call: device time by kernel, and the device's busy share of the wall
-    time (the profiler's own overhead included)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile as torch_profile
-
-    out_dir.mkdir(parents=True, exist_ok=True)
-    fn()
-    torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n_calls):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=60)
-    (out_dir / f"{stem}_profile.txt").write_text(table)
-    prof.export_chrome_trace(str(out_dir / f"{stem}_trace.json"))
-    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.device_time_total for e in device) / 1e3
-    by_kind = {}
-    for e in device:
-        kind = next((k for k, pats in KERNEL_KINDS if any(p in e.name.lower() for p in pats)),
-                    "other")
-        by_kind[kind] = by_kind.get(kind, 0.0) + e.device_time_total / 1e3 / n_calls
-    say("profile", what=stem, calls=n_calls, wall_ms=wall_ms, device_busy_ms=busy_ms,
-        device_events=len(device), idle_share=1.0 - busy_ms / wall_ms,
-        device_ms_per_call_by_kind=dict(sorted(by_kind.items(), key=lambda kv: -kv[1])))
-    print("[profile] " + "\n[profile] ".join(table.splitlines()[:45]), flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1758,11 +1678,11 @@ def loader_ms_per_batch(loader) -> float:
     return ms
 
 
-def phase_train(name: str, seed: int, device_line: str, profile_dir):
+def phase_train(name: str, seed: int, device_line: str):
     """One train phase of ``TRAIN_PHASES``; returns the launch counts of
-    its ``fit`` run, its host syncs per step, loop images/s and loader ms
-    per batch. A phase from files first writes its data and backbone
-    weights (``prepare_files``) and checks them (``check_files``)."""
+    its ``fit`` run, loop images/s and loader ms per batch. A phase from
+    files first writes its data and backbone weights (``prepare_files``)
+    and checks them (``check_files``)."""
     import shutil
 
     import torch
@@ -1796,11 +1716,10 @@ def phase_train(name: str, seed: int, device_line: str, profile_dir):
         load_reference_checkpoint(trainer.model, weights)
         setup_s = time.perf_counter() - t0
         return _train_checks(name, spec, cfg, trainer, weights, setup_s, files, device_line,
-                             profile_dir, ckpt_dir)
+                             ckpt_dir)
 
 
-def _train_checks(name, spec, cfg, trainer, weights, setup_s, files, device_line,
-                  profile_dir, ckpt_dir):
+def _train_checks(name, spec, cfg, trainer, weights, setup_s, files, device_line, ckpt_dir):
     """The checks and measurements every train phase runs, on its
     ``Trainer`` with the made-up ``weights`` loaded."""
     import copy
@@ -1813,7 +1732,7 @@ def _train_checks(name, spec, cfg, trainer, weights, setup_s, files, device_line
     from seghiero_torch.models.segmenter import build_model
     from seghiero_torch.train import loop
     from seghiero_torch.train.optim import make_optimizer
-    from seghiero_torch.train.steps import make_composite_loss, train_step
+    from seghiero_torch.train.steps import make_composite_loss
     from seghiero_torch.train.trainer import Trainer
 
     step_launches = spec["launches"]
@@ -1904,13 +1823,7 @@ def _train_checks(name, spec, cfg, trainer, weights, setup_s, files, device_line
         times[path]["peak_mb_above_resident"] = max(
             times[path]["peak_mb_above_resident"],
             (torch.cuda.max_memory_allocated() - base) / 2**20)
-    model, composite, c, _ = paths["kernel"]
-    syncs = sync_audit(lambda: train_step(model, composite, opts["kernel"], c, batch, 0),
-                       f"{name} train_step, kernel path")
     loader_ms = loader_ms_per_batch(trainer.train_loader)
-    if profile_dir:
-        profile(lambda: train_step(model, composite, opts["kernel"], c, batch, 0), 1,
-                f"{name}_step", Path(profile_dir))
     del ker_model, lib_model, paths, opts
     torch.cuda.empty_cache()
 
@@ -1988,21 +1901,15 @@ def _train_checks(name, spec, cfg, trainer, weights, setup_s, files, device_line
         fit_step_ms=fit_ms, fit_step_ms_median_3_8=_median_3_to_8(fit_ms),
         fit_images_per_s=rec["train_images_per_sec"], fit_train_seconds=rec["train_seconds"],
         fit_s=round(fit_s, 2), fit_max_memory_allocated_mb=peak_mb,
-        host_syncs_per_step=syncs, loader_ms_per_batch=loader_ms,
+        loader_ms_per_batch=loader_ms,
         **({"files": files} if files else {}), card=device_line)
-    return {"counts": fit_counts, "host_syncs_per_step": syncs,
-            "fit_images_per_s": rec["train_images_per_sec"], "loader_ms_per_batch": loader_ms}
+    return {"counts": fit_counts, "fit_images_per_s": rec["train_images_per_sec"],
+            "loader_ms_per_batch": loader_ms}
 
 
 # ---------------------------------------------------------------------------
 def main(argv=None) -> int:
-    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--profile", type=str, default=None,
-                   help="also write torch.profiler tables and traces of batch-8 "
-                   "predictions, of config 5's batch-4 prediction, sliding window "
-                   "and TTA, and of one train step of each train config into this "
-                   "directory")
-    args = p.parse_args(argv)
+    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)
 
     import torch
 
@@ -2019,20 +1926,19 @@ def main(argv=None) -> int:
     kernels = phase_kernels(SEED)
     kernels.update(phase_train_kernels(SEED, sm_mhz))
     t_kernels = time.perf_counter()
-    paths = {"serve": phase_serve(SEED, N_REQUESTS, smi, args.profile)}
+    paths = {"serve": phase_serve(SEED, N_REQUESTS, smi)}
     t_serve = time.perf_counter()
-    kernels["config5"], paths["infer5"] = phase_infer5(SEED, smi, args.profile)
+    kernels["config5"], paths["infer5"] = phase_infer5(SEED, smi)
     t_infer5 = time.perf_counter()
     train_s, reports = {}, {}
     for phase in TRAIN_PHASES:
         t_phase = time.perf_counter()
-        reports[phase] = phase_train(phase, SEED, smi, args.profile)
+        reports[phase] = phase_train(phase, SEED, smi)
         paths[phase] = reports[phase]["counts"]
         train_s[phase] = round(time.perf_counter() - t_phase, 1)
     # config 2 from files against config 2 on synthetic batches made in memory
     say("trainfiles vs train", **{k: {p: reports[p][k] for p in ("train", "trainfiles")} for k in
-                                  ("host_syncs_per_step", "fit_images_per_s",
-                                   "loader_ms_per_batch")}, card=smi)
+                                  ("fit_images_per_s", "loader_ms_per_batch")}, card=smi)
     say("elapsed", seconds_to_kernels_end=round(t_kernels - t_start, 1),
         serve_s=round(t_serve - t_kernels, 1), infer5_s=round(t_infer5 - t_serve, 1),
         train_s=train_s,

@@ -1,0 +1,18 @@
+"""Host time of the train step's loss a step (ms): the composite loss
+and the aux CE, with their syncs. The program's ``train.loss`` span
+(``seghiero_torch/trace.py``) over the traced segment, over its
+``train.step`` count; nothing to read in a program without spans."""
+
+
+def read(run):
+    if run.kind != "train" or not run.trace:
+        return None
+    try:
+        from seghiero_torch.trace import totals
+    except ImportError:
+        return None
+    t = totals()
+    steps = t.get("train.step", {}).get("count")
+    if "train.loss" not in t or not steps:
+        return None
+    return 1e3 * t["train.loss"]["seconds"] / steps

@@ -12,6 +12,8 @@ from typing import Dict, Iterator
 import numpy as np
 import torch
 
+from seghiero_torch import trace
+
 
 def normalize_images(
     images_u8: torch.Tensor,
@@ -37,7 +39,9 @@ class BatchLoader:
     the same eval-tail padding (repeats of sample 0 with labels forced to
     255) and the same background thread preparing ``prefetch`` batches
     ahead. On a CUDA device the worker thread also pins each batch, and the
-    copy to the card is issued with ``non_blocking=True``."""
+    copy to the card is issued with ``non_blocking=True``. Making a batch
+    is the span ``loader.batch`` (in the worker thread), the consumer's
+    wait for one ``loader.wait``."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  drop_last: bool = True, seed: int = 0, device=None, prefetch: int = 2,
@@ -97,9 +101,10 @@ class BatchLoader:
         return batch
 
     def _host_batch(self, indices) -> Dict[str, torch.Tensor]:
-        batch = {k: torch.from_numpy(v) for k, v in self.make_batch(indices).items()}
-        if self.device is not None and self.device.type == "cuda":
-            batch = {k: v.pin_memory() for k, v in batch.items()}
+        with trace.span("loader.batch"):
+            batch = {k: torch.from_numpy(v) for k, v in self.make_batch(indices).items()}
+            if self.device is not None and self.device.type == "cuda":
+                batch = {k: v.pin_memory() for k, v in batch.items()}
         return batch
 
     def _put(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -108,7 +113,8 @@ class BatchLoader:
         return {k: v.to(self.device, non_blocking=True) for k, v in batch.items()}
 
     def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
-        host_iter = (self._host_batch(ix) for ix in self._batch_indices())
+        batches = list(self._batch_indices())
+        host_iter = (self._host_batch(ix) for ix in batches)
         if self.prefetch == 0:
             for b in host_iter:
                 yield self._put(b)
@@ -128,10 +134,13 @@ class BatchLoader:
 
         t = threading.Thread(target=worker, daemon=True)
         t.start()
-        while True:
-            b = q.get()
-            if b is sentinel:
-                if err:
-                    raise err[0]
-                return
+        for _ in batches:
+            with trace.span("loader.wait"):
+                b = q.get()
+            if b is sentinel:  # the worker failed
+                break
             yield self._put(b)
+        else:
+            q.get()  # the worker's sentinel, behind the last batch
+        if err:
+            raise err[0]

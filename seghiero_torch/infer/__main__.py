@@ -9,7 +9,10 @@ image's original size as ``{name}_{level}.png`` and
 ``{name}_{level}_color.png`` for every level of the hierarchy. ``--tta``
 runs the multi-scale + flip ensemble per image. The run is on ``cuda``
 unless ``--device`` names another device or the config says
-``training.device: cpu``; without a card it raises.
+``training.device: cpu``; without a card it raises. With
+``output.profile_dir`` set, batches 2–5 (with ``--tta``, images 2–5) run
+under ``torch.profiler``, which writes ``trace.json`` and ``spans.json``
+there.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import argparse
 import os
 import sys
 
+PROFILED_BATCHES = (2, 5)  # output.profile_dir: the batches (TTA: images), from 1
 IMAGE_EXTS = {".png", ".jpg", ".jpeg", ".bmp", ".tif", ".tiff", ".webp"}
 
 
@@ -78,6 +82,7 @@ def main(argv=None) -> int:
 
     import numpy as np
 
+    from seghiero_torch import trace
     from seghiero_torch.config import load_config
     from seghiero_torch.infer.predictor import Predictor, preprocess_image
 
@@ -90,9 +95,11 @@ def main(argv=None) -> int:
         for path in predictor.export_masks(preds, args.output_dir, base):
             print(f"→ Saved {path}")
 
+    prof = trace.StepProfiler(cfg.output.profile_dir, *PROFILED_BATCHES)
     if args.tta:  # per image: each one runs a multi-scale ensemble
         scales = tuple(float(s) for s in args.tta_scales.split(","))
         for image_path in args.image:
+            prof.step()
             arr, orig_hw, _ = preprocess_image(image_path, cfg.transform.resize)
             preds = predictor.predict_tta(arr[None], scales=scales, out_hw=orig_hw,
                                           consistent=args.consistent)
@@ -105,10 +112,12 @@ def main(argv=None) -> int:
         for orig_hw, items in groups.items():
             for i in range(0, len(items), args.batch_size):
                 chunk = items[i:i + args.batch_size]
+                prof.step()
                 preds = predictor.predict_array(np.stack([a for _, a in chunk]),
                                                 out_hw=orig_hw, consistent=args.consistent)
                 for j, (image_path, _) in enumerate(chunk):
                     save({k: v[j] for k, v in preds.items()}, image_path)
+    prof.close()
     print("Inference complete.")
     return 0
 

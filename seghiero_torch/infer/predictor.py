@@ -22,6 +22,7 @@ import torch
 from PIL import Image
 from torch import nn
 
+from seghiero_torch import trace
 from seghiero_torch.config import SegHieroConfig
 from seghiero_torch.data.pipeline import normalize_images
 from seghiero_torch.infer.viz import (
@@ -236,13 +237,20 @@ class Predictor:
                       consistent: bool = False) -> Dict[str, torch.Tensor]:
         """Masks-only prediction; the masks stay on the device.
         ``consistent=True`` derives coarse/super from the fine argmax
-        through the hierarchy LUTs (tree-consistent labels)."""
+        through the hierarchy LUTs (tree-consistent labels). Its phases are
+        the spans ``predict.upload``, ``predict.forward`` and
+        ``predict.decode``."""
         out_hw = tuple(out_hw or tuple(images_u8.shape[1:3]))
         with torch.inference_mode():
-            masks = decode_masks(self.logits(images_u8), out_hw, self.level_slices,
-                                 self.cfg.model.argmax_backend)
-            if consistent:
-                masks = self._consistent(masks)
+            with trace.span("predict.upload"):
+                x = self._to_device(images_u8)
+            with trace.span("predict.forward"):
+                logits = self._forward(self._normalize(x))
+            with trace.span("predict.decode"):
+                masks = decode_masks(logits, out_hw, self.level_slices,
+                                     self.cfg.model.argmax_backend)
+                if consistent:
+                    masks = self._consistent(masks)
         return masks
 
     def predict_array(self, images_u8: np.ndarray,
@@ -250,9 +258,13 @@ class Predictor:
                       consistent: bool = False) -> Dict[str, np.ndarray]:
         """images_u8 [B, H, W, 3] → per-level int32 masks [B, out_h, out_w]
         (out defaults to the input size). ``consistent=False`` decodes each
-        level by its own argmax, as the reference does."""
-        masks = self.predict_masks(images_u8, out_hw, consistent)
-        return {k: v.cpu().numpy() for k, v in masks.items()}
+        level by its own argmax, as the reference does. The span ``predict``
+        holds ``predict.upload``, ``.forward``, ``.decode`` and ``.download``
+        (the host blocked until the masks are on the host)."""
+        with trace.span("predict"):
+            masks = self.predict_masks(images_u8, out_hw, consistent)
+            with trace.span("predict.download"):
+                return {k: v.cpu().numpy() for k, v in masks.items()}
 
     def predict_sliding(self, images_u8: np.ndarray, window: Tuple[int, int],
                         stride: Optional[Tuple[int, int]] = None,

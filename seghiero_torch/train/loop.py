@@ -5,7 +5,9 @@ builds: ``cfg``, ``model``, ``composite``, ``optimizer``, ``scheduler``,
 ``best_val_loss``.
 
 Per-step losses stay on the device (one host sync per log interval and
-one per epoch), as in the JAX loop.
+one per epoch), as in the JAX loop. With ``output.profile_dir`` set, the
+first epoch's steps 3–10 run under ``torch.profiler``, which writes
+``trace.json`` and ``spans.json`` there (``trace.StepProfiler``).
 """
 
 from __future__ import annotations
@@ -16,8 +18,11 @@ import time
 
 import torch
 
+from seghiero_torch import trace
 from seghiero_torch.train.metrics import SegMetrics, ascii_table
 from seghiero_torch.train.steps import eval_step, train_step
+
+PROFILED_STEPS = (3, 10)  # output.profile_dir: the first epoch's steps, from 1
 
 
 class StepTimer:
@@ -60,7 +65,11 @@ class FitLoopMixin:
             loss_sum = torch.zeros((), device=self.device)
             loss_n, running = 0, 0.0
             t0 = time.perf_counter()
+            prof = trace.StepProfiler(
+                cfg.output.profile_dir if epoch == self.start_epoch else None,
+                *PROFILED_STEPS)
             for batch in self.train_loader:
+                prof.step()
                 m = train_step(self.model, self.composite, self.optimizer, cfg, batch,
                                self.step, epoch, self.scheduler)
                 self.step += 1
@@ -73,6 +82,7 @@ class FitLoopMixin:
                         ips = timer.images_per_sec
                         print(f"epoch {epoch + 1} step {loss_n}/{n_train} loss {running:.4f}"
                               + (f" ({ips:.1f} img/s)" if ips else ""), flush=True)
+            prof.close()
             train_loss = float(loss_sum) / loss_n if loss_n else running  # waits for the card
             train_time = time.perf_counter() - t0
             # read before the evaluation, whose time the JAX loop's rate includes

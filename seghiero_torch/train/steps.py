@@ -21,6 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from seghiero_torch import trace
 from seghiero_torch.config import SegHieroConfig
 from seghiero_torch.data.pipeline import normalize_images
 from seghiero_torch.losses.fast import (
@@ -112,27 +113,33 @@ def device_hflip(images: torch.Tensor, fine: torch.Tensor, coins: torch.Tensor):
 
 
 def forward_losses(model: nn.Module, composite, cfg: SegHieroConfig,
-                   batch: Dict[str, torch.Tensor], sched_step, flip_step=None):
+                   batch: Dict[str, torch.Tensor], sched_step, flip_step=None,
+                   traced: bool = False):
     """Forward + loss assembly shared by train and eval (the model's mode
     is the caller's). With ``flip_step`` (the train step's optimizer step)
     and ``transform.device_hflip`` on, the batch is flipped first. Returns
     ``(loss, main_loss, aux_loss, logits)`` with the low-res logits
-    ``[B, C, H/4, W/4]`` f32."""
-    images = normalize_images(batch["image"], cfg.transform.normalize_mean,
-                              cfg.transform.normalize_std)
-    fine = batch["fine"].to(torch.int32)
-    tf = cfg.transform
-    if flip_step is not None and tf.device_hflip and tf.hflip_prob > 0:
-        coins = flip_coins(cfg, flip_step, images.shape[0], images.device)
-        images, fine = device_hflip(images, fine, coins)
-    with autocast_for(cfg, images.device):
-        # NHWC viewed as NCHW is the channels_last layout cuDNN wants
-        out = model(images.permute(0, 3, 1, 2))
-    logits = out["logits"]
-    main = composite(sched_step, out["embedding"], logits, logits, fine)
-    aux = aux_ce_fast(out["aux_logits"], fine, cfg.hierarchy.ignore_index,
-                      hiera_precision=cfg.training.hiera_precision)
-    return main + cfg.training.aux_weight * aux, main, aux, logits
+    ``[B, C, H/4, W/4]`` f32. With ``traced`` (``train_step``'s call) the
+    two halves are the spans ``train.forward`` and ``train.loss``; other
+    callers record none."""
+    with trace.span("train.forward") if traced else trace.OFF:
+        images = normalize_images(batch["image"], cfg.transform.normalize_mean,
+                                  cfg.transform.normalize_std)
+        fine = batch["fine"].to(torch.int32)
+        tf = cfg.transform
+        if flip_step is not None and tf.device_hflip and tf.hflip_prob > 0:
+            coins = flip_coins(cfg, flip_step, images.shape[0], images.device)
+            images, fine = device_hflip(images, fine, coins)
+        with autocast_for(cfg, images.device):
+            # NHWC viewed as NCHW is the channels_last layout cuDNN wants
+            out = model(images.permute(0, 3, 1, 2))
+    with trace.span("train.loss") if traced else trace.OFF:
+        logits = out["logits"]
+        main = composite(sched_step, out["embedding"], logits, logits, fine)
+        aux = aux_ce_fast(out["aux_logits"], fine, cfg.hierarchy.ignore_index,
+                          hiera_precision=cfg.training.hiera_precision)
+        loss = main + cfg.training.aux_weight * aux
+    return loss, main, aux, logits
 
 
 def train_step(model: nn.Module, composite, optimizer: torch.optim.Optimizer,
@@ -141,23 +148,32 @@ def train_step(model: nn.Module, composite, optimizer: torch.optim.Optimizer,
     """One SGD update. ``step`` is the global optimizer step before this
     update. Every parameter gets a gradient — a zero one where the graph
     gives none — so weight decay and momentum apply to all, as in the JAX
-    step. Returns the step's losses as device scalars (no host sync)."""
-    model.train()
-    sched_step = step if cfg.training.triplet_schedule_unit == "step" else epoch
-    optimizer.zero_grad(set_to_none=True)
-    loss, main, aux, _ = forward_losses(model, composite, cfg, batch, sched_step,
-                                        flip_step=step)
-    loss.backward()
-    for group in optimizer.param_groups:
-        for p in group["params"]:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-    if cfg.training.grad_clip_norm:
-        clip_grad_global_norm_(model.parameters(), cfg.training.grad_clip_norm)
-    optimizer.step()
-    if scheduler is not None:
-        scheduler.step()
-    return {"loss": loss.detach(), "main_loss": main.detach(), "aux_loss": aux.detach()}
+    step. Returns the step's losses as device scalars (no host sync). The
+    span ``train.step`` holds ``train.forward``, ``train.loss``,
+    ``train.backward`` and ``train.optimizer`` (entered twice: the
+    gradients' reset, then the update)."""
+    with trace.span("train.step"):
+        model.train()
+        sched_step = step if cfg.training.triplet_schedule_unit == "step" else epoch
+        with trace.span("train.optimizer"):
+            optimizer.zero_grad(set_to_none=True)
+        loss, main, aux, _ = forward_losses(model, composite, cfg, batch, sched_step,
+                                            flip_step=step, traced=True)
+        with trace.span("train.backward"):
+            loss.backward()
+        with trace.span("train.optimizer"):
+            for group in optimizer.param_groups:
+                for p in group["params"]:
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+            if cfg.training.grad_clip_norm:
+                clip_grad_global_norm_(model.parameters(), cfg.training.grad_clip_norm)
+            optimizer.step()
+            if scheduler is not None:
+                scheduler.step()
+        out = {"loss": loss.detach(), "main_loss": main.detach(), "aux_loss": aux.detach()}
+        del loss, main, aux, _  # the autograd graph's teardown, inside the step's span
+    return out
 
 
 @torch.no_grad()
