@@ -18,7 +18,10 @@ printed as one line, any failure exits non-zero:
    library call computing the same function (for the fused loss and the
    RMI Gram kernels, which have none, the port's library-op path of the
    same loss term), and the least time the card could take; the
-   depthwise kernels also at config 4's shapes (193², odd); the decode
+   depthwise kernels also at config 4's shapes (193², odd); the dilated
+   depthwise forward (#9) at the served ASPP input ``[4, 128, 128, 2048]``
+   bf16 at dilations 12 / 24 / 36, beside ``F.conv2d(groups=C,
+   dilation=d)``; the decode
    in f32 and bf16, eagerly (as a served batch launches it) and by
    CUDA-graph replay (the kernel alone: it is shorter than a launch's
    host cost); the fused
@@ -47,8 +50,8 @@ printed as one line, any failure exits non-zero:
    ``predict_masks`` time; a sliding window over a 1536×2048 image (6
    windows of 1024²) and TTA at scales 0.75 / 1.0 / 1.25 with flip — every
    run's masks within 99.5 % per level of the library-op predictor's, and
-   its launches exactly 2 of #1 per forward and 1 of #3 per 1024² batch
-   (none in the 1280×960 group, the sliding window or TTA);
+   its launches exactly 2 of #1 and 3 of #9 per forward and 1 of #3 per
+   1024² batch (none in the 1280×960 group, the sliding window or TTA);
 5. train   — ``configs/example-train-hopper.yaml`` (ResNet-50, 512², batch
    8, bf16) with weights made from the seed: the kernel path against the
    library path (``depthwise_backend: xla``, ``pallas_fused_loss: false``)
@@ -329,6 +332,66 @@ def depthwise_checks(gen, shapes, timed=DW_KERNELS):
     return summed
 
 
+# the ASPP's three dilated depthwise convolutions on the backbone's stride-8
+# map of a served 1024² batch (bf16, NHWC)
+DW_DILATED_SHAPE = (4, 128, 128, 2048)
+DW_DILATIONS = (12, 24, 36)
+
+
+def dilated_checks(gen, shape=DW_DILATED_SHAPE, dilations=DW_DILATIONS):
+    """The dilated depthwise forward (#9) at ``shape`` for each dilation:
+    bit-exact against its plain version (the same f32 order, no FMA), timed
+    beside the plain version and, in turns (kernel, library, library,
+    kernel), ``F.conv2d(groups=C, dilation=d)`` on the channels_last view
+    (cuDNN as the port calls it), with its bound; returns the entry summed
+    over the dilations, with each dilation's under ``"by_dilation"``."""
+    import torch
+    import torch.nn.functional as F
+
+    from seghiero_torch.ops.depthwise import (
+        depthwise3x3_dilated_forward,
+        depthwise3x3_dilated_plain,
+    )
+
+    C = shape[-1]
+    x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    k9 = (torch.randn((9, C), generator=gen, device="cuda") * 0.3).to(torch.bfloat16)
+    x_cl = x.permute(0, 3, 1, 2)  # the channels_last view the model holds
+    w = k9.t().reshape(C, 1, 3, 3).contiguous()
+    entries = []
+    for d in dilations:
+        y = depthwise3x3_dilated_forward(x, k9, d)
+        want = depthwise3x3_dilated_plain(x, k9, d)
+        torch.cuda.synchronize()
+        if not torch.equal(y, want):
+            raise AssertionError(f"depthwise3x3_dilated {shape} d={d}: max |kernel − plain| = "
+                                 f"{(y.float() - want.float()).abs().max().item()}")
+        del want
+        lib = lambda: F.conv2d(x_cl, w, padding=d, dilation=d, groups=C)  # noqa: E731
+        lib_err = (lib().permute(0, 2, 3, 1).float() - y.float()).abs().max().item()
+        fn = lambda: depthwise3x3_dilated_forward(x, k9, d)  # noqa: E731
+        turns = [time_ms(f) for f in (fn, lib, lib, fn)]
+        t = {"ms": (turns[0] + turns[3]) / 2, "library_ms": (turns[1] + turns[2]) / 2,
+             "plain_ms": time_ms(lambda: depthwise3x3_dilated_plain(x, k9, d), iters=5)}
+        nbytes = x.nbytes + k9.nbytes + y.nbytes
+        b_ms, b_by = bound(nbytes, 18 * x.numel())
+        e = dict(t, shape=list(shape), dilation=d, max_abs_err=0.0, bound_ms=b_ms,
+                 bound_by=b_by)
+        say("kernels", kernel="depthwise3x3_dilated", dtype="bfloat16", bytes=nbytes,
+            library_max_abs_diff=lib_err, share_of_bound=b_ms / t["ms"],
+            kernel_over_library=t["ms"] / t["library_ms"], turns_ms=turns, **e)
+        entries.append(e)
+    out = _sum_entries(entries)
+    out["kernel_over_library"] = out["ms"] / out["library_ms"]
+    out["share_of_bound"] = out["bound_ms"] / out["ms"]
+    out["by_dilation"] = {e["dilation"]: {k: e[k] for k in ("ms", "library_ms", "bound_ms")}
+                          for e in entries}
+    say("kernels", kernel="depthwise3x3_dilated", summed_over=list(dilations), ms=out["ms"],
+        library_ms=out["library_ms"], kernel_over_library=out["kernel_over_library"],
+        bound_ms=out["bound_ms"], share_of_bound=out["share_of_bound"])
+    return out
+
+
 def phase_kernels(seed: int):
     import torch
 
@@ -342,6 +405,7 @@ def phase_kernels(seed: int):
     # config 4's, which the kernels line carries beside them
     results.update(depthwise_checks(gen, DW_SHAPES["config 2"]))
     results["config4"] = depthwise_checks(gen, DW_SHAPES["config 4"])
+    results["depthwise3x3_dilated"] = dilated_checks(gen)
 
     # fused 4× upsample + per-level argmax at the serving decode shape, in f32
     # and in bf16 (the serving model's logits)
@@ -1046,6 +1110,7 @@ def phase_serve(seed: int, n_requests: int, device_line: str):
         with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
             health = json.loads(r.read())
         depthwise.launches = 0
+        depthwise.dilated_launches = 0
         upsample_argmax.launches = 0
         for burst in range(N_BURSTS):
             t_burst = time.perf_counter()
@@ -1059,6 +1124,7 @@ def phase_serve(seed: int, n_requests: int, device_line: str):
             threads += group
             burst_batch_ms.append(model.batch_ms[sum(len(b) for b in burst_batch_ms):])
         launches = {"depthwise3x3": depthwise.launches,
+                    "depthwise3x3_dilated": depthwise.dilated_launches,
                     "upsample_argmax": upsample_argmax.launches}
         with urllib.request.urlopen(url + "/stats", timeout=60) as r:
             stats = json.loads(r.read())
@@ -1090,7 +1156,9 @@ def phase_serve(seed: int, n_requests: int, device_line: str):
                     raise AssertionError(f"request {i} {lvl}: bad mask {got.shape} {got.dtype}")
                 if not np.array_equal(got, direct[lvl][j]):
                     raise AssertionError(f"request {i} {lvl}: differs from direct predictor")
-    if launches["depthwise3x3"] != 2 * n_batches or launches["upsample_argmax"] != n_batches:
+    n_dilated = len(cfg.model.dilations) - 1  # the ASPP's separable branches
+    if (launches["depthwise3x3"] != 2 * n_batches or launches["upsample_argmax"] != n_batches
+            or launches["depthwise3x3_dilated"] != n_dilated * n_batches):
         raise AssertionError(f"launches {launches} for {n_batches} device batches")
     with torch.inference_mode():
         finite = bool(torch.isfinite(predictor.logits(images[:8])).all().item())
@@ -1265,7 +1333,8 @@ def phase_infer5(seed: int, device_line: str):
             rc, cli_counts = _counted(lambda: infer_main([
                 "--config", str(cfg_path), "--image-dir", str(images),
                 "--batch-size", "4", "--output-dir", str(out_dir)]),
-                {"depthwise3x3": 2 * n_batches, "upsample_argmax": n_fused})
+                {"depthwise3x3": 2 * n_batches, "depthwise3x3_dilated": 3 * n_batches,
+                 "upsample_argmax": n_fused})
         cli_s = time.perf_counter() - t0
         if rc != 0:
             raise AssertionError(f"infer CLI exited {rc}")
@@ -1298,7 +1367,8 @@ def phase_infer5(seed: int, device_line: str):
     n_timed, n_warm = 10, 2
     predict_ms, predict_counts = _counted(
         lambda: _event_ms(lambda: predictor.predict_masks(batch4), n_timed, n_warm),
-        {"depthwise3x3": 2 * (n_timed + n_warm), "upsample_argmax": n_timed + n_warm})
+        {"depthwise3x3": 2 * (n_timed + n_warm), "depthwise3x3_dilated": 3 * (n_timed + n_warm),
+         "upsample_argmax": n_timed + n_warm})
     predict_ms_xla = _event_ms(lambda: predictor_xla.predict_masks(batch4), n_timed, n_warm)
     with torch.inference_mode():
         if not bool(torch.isfinite(predictor.logits(batch4)).all().item()):
@@ -1330,6 +1400,7 @@ def phase_infer5(seed: int, device_line: str):
             return out, ms
 
         (masks, ms), c = _counted(timed, {"depthwise3x3": 2 * forwards * n_runs,
+                                          "depthwise3x3_dilated": 3 * forwards * n_runs,
                                           "upsample_argmax": 0})
         counts[what] = c
         peak_mb = torch.cuda.max_memory_allocated() / 2**20
@@ -1342,7 +1413,7 @@ def phase_infer5(seed: int, device_line: str):
     if worst < AGREE_MIN:
         raise AssertionError(f"kernel path vs library path agreement {worst} < {AGREE_MIN}: "
                              f"CLI {cli_agree}, {report}")
-    launches = {run: {k: c[k] for k in ("depthwise3x3", "upsample_argmax")}
+    launches = {run: {k: c[k] for k in ("depthwise3x3", "depthwise3x3_dilated", "upsample_argmax")}
                 for run, c in counts.items()}
     total = {k: sum(c[k] for c in counts.values()) for k in cli_counts}
     say("infer5", cli_images=sum(CLI_IMAGES.values()), cli_batches=n_batches, cli_s=cli_s,
@@ -1396,7 +1467,10 @@ TRIPLET_LIVE_STEP = 40_000
 # two sep-bottleneck convolutions) and the loss kernels (config 2: the
 # fused loss forward and backward; config 3: the RMI Gram kernels #6, #7
 # forward and #8 backward; config 4: their bf16-view variants #6f–#8f).
-_DW = {"depthwise3x3": 2, "depthwise3x3_dgrad": 2, "depthwise3x3_wgrad": 2}
+# A train step needs the ASPP's backward, so its dilated branches stay on
+# cuDNN: none of the dilated forward #9 (the evaluation's batches take it).
+_DW = {"depthwise3x3": 2, "depthwise3x3_dgrad": 2, "depthwise3x3_wgrad": 2,
+       "depthwise3x3_dilated": 0}
 _NO_FUSED = {"hiera2_fused_fwd": 0, "hiera2_fused_bwd": 0}
 _NO_RMI = {"rmi_gram18": 0, "rmi_residual_gram": 0, "rmi_grad_maps": 0,
            "rmi_gram18_fast": 0, "rmi_residual_gram_fast": 0, "rmi_grad_maps_fast": 0}
@@ -1470,6 +1544,7 @@ def _counters():
     return {"depthwise3x3": (depthwise, "launches"),
             "depthwise3x3_dgrad": (depthwise, "dgrad_launches"),
             "depthwise3x3_wgrad": (depthwise, "wgrad_launches"),
+            "depthwise3x3_dilated": (depthwise, "dilated_launches"),
             "hiera2_fused_fwd": (hiera2_fused, "fwd_launches"),
             "hiera2_fused_bwd": (hiera2_fused, "bwd_launches"),
             "rmi_gram18": (rmi_gram, "gram18_launches"),
@@ -1950,6 +2025,9 @@ def main(argv=None) -> int:
                                "seghiero_tpu/ops/pallas/depthwise.py:292"),
         "depthwise3x3_wgrad": ("seghiero_torch/csrc/depthwise3x3_wgrad.cu",
                                "seghiero_tpu/ops/pallas/depthwise.py:245"),
+        "depthwise3x3_dilated": ("seghiero_torch/csrc/depthwise3x3_dilated.cu",
+                                 "no pallas_call: XLA's grouped conv, "
+                                 "seghiero_tpu/models/heads.py:101-111"),
         "hiera2_fused_fwd": ("seghiero_torch/csrc/hiera2_fused.cu",
                              "seghiero_tpu/ops/pallas/hiera2_fused.py:322"),
         "hiera2_fused_bwd": ("seghiero_torch/csrc/hiera2_fused.cu",
@@ -1987,6 +2065,7 @@ def main(argv=None) -> int:
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
             "shapes": k["shapes"],
             **{x: k[x] for x in ("graph_ms", "library_graph_ms", "unfused_ms", "unfused_what",
+                                 "by_dilation",
                                  "kernel_path_ms", "kernel_over_library", "cudnn_two_call_ms",
                                  "kernel_over_cudnn_two_call") if x in k},
             # the depthwise kernels also at config 4's shapes (train4's path),

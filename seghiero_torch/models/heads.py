@@ -14,7 +14,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from seghiero_torch.models.resnet import batch_norm, conv
-from seghiero_torch.ops.depthwise import depthwise3x3
+from seghiero_torch.ops.depthwise import depthwise3x3, depthwise3x3_dilated_forward
 from seghiero_torch.ops.resize import resize_bilinear
 
 
@@ -48,9 +48,11 @@ class DepthwiseConv(nn.Conv2d):
     """k×k depthwise conv (one filter per channel, weight ``[C, 1, k, k]``).
 
     With ``use_kernel`` the 3×3 / dilation-1 case goes to
-    ``ops.depthwise.depthwise3x3`` (the hand-written kernel on the card, its
-    plain version on the CPU); every other case, and ``use_kernel=False``,
-    goes to ``F.conv2d(groups=C)``."""
+    ``ops.depthwise.depthwise3x3`` (the hand-written kernels on the card,
+    their plain versions on the CPU), and a dilated 3×3 call from which
+    autograd needs no backward (inference, evaluation) to
+    ``ops.depthwise.depthwise3x3_dilated_forward``; every other case, and
+    ``use_kernel=False``, goes to ``F.conv2d(groups=C)``."""
 
     def __init__(self, channels: int, kernel: int = 3, dilation: int = 1,
                  use_kernel: bool = False):
@@ -60,11 +62,15 @@ class DepthwiseConv(nn.Conv2d):
         self.use_kernel = use_kernel
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        k = self.kernel_size[0]
-        if self.use_kernel and k == 3 and self.dilation == (1, 1):
+        d = self.dilation[0]
+        needs_grad = torch.is_grad_enabled() and (x.requires_grad or self.weight.requires_grad)
+        if self.use_kernel and self.kernel_size[0] == 3 and (d == 1 or not needs_grad):
             C = x.shape[1]
             k9 = self.weight.reshape(C, 9).t().contiguous().to(x.dtype)
-            return depthwise3x3(x.permute(0, 2, 3, 1), k9).permute(0, 3, 1, 2)
+            x_nhwc = x.permute(0, 2, 3, 1)
+            y = (depthwise3x3(x_nhwc, k9) if d == 1
+                 else depthwise3x3_dilated_forward(x_nhwc, k9, d))
+            return y.permute(0, 3, 1, 2)
         return F.conv2d(x, self.weight.to(x.dtype), None, 1, self.padding,
                         self.dilation, self.groups)
 

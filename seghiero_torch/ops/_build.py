@@ -48,6 +48,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     # x, k9, out, B, H, W, C, dtype, vec, device, stream
     "seghiero_dw3x3_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, k9, out, B, H, W, C, dilation, dtype, vec, device, stream
+    "seghiero_dw3x3_dil_fwd": [_P, _P, _P] + [_I] * 8 + [_P],
     # logits, B, C, h, w, dtype, n_levels, lo0, hi0, lo1, hi1, lo2, hi2,
     # out0, out1, out2, device, stream
     "seghiero_upsample_argmax": [_P] + [_I] * 12 + [_P, _P, _P, _I, _P],

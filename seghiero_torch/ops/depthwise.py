@@ -10,6 +10,11 @@ with its gradient — the port of ``seghiero_tpu/ops/pallas/depthwise.py``
 * weight gradient: ``csrc/depthwise3x3_wgrad.cu`` (kernel #2), returned in
   ``k9``'s dtype.
 
+``depthwise3x3_dilated_forward`` is the forward alone at a dilation d
+(``csrc/depthwise3x3_dilated.cu``, kernel #9): the ASPP's separable
+branches where no gradient is asked of them. The JAX package has no
+Pallas kernel for it (``seghiero_tpu/models/heads.py:101-111``).
+
 Each wrapper launches its kernel for a tensor on the card and runs its
 plain PyTorch version for a tensor on the CPU; any other device raises.
 The public layout is the JAX one: x NHWC ``[B, H, W, C]``, taps
@@ -25,26 +30,32 @@ from seghiero_torch.ops import _build
 
 # kernel launches in this process (set to 0 to count a run): the forward,
 # the input gradient (#1b, the forward kernel with reversed taps) and the
-# weight gradient (#2)
+# weight gradient (#2), and the dilated forward (#9)
 launches = 0
 dgrad_launches = 0
 wgrad_launches = 0
+dilated_launches = 0
 # cotangents the backward had to copy to NHWC-contiguous before its kernels
 backward_copies = 0
 
 
-def depthwise3x3_plain(x: torch.Tensor, k9: torch.Tensor) -> torch.Tensor:
-    """The kernel's arithmetic in plain PyTorch: 9 shifted multiply-adds
-    over a zero-padded f32 copy, summed in (dy, dx) row-major order from 0,
-    rounded once to ``x.dtype``."""
+def depthwise3x3_dilated_plain(x: torch.Tensor, k9: torch.Tensor, d: int) -> torch.Tensor:
+    """The kernels' arithmetic in plain PyTorch at dilation d: 9 shifted
+    multiply-adds over an f32 copy zero-padded by d, summed in (dy, dx)
+    row-major order from 0, rounded once to ``x.dtype``."""
     B, H, W, C = x.shape
-    xp = F.pad(x.to(torch.float32), (0, 0, 1, 1, 1, 1))
+    xp = F.pad(x.to(torch.float32), (0, 0, d, d, d, d))
     k = k9.to(torch.float32)
     acc = torch.zeros((B, H, W, C), dtype=torch.float32, device=x.device)
     for dy in range(3):
         for dx in range(3):
-            acc = acc + xp[:, dy : dy + H, dx : dx + W, :] * k[dy * 3 + dx]
+            acc = acc + xp[:, dy * d : dy * d + H, dx * d : dx * d + W, :] * k[dy * 3 + dx]
     return acc.to(x.dtype)
+
+
+def depthwise3x3_plain(x: torch.Tensor, k9: torch.Tensor) -> torch.Tensor:
+    """Kernel #1's arithmetic: the plain version at dilation 1."""
+    return depthwise3x3_dilated_plain(x, k9, 1)
 
 
 def depthwise3x3_wgrad_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -124,6 +135,31 @@ def depthwise3x3_forward(x: torch.Tensor, k9: torch.Tensor) -> torch.Tensor:
     out = _launch_forward(x, k9)
     global launches
     launches += 1
+    return out
+
+
+def depthwise3x3_dilated_forward(x: torch.Tensor, k9: torch.Tensor, d: int) -> torch.Tensor:
+    """The forward at dilation ``d`` ≥ 1 ("same" zero padding d), no
+    autograd: kernel #9 on the card, the plain version on the CPU. x as
+    for ``depthwise3x3_forward`` (NHWC-contiguous on the card, never
+    copied)."""
+    if d < 1:
+        raise ValueError(f"depthwise3x3_dilated: dilation must be ≥ 1, got {d}")
+    if not _on_card(x, "depthwise3x3_dilated"):
+        return depthwise3x3_dilated_plain(x, k9, d)
+    B, H, W, C = x.shape
+    _check_nhwc(x, k9, (9, C), "depthwise3x3_dilated")
+    out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    vec = _vector_width(C, x.element_size(), x, k9, out)
+    lib = _build.library()
+    err = lib.seghiero_dw3x3_dil_fwd(
+        x.data_ptr(), k9.data_ptr(), out.data_ptr(), B, H, W, C, d,
+        _build.dtype_code(x.dtype), vec, x.device.index,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(lib, err, "depthwise3x3_dilated")
+    global dilated_launches
+    dilated_launches += 1
     return out
 
 

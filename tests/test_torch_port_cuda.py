@@ -158,6 +158,50 @@ def test_depthwise_weight_gets_a_gradient_on_the_card():
     torch.testing.assert_close(x.grad, x2.grad, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.gpu
+def test_dilated_depthwise_kernel_equals_plain_version():
+    """Card-only: the dilated forward (#9) against its plain version, bit
+    for bit (the same f32 order, no FMA; the padding terms it skips are ±0),
+    at the ASPP's dilations on the served stride-8 map [4,128,128,2048] and
+    config 4's odd [2,97,97,2048], and at ragged sizes (d ≥ H, vectors
+    narrower than 16 bytes, misaligned pointers); one launch counted a call,
+    none for a CPU tensor; the model's route takes it under inference only."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(2)
+    cases = [(shape, d) for shape in ((4, 128, 128, 2048), (2, 97, 97, 2048))
+             for d in (2, 12, 24, 36)]
+    cases += [(shape, d) for shape in DW_RAGGED for d in (2, 12, 36)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape, d in cases:
+            for misaligned in (False, True) if shape[-1] < 2048 else (False,):
+                if misaligned:
+                    x = _randn_misaligned(shape, gen, dev, dtype)
+                else:
+                    x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+                k9 = torch.randn((9, shape[-1]), generator=gen, device=dev).to(dtype)
+                before = port_dw.dilated_launches
+                got = port_dw.depthwise3x3_dilated_forward(x, k9, d)
+                assert port_dw.dilated_launches == before + 1
+                assert torch.equal(got, port_dw.depthwise3x3_dilated_plain(x, k9, d)), (
+                    dtype, shape, d, misaligned)
+    before = port_dw.dilated_launches
+    port_dw.depthwise3x3_dilated_forward(torch.randn(1, 9, 9, 4), torch.randn(9, 4), 12)
+    assert port_dw.dilated_launches == before
+    with pytest.raises(ValueError, match="refusing to copy"):
+        port_dw.depthwise3x3_dilated_forward(torch.randn((1, 8, 8, 4), device=dev).transpose(1, 2),
+                                             torch.randn((9, 4), device=dev), 2)
+
+    conv = DepthwiseConv(64, 3, 12, use_kernel=True).to(dev, memory_format=torch.channels_last)
+    x = torch.randn(2, 64, 30, 20, device=dev).to(memory_format=torch.channels_last)
+    counts = (port_dw.launches, port_dw.dilated_launches)
+    with torch.inference_mode():
+        y = conv(x)
+    assert (port_dw.launches, port_dw.dilated_launches) == (counts[0], counts[1] + 1)
+    y_grad = conv(x.clone().requires_grad_())  # autograd needs a backward: cuDNN
+    assert (port_dw.launches, port_dw.dilated_launches) == (counts[0], counts[1] + 1)
+    torch.testing.assert_close(y, y_grad.detach(), rtol=1e-5, atol=1e-5)
+
+
 CLASSES = {"coarse_to_fine_map": [[0, 3], [4, 6], [7], [8]],
            "fine_names": {i: f"f{i}" for i in range(9)}}
 # hierarchies beyond config 2's, each with the (B, h, w) it runs at: 18 + 2

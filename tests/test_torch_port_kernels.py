@@ -7,6 +7,7 @@ are held against the plain versions by tests/test_torch_port_cuda.py (on
 the card) and by chip_smoke.py at the serving shapes.
 """
 
+import functools
 import itertools
 import os
 import re
@@ -83,6 +84,46 @@ def test_depthwise_matches_grouped_conv_in_torch():
         x.permute(0, 3, 1, 2), k9.t().reshape(5, 1, 3, 3), padding=1, groups=5
     ).permute(0, 2, 3, 1)
     torch.testing.assert_close(port_dw.depthwise3x3(x, k9), want, rtol=0, atol=1e-6)
+
+
+@functools.partial(jax.jit, static_argnums=2)
+def _jax_dilated_conv(x, k9, d):
+    C = x.shape[-1]
+    return jax.lax.conv_general_dilated(
+        x, k9.reshape(3, 3, 1, C), (1, 1), ((d, d), (d, d)), rhs_dilation=(d, d),
+        dimension_numbers=("NHWC", "HWIO", "NHWC"), feature_group_count=C,
+    )
+
+
+# the ASPP's dilated branches: d ≥ H/2 puts whole tap rows and columns in
+# the padding (d = 36 on 40 rows: every row loses one), odd C and C that is
+# not a multiple of 8, H and W not multiples of d
+DILATED_CASES = [((2, 9, 7, 3), 2), ((1, 13, 11, 10), 12), ((1, 40, 38, 5), 36)]
+
+
+@pytest.mark.parametrize("shape,d", DILATED_CASES, ids=[f"d{d}" for _, d in DILATED_CASES])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dilated_depthwise_plain_matches_jax_dilated_conv(shape, d, dtype):
+    """The dilated forward's plain version (kernel #9's arithmetic) against
+    the JAX package's own path for these branches, XLA's dilated grouped
+    convolution."""
+    rng = np.random.default_rng(sum(shape) + d)
+    x = rng.standard_normal(shape).astype(np.float32)
+    k9 = (rng.standard_normal((9, shape[-1])) * 0.5).astype(np.float32)
+    jdt = jnp.dtype(dtype)
+    xj, kj = jnp.asarray(x, jdt), jnp.asarray(k9, jdt)
+    tdt = getattr(torch, dtype)
+    xt = torch.from_numpy(np.array(xj.astype(jnp.float32))).to(tdt)
+    kt = torch.from_numpy(np.array(kj.astype(jnp.float32))).to(tdt)
+
+    got = port_dw.depthwise3x3_dilated_forward(xt, kt, d)
+    assert got.dtype == tdt and tuple(got.shape) == shape
+    assert torch.equal(got, port_dw.depthwise3x3_dilated_plain(xt, kt, d))
+    got = got.float().numpy()
+    want = np.asarray(_jax_dilated_conv(xj, kj, d).astype(jnp.float32))
+    # as the dilation-1 test: f32 sums in XLA's order, or one bf16 rounding
+    atol = 1e-6 if dtype == "float32" else _bf16_ulp(want)
+    np.testing.assert_allclose(got, want, rtol=0, atol=atol)
 
 
 def _logits(rng, shape, dtype):
@@ -203,10 +244,17 @@ def test_port_library_decode_agrees_with_jax_decode():
 
 def test_cpu_tensors_never_count_launches_and_other_devices_raise():
     port_dw.launches = 0
+    port_dw.dilated_launches = 0
     port_ua.launches = 0
     port_dw.depthwise3x3(torch.zeros(1, 4, 4, 3), torch.zeros(9, 3))
+    port_dw.depthwise3x3_dilated_forward(torch.zeros(1, 4, 4, 3), torch.zeros(9, 3), 2)
     port_ua.upsample_argmax(torch.zeros(1, 3, 2, 2), [(0, 3)])
-    assert port_dw.launches == 0 and port_ua.launches == 0
+    assert port_dw.launches == 0 and port_dw.dilated_launches == 0 and port_ua.launches == 0
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        port_dw.depthwise3x3_dilated_forward(torch.zeros(1, 4, 4, 3, device="meta"),
+                                             torch.zeros(9, 3, device="meta"), 2)
+    with pytest.raises(ValueError, match="dilation"):
+        port_dw.depthwise3x3_dilated_forward(torch.zeros(1, 4, 4, 3), torch.zeros(9, 3), 0)
     with pytest.raises(ValueError, match="cuda or cpu"):
         port_dw.depthwise3x3(torch.zeros(1, 4, 4, 3, device="meta"),
                              torch.zeros(9, 3, device="meta"))

@@ -21,6 +21,7 @@ from test_torch_port_threads import one_torch_thread  # noqa: F401  (autouse)
 from seghiero_torch.config import SegHieroConfig as PortConfig
 from seghiero_torch.config import load_config as port_load_config
 from seghiero_torch.infer.predictor import Predictor, resolve_device
+from seghiero_torch.models import heads as port_heads
 from seghiero_torch.models.convert import (
     export_reference_checkpoint,
     load_reference_checkpoint,
@@ -109,6 +110,47 @@ def test_eval_forward_matches_jax(depth, output_stride, dilations):
     for key in ref:
         tol = 1e-4 * (1 + np.abs(ref[key]).max())
         assert np.abs(outs["xla"][key] - outs["pallas"][key]).max() <= tol
+
+
+def test_dilated_depthwise_routes_by_whether_a_backward_is_needed(monkeypatch):
+    """With ``depthwise_backend: pallas`` the ASPP's dilated depthwise
+    convolutions take the dilated forward (here its plain version) where
+    autograd needs no backward from them, and ``F.conv2d`` where it does;
+    both give the same values, and the backward still reaches the weight."""
+    model = port_build_model(PortConfig.from_dict(_cfg_dict(18, 32, (1, 12, 24, 36), "pallas")))
+    dilated = [m for m in model.modules()
+               if isinstance(m, port_heads.DepthwiseConv) and m.dilation[0] > 1]
+    assert [m.dilation[0] for m in dilated] == [12, 24, 36] and all(m.use_kernel
+                                                                   for m in dilated)
+    conv = dilated[0]
+    routes = []
+    kernel, library = port_heads.depthwise3x3_dilated_forward, port_heads.F.conv2d
+    monkeypatch.setattr(port_heads, "depthwise3x3_dilated_forward",
+                        lambda *a: routes.append("kernel") or kernel(*a))
+    monkeypatch.setattr(port_heads.F, "conv2d",
+                        lambda *a, **k: routes.append("conv2d") or library(*a, **k))
+    x = torch.randn(2, conv.in_channels, 13, 11)
+
+    def route(fn):
+        routes.clear()
+        out = fn()
+        return out, routes[:]
+
+    with torch.inference_mode():
+        y_inf, r = route(lambda: conv(x))
+    assert r == ["kernel"]
+    with torch.no_grad():
+        assert route(lambda: conv(x))[1] == ["kernel"]
+    xg = x.clone().requires_grad_()
+    y_grad, r = route(lambda: conv(xg))
+    assert r == ["conv2d"]
+    torch.testing.assert_close(y_inf, y_grad.detach(), rtol=1e-5, atol=1e-6)
+    y_grad.square().sum().backward()
+    assert conv.weight.grad is not None and conv.weight.grad.abs().sum() > 0
+    assert xg.grad is not None
+    # grad on, but neither the input nor the weight asks for one
+    conv.weight.requires_grad_(False)
+    assert route(lambda: conv(x))[1] == ["kernel"]
 
 
 def test_outputs_argument_skips_unused_heads():
