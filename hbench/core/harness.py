@@ -13,6 +13,7 @@ import gc
 import math
 import time
 from dataclasses import dataclass, field
+from types import ModuleType
 from typing import Dict, Optional
 
 import torch
@@ -32,15 +33,21 @@ def merge(base: Dict, patch: Dict) -> Dict:
 
 @dataclass
 class Ctx:
-    """What a driver is given."""
+    """What a driver is given: the cell, its configuration and traffic, the
+    configuration's reference module (``reference``, from its
+    ``reference`` entry), the bench (``bench.optimizer``), and whether the
+    run traces a segment (``trace``)."""
 
+    bench: spec.Bench
     cell: Dict
     config: Dict
+    reference: ModuleType
     traffic: Dict
     seed: int
     device: str
     spans: Spans
     tree: Tree
+    trace: bool = False
     overrides: Dict = field(default_factory=dict)
 
     def port_config(self, mode: str) -> Dict:
@@ -122,6 +129,18 @@ def _sync(device) -> None:
         torch.cuda.synchronize()
 
 
+def context(bench: spec.Bench, name: str, seed: int, device: str, trace: bool = False,
+            overrides: Optional[Dict] = None) -> Ctx:
+    """The ``Ctx`` that cell ``name``'s traffic driver is given, the traffic
+    patched by ``overrides``."""
+    overrides = overrides or {}
+    cell = bench.workload(name)
+    config = bench.config(cell["config"])
+    traffic = merge(bench.traffic(cell["traffic"]), overrides.get("traffic", {}))
+    return Ctx(bench, cell, config, bench.reference(config), traffic, int(seed), device,
+               Spans(), from_classes(config["classes"]), bool(trace), overrides)
+
+
 def run_cell(bench: spec.Bench, name: str, seed: int, seconds: float, trace: bool,
              device: str = "cuda", t_start: Optional[float] = None,
              control: Optional[str] = None, overrides: Optional[Dict] = None,
@@ -134,12 +153,8 @@ def run_cell(bench: spec.Bench, name: str, seed: int, seconds: float, trace: boo
     limits."""
     t_start = time.perf_counter() if t_start is None else t_start
     overrides = overrides or {}
-    cell = bench.workload(name)
-    config = bench.config(cell["config"])
-    traffic = merge(bench.traffic(cell["traffic"]), overrides.get("traffic", {}))
-    spans = Spans()
-    ctx = Ctx(cell, config, traffic, int(seed), device, spans,
-              from_classes(config["classes"]), overrides)
+    ctx = context(bench, name, seed, device, trace, overrides)
+    spans, traffic = ctx.spans, ctx.traffic
     cuda = torch.device(device).type == "cuda"
     drv = bench.driver(traffic["driver"]).Driver(ctx)
     kernels = bench.kernels()
@@ -175,7 +190,8 @@ def run_cell(bench: spec.Bench, name: str, seed: int, seconds: float, trace: boo
 
     metrics = {}
     if trace:
-        run = Run(drv.kind, kernels, res["metrics"], window_spans, res["units"], window_peak, seg, extras)
+        run = Run(drv.kind, kernels, res["metrics"], window_spans, res["units"], window_peak, seg,
+                  extras)
         for m in bench.per_layer(name):
             v = bench.metric_reader(m["name"]).read(run)
             if v is not None:

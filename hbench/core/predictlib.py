@@ -1,12 +1,14 @@
 """What the prediction cells share: the program's ``Predictor`` holding
 the harness's weights (BatchNorm statistics calibrated once from the
 seed), and the reference's check of returned masks: at every pixel, how
-far the reference's logit of the returned class lies below its best."""
+far the reference's logit of the returned class lies below its best. The
+reference is the configuration's own model module (``ctx.reference``)."""
 
 from __future__ import annotations
 
 import contextlib
 import gc
+from types import ModuleType
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -16,18 +18,19 @@ import torch.nn.functional as F
 from hbench.core import weights
 from hbench.core.trainlib import full_fp32
 from hbench.reference import compare, lowp
-from hbench.reference import model as ref_model
 from hbench.reference.train import normalize
 
 
-def seeded_weights(port: Dict, tree, seed: int, device, stats=None):
-    """The state dict for a prediction cell: seeded, then calibrated (or
-    given the BatchNorm statistics ``stats`` of an earlier calibration)."""
-    sd = weights.make(ref_model.build(port["model"], tree), seed, device)
+def seeded_weights(reference: ModuleType, port: Dict, tree, seed: int, device, stats=None):
+    """The state dict for a prediction cell of the model of ``reference``:
+    seeded, then calibrated (or given the BatchNorm statistics ``stats`` of
+    an earlier calibration)."""
+    sd = weights.make(reference.build(port["model"], tree), seed, device,
+                      reference.RESIDUAL_LAST)
     if stats is not None:
         return dict(sd, **stats)
     with full_fp32():
-        model = weights.materialize(ref_model.build(port["model"], tree), sd, device)
+        model = weights.materialize(reference.build(port["model"], tree), sd, device)
         sd = weights.calibrate_(model, sd, seed, tree.n_fine, port.get("transform", {}))
     del model
     return sd
@@ -52,9 +55,10 @@ def free(device) -> None:
 class Reference:
     """The float32 reference model (TF32 off) of a prediction cell."""
 
-    def __init__(self, port: Dict, tree, sd, device):
+    def __init__(self, reference: ModuleType, port: Dict, tree, sd, device):
         self.port, self.tree, self.device = port, tree, device
-        self.model = weights.materialize(ref_model.build(port["model"], tree), sd, device).eval()
+        self.model = weights.materialize(reference.build(port["model"], tree), sd,
+                                         device).eval()
 
     @torch.no_grad()
     def logits(self, image_u8: np.ndarray, fp8: bool = False) -> torch.Tensor:

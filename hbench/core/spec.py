@@ -1,11 +1,15 @@
 """``BENCHMARK.json`` and the files it names, found by name.
 
-* a configuration: ``configs/<name>.json`` (its ``file`` entry);
+* a configuration: ``configs/<name>.json`` (its ``file`` entry), whose
+  ``reference`` entry names its plain reference model's module;
+* the reference's optimizer update: ``reference/optim/<name>.py``, by the
+  program config's ``training.optimizer``;
 * a traffic mix: ``traffic/<name>.json``, whose ``driver`` names a module
   ``drivers/<driver>.py``;
 * a per-layer metric: ``metrics/<name>.py`` with ``read(run)``;
 * a kernel's work: every ``kernels/*.py``;
-* a cell's correctness limits: ``limits/<cell>.json``.
+* a cell's correctness limits: ``limits/<cell>.json``;
+* a cell's tiny CPU rehearsal: ``rehearsal/<cell>.json``.
 
 Adding any of them is adding a file and an entry; nothing here changes.
 """
@@ -54,11 +58,26 @@ class Bench:
                 return dict(json.loads((self.root / c["file"]).read_text()), name=name)
         raise KeyError(f"no config {name!r} in BENCHMARK.json")
 
+    def reference(self, config: Dict) -> ModuleType:
+        """The plain reference model's module that ``config`` (``config()``)
+        names: ``build(model_cfg, tree)``, ``RESIDUAL_LAST``
+        (``hbench/README.md``)."""
+        return load_module(self.root / config["reference"], f"hbench_reference_{config['name']}")
+
+    def optimizer(self, name: str) -> ModuleType:
+        """The reference's update of optimizer ``name``: ``update(params,
+        grads, state, training, step)``."""
+        return load_module(self.home / "reference" / "optim" / f"{name}.py", f"hbench_optim_{name}")
+
     def traffic(self, name: str) -> Dict:
         return json.loads((self.home / "traffic" / f"{name}.json").read_text())
 
     def limits(self, cell: str) -> Dict:
         return json.loads((self.home / "limits" / f"{cell}.json").read_text())
+
+    def rehearsal(self, cell: str) -> Dict:
+        """The cell's tiny overrides for the CPU rehearsal."""
+        return json.loads((self.home / "rehearsal" / f"{cell}.json").read_text())
 
     def end_to_end(self, cell: str) -> List[Dict]:
         return [m for m in self.spec["end_to_end"] if cell in m.get("workloads", [cell])]

@@ -7,7 +7,9 @@ harness's seeded weights, and runs the first three steps through the
 window's own call and feed: they warm every shape up, and their readings
 (each loss, the first gradient as the optimizer took it, each parameter's
 change after the three) are what the reference is held to after the
-window. The window then carries on with the same objects.
+window. The window then carries on with the same objects. The reference
+is the configuration's own model (``ctx.reference``) with the update of
+its ``training.optimizer`` (``reference/optim/<name>.py``).
 """
 
 from __future__ import annotations
@@ -23,8 +25,7 @@ import torch
 
 from hbench.core import flops, geometry, syncs, weights
 from hbench.reference import compare, lowp
-from hbench.reference import model as ref_model
-from hbench.reference.train import sgd_steps
+from hbench.reference.train import train_steps
 
 PRE_STEPS = 3
 
@@ -74,7 +75,7 @@ class TrainDriver:
         c = self.ctx
         self.cfg = cfg = SegHieroConfig.from_dict(self.port)
         check_step_options(cfg)
-        sd = weights.make(ref_model.build(self.port["model"], c.tree), c.seed, self.dev)
+        sd = self._weights()
         with torch.device(self.dev):
             model = build_model(cfg)
         if self.dev.type == "cuda":
@@ -86,29 +87,43 @@ class TrainDriver:
         self.scheduler = make_schedule(cfg.training, 10**9, self.optimizer)
         self.step = 0
         self.feed = self.make_feed()
+        if c.trace:  # the kernel counts' reference pass, before the traced segment
+            self.unit = geometry.unit(self.batch_size, self.hw, c.tree, c.reference,
+                                      self.port["model"], train=True)
         names = {id(p): n for n, p in model.named_parameters()}
         self.kept, losses, seen = [], [], []
         hook = model.register_forward_hook(
             lambda m, args, out: seen.append(out["logits"].detach().float().clone())
             if not seen else None)
+
+        taken = {names[id(p)]: p for g in self.optimizer.param_groups for p in g["params"]}
+        first = {}  # the gradients the optimizer's first step takes, after the clip
+
+        def first_grads(optimizer, args, kwargs):
+            first.update({n: p.grad.detach().clone() for n, p in taken.items()
+                          if p.grad is not None})
+
+        pre = self.optimizer.register_step_pre_hook(first_grads)
         for s in range(PRE_STEPS):
             batch = self.next_batch()
             self.kept.append({k: batch[k].clone() for k in ("image", "fine")})
             losses.append(self._step(batch)["loss"])
             if s == 0:
                 hook.remove()
+                pre.remove()
                 self.logits = seen[0]
-                grads = {}
-                for group in self.optimizer.param_groups:
-                    for p in group["params"]:
-                        buf = self.optimizer.state.get(p, {}).get("momentum_buffer")
-                        grads[names[id(p)]] = (torch.zeros_like(p) if buf is None else
-                                               buf - group["weight_decay"] * sd[names[id(p)]])
-                self.grad_norms = _norms(grads)
-                del grads
+                # a step that never reached the optimizer took no gradient
+                self.grad_norms = _norms({n: first[n] if n in first else torch.zeros_like(p)
+                                          for n, p in taken.items()})
+                del first
         self.change_norms = _norms({n: p.detach() - sd[n] for n, p in model.named_parameters()})
         self.losses = [float(x) for x in losses]
         del sd
+
+    def _weights(self):
+        c = self.ctx
+        return weights.make(c.reference.build(self.port["model"], c.tree), c.seed, self.dev,
+                            c.reference.RESIDUAL_LAST)
 
     def _step(self, batch):
         from seghiero_torch.train.steps import train_step
@@ -144,12 +159,12 @@ class TrainDriver:
                 self._step(batch)
             fines.append(batch["fine"])
         sync(self.dev)
-        return [geometry.unit(self.batch_size, self.hw, self.ctx.tree, self.port["model"],
-                              valid=int((f != 255).sum())) for f in fines]
+        return [dict(self.unit, valid=int((f != 255).sum())) for f in fines]
 
     def trace_extras(self) -> Dict:
         n, where = syncs.audit(lambda: self._step(self.next_batch()))
-        fl = flops.per_image(ref_model.build(self.port["model"], self.ctx.tree), self.hw, True)
+        fl = flops.per_image(self.ctx.reference.build(self.port["model"], self.ctx.tree), self.hw,
+                             True)
         return {"host_syncs": n, "host_sync_lines": where, "flops_per_image": fl}
 
     def release(self) -> None:
@@ -164,7 +179,9 @@ class TrainDriver:
                    training=None):
         c = self.ctx
         tr = self.port["transform"]
-        model = weights.materialize(ref_model.build(self.port["model"], c.tree), sd, self.dev)
+        training = training or self.port["training"]
+        update = c.bench.optimizer(training.get("optimizer", "sgd")).update
+        model = weights.materialize(c.reference.build(self.port["model"], c.tree), sd, self.dev)
         coins = None
         if tr.get("device_hflip") and float(tr.get("hflip_prob", 0.5)) > 0:
             seed, prob = int(self.port["training"]["seed"]), float(tr.get("hflip_prob", 0.5))
@@ -173,16 +190,15 @@ class TrainDriver:
                 return flip_coins(seed, step, b, prob, self.dev)
         ctx = lowp.fp8() if precision == "fp8" else contextlib.nullcontext()
         with ctx:
-            losses, first, changes, logits = sgd_steps(model, training or self.port["training"],
-                                                       tr, c.tree, batches, coins, forward)
+            losses, first, changes, logits = train_steps(model, update, training, tr, c.tree,
+                                                         batches, coins, forward)
         out = {"losses": losses, "grad_norms": _norms(first), "change_norms": _norms(changes),
                "logits": logits}
         del model, first, changes
         return out
 
     def check(self, control: bool = False) -> Dict:
-        c = self.ctx
-        sd = weights.make(ref_model.build(self.port["model"], c.tree), c.seed, self.dev)
+        sd = self._weights()
         prog = {"losses": self.losses, "grad_norms": self.grad_norms,
                 "change_norms": self.change_norms, "logits": self.logits}
         with full_fp32():

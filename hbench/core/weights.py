@@ -1,20 +1,22 @@
 """Weights from the seed, on the device, in a few large calls: one normal
-draw for every convolution weight (then scaled to lecun-normal, std
-1/√fan_in) and every bias and BatchNorm shift (std 0.1), one uniform draw
-for the BatchNorm scales (0.5–1.5; a tenth of that on the last BatchNorm
-of each residual branch, ``bn3``, after torchvision's
-``zero_init_residual``: at 1.0 the random 100-layer net is chaotic, a
-one-level change of an input pixel moving its logits by half their
-spread, and no comparison could tell bf16 from fp8). Running statistics start at 0 / 1;
-``calibrate_`` sets them from one train-mode pass (momentum 1) over
-seeded images, so activations keep a realistic scale through 100 layers
-in eval mode. The state dict uses the reference checkpoint's names and
-loads into the reference model and the program's alike."""
+draw for every weight of two or more dimensions (then scaled to
+lecun-normal, std 1/√fan_in) and every bias and norm shift (std 0.1), one
+uniform draw for the norm scales (0.5–1.5). The last layer of each
+residual branch, named by the reference module's ``RESIDUAL_LAST``
+fragments, is drawn at a tenth: its scales or, where no norm follows it,
+its weights (ResNet's ``bn3``, after torchvision's ``zero_init_residual``:
+at 1.0 the random 100-layer net is chaotic, a one-level change of an input
+pixel moving its logits by half their spread, and no comparison could
+tell bf16 from fp8). Running statistics start at 0 / 1; ``calibrate_``
+sets them from one train-mode pass (momentum 1) over seeded images, so
+activations keep a realistic scale through 100 layers in eval mode. The
+state dict uses the reference checkpoint's names and loads into the
+reference model and the program's alike."""
 
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Sequence
 
 import torch
 from torch import nn
@@ -25,8 +27,11 @@ from hbench.reference.train import normalize
 RESIDUAL_GAIN = 0.1
 
 
-def make(model: nn.Module, seed: int, device) -> Dict[str, torch.Tensor]:
-    """A state dict for ``model`` (built on the meta device) from ``seed``."""
+def make(model: nn.Module, seed: int, device,
+         residual_last: Sequence[str] = ()) -> Dict[str, torch.Tensor]:
+    """A state dict for ``model`` (built on the meta device) from ``seed``;
+    the scales and weights whose names hold a fragment of
+    ``residual_last`` at a tenth."""
     gen = scene.generator(seed, device, stream=17)
     sd = {k: v for k, v in model.state_dict().items()}
     normal = [k for k, v in sd.items() if v.is_floating_point()
@@ -35,16 +40,20 @@ def make(model: nn.Module, seed: int, device) -> Dict[str, torch.Tensor]:
     scales = [k for k, v in sd.items() if k.endswith(".weight") and v.ndim == 1]
     z = torch.randn(sum(sd[k].numel() for k in normal), generator=gen, device=device)
     u = torch.rand(sum(sd[k].numel() for k in scales), generator=gen, device=device)
+
+    def gain(k):
+        return RESIDUAL_GAIN if any(f in k for f in residual_last) else 1.0
+
     out, i = {}, 0
     for k in normal:
         n = sd[k].numel()
-        std = 1.0 / math.sqrt(sd[k][0].numel()) if sd[k].ndim == 4 else 0.1
+        std = gain(k) / math.sqrt(sd[k][0].numel()) if sd[k].ndim >= 2 else 0.1
         out[k] = (z[i:i + n] * std).view(sd[k].shape)
         i += n
     i = 0
     for k in scales:
         n = sd[k].numel()
-        out[k] = (u[i:i + n] + 0.5).view(sd[k].shape) * (RESIDUAL_GAIN if ".bn3." in k else 1.0)
+        out[k] = (u[i:i + n] + 0.5).view(sd[k].shape) * gain(k)
         i += n
     for k, v in sd.items():
         if k.endswith("running_mean"):

@@ -13,7 +13,6 @@ import numpy as np
 import torch
 
 from hbench.core import flops, geometry, predictlib, scene
-from hbench.reference import model as ref_model
 
 
 class Driver:
@@ -29,7 +28,7 @@ class Driver:
 
     def setup(self) -> None:
         c = self.ctx
-        sd = predictlib.seeded_weights(self.port, c.tree, c.seed, self.dev)
+        sd = predictlib.seeded_weights(c.reference, self.port, c.tree, c.seed, self.dev)
         self.bn_stats = {k: v.clone() for k, v in sd.items() if k.endswith(("running_mean",
                                                                            "running_var"))}
         self.pred = predictlib.predictor(self.port, sd, self.dev)
@@ -41,6 +40,8 @@ class Driver:
         self.rng = np.random.default_rng(np.random.SeedSequence([int(c.seed), 5]))
         for _ in range(2):
             self._call()
+        if c.trace:  # the kernel counts' reference pass, before the traced segment
+            self.unit = geometry.unit(self.batch, self.hw, c.tree, c.reference, self.port["model"])
 
     def _group(self, i: int) -> np.ndarray:
         groups = self.n_pool // self.batch
@@ -75,12 +76,11 @@ class Driver:
     def segment(self, calls: int):
         for _ in range(calls):
             self._call()
-        return [geometry.unit(self.batch, self.hw, self.ctx.tree, self.port["model"])
-                for _ in range(calls)]
+        return [self.unit] * calls
 
     def trace_extras(self):
         return {"flops_per_image": flops.per_image(
-            ref_model.build(self.port["model"], self.ctx.tree), self.hw, False)}
+            self.ctx.reference.build(self.port["model"], self.ctx.tree), self.hw, False)}
 
     def release(self) -> None:
         del self.pred
@@ -88,8 +88,9 @@ class Driver:
 
     def check(self, control: bool = False):
         c = self.ctx
-        sd = predictlib.seeded_weights(self.port, c.tree, c.seed, self.dev, self.bn_stats)
-        ref = predictlib.Reference(self.port, c.tree, sd, self.dev)
+        sd = predictlib.seeded_weights(c.reference, self.port, c.tree, c.seed, self.dev,
+                                       self.bn_stats)
+        ref = predictlib.Reference(c.reference, self.port, c.tree, sd, self.dev)
         del sd
         gap, low = 0.0, 0.0
         for call, masks in self.sample:

@@ -1,15 +1,12 @@
 """Kernel #1b, the depthwise convolution's input gradient (the same
 kernel with reversed taps): the output gradient read, the input gradient
-written, the taps; two launches a training step."""
+written, the taps; one launch a training step for each depthwise 3x3 of
+dilation 1 that the reference model runs."""
 
 COUNTER = ("seghiero_torch.ops.depthwise", "dgrad_launches")
 NAMES = ('dw3x3_fwd_kernel',)
 
 
 def launches(u):
-    B, (h, w) = u["batch"], u["hw4"]
-    out = []
-    for C in (u["aspp_channels"] + u["c1_channels"], u["aspp_channels"]):
-        n = B * h * w * C
-        out.append({"bytes": 2 * n * 2 + 9 * C * 2, "flops": 18 * n})
-    return out
+    return [{"bytes": 2 * (B * H * W * C) * 2 + 9 * C * 2, "flops": 18 * (B * H * W * C)}
+            for B, H, W, C, dilation in u["depthwise"] if dilation == 1]

@@ -26,6 +26,9 @@ from hbench.reference import lowp
 
 STAGE_BLOCKS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}
 BN_EPS = 1e-5
+# the last BatchNorm of each residual branch: its scales are drawn at a
+# tenth (``hbench.core.weights``)
+RESIDUAL_LAST = (".bn3.",)
 
 
 def conv(x: torch.Tensor, w: torch.Tensor, b=None, stride=1, padding=0, dilation=1,

@@ -1,9 +1,11 @@
 """The reference's training steps: the plain model and losses in float32
-(TF32 off), SGD with momentum written out, on the batches the program's
-first steps took. Returns what the comparison reads: each step's loss,
-the first step's gradients as the optimizer takes them (after the global
-norm clip, before weight decay), and each parameter's change after the
-steps."""
+(TF32 off), on the batches the program's first steps took, with the
+optimizer's update written out in ``reference/optim/<name>.py``
+(``update(params, grads, state, training, step)``, found by the program
+config's ``training.optimizer``). Returns what the comparison reads: each
+step's loss, the first step's gradients as the optimizer takes them (after
+the global norm clip, before weight decay), and each parameter's change
+after the steps."""
 
 from __future__ import annotations
 
@@ -30,13 +32,14 @@ def normalize(images_u8: torch.Tensor, transform: Dict) -> torch.Tensor:
 
 def param_setting(name: str, p: torch.Tensor, training: Dict):
     """(learning rate, weight decay) of a parameter: the backbone at
-    ``lr · backbone_lr_scale``; with ``wd_skip_norm_bias`` decay on
-    convolution weights only."""
+    ``lr · backbone_lr_scale``; with ``wd_skip_norm_bias`` decay on the
+    weights of two or more dimensions only (convolutions and linear
+    layers), as the program's ``param_groups``."""
     lr = float(training.get("lr", 1e-3))
     if name.startswith("backbone."):
         lr *= float(training.get("backbone_lr_scale", 1.0))
     wd = float(training.get("weight_decay", 1e-4))
-    if training.get("wd_skip_norm_bias") and p.ndim != 4:
+    if training.get("wd_skip_norm_bias") and p.ndim < 2:
         wd = 0.0
     return lr, wd
 
@@ -51,21 +54,23 @@ def fast_stores(training: Dict) -> Dict[str, bool]:
             "low_rmi": training.get("rmi_precision", "parity") == "fast"}
 
 
-def sgd_steps(model: torch.nn.Module, training: Dict, transform: Dict, tree: Tree,
-              batches: List[Dict[str, torch.Tensor]],
-              coins: Optional[Callable[[int, int], torch.Tensor]] = None,
-              forward=contextlib.nullcontext):
-    """Run ``len(batches)`` SGD steps from the model's parameters. ``coins``
-    gives the flip of each sample of a step (``transform.device_hflip``);
-    ``forward`` is entered around the model's forward pass alone (a bf16
-    autocast makes the bf16 witness of ``PERF.md``). Returns ``(losses,
-    first_grads, changes, first_logits)``, the middle two by name."""
+def train_steps(model: torch.nn.Module, update: Callable, training: Dict, transform: Dict,
+                tree: Tree, batches: List[Dict[str, torch.Tensor]],
+                coins: Optional[Callable[[int, int], torch.Tensor]] = None,
+                forward=contextlib.nullcontext):
+    """Run ``len(batches)`` steps from the model's parameters: forward,
+    loss, backward and the global norm clip here, the parameters' update
+    by ``update(params, grads, state, training, step)`` (an optimizer's
+    module under ``reference/optim/``). ``coins`` gives the flip of each
+    sample of a step (``transform.device_hflip``); ``forward`` is entered
+    around the model's forward pass alone (a bf16 autocast makes the bf16
+    witness of ``PERF.md``). Returns ``(losses, first_grads, changes,
+    first_logits)``, the middle two by name."""
     model.train()
     params = dict(model.named_parameters())
     p0 = {k: v.detach().clone() for k, v in params.items()}
-    mom = float(training.get("momentum", 0.9))
     clip = training.get("grad_clip_norm")
-    bufs: Dict[str, torch.Tensor] = {}
+    state: Dict = {}
     losses, first, first_logits = [], None, None
     for step, batch in enumerate(batches):
         images, fine = batch["image"], batch["fine"].long()
@@ -90,11 +95,7 @@ def sgd_steps(model: torch.nn.Module, training: Dict, transform: Dict, tree: Tre
         if step == 0:
             first = {k: g.detach().clone() for k, g in grads.items()}
         with torch.no_grad():
-            for k, p in params.items():
-                lr, wd = param_setting(k, p, training)
-                d = grads[k] + wd * p
-                bufs[k] = d if step == 0 else mom * bufs[k] + d
-                p -= lr * bufs[k]
+            update(params, grads, state, training, step)
         losses.append(float(loss.detach()))
     changes = {k: (p.detach() - p0[k]) for k, p in params.items()}
     return losses, first, changes, first_logits

@@ -1,8 +1,9 @@
-"""Each cell rehearsed end to end on the CPU at a tiny size through
-``harness.run_cell`` (set-up, window, traced segment, the reference's
-check), the control and the faults a cell can have coming out not
-correct, the benchmark taking a made-up extra cell from files alone, and
-``run.py`` refusing to run without a card.
+"""Each cell of ``BENCHMARK.json`` rehearsed end to end on the CPU at the
+tiny size of its ``rehearsal/<cell>.json`` through ``harness.run_cell``
+(set-up, window, traced segment, the reference's check), the control and
+the faults a cell can have coming out not correct, the benchmark taking a
+made-up configuration and cell from files alone, the reference's
+optimizer found by name, and ``run.py`` refusing to run without a card.
 
     python -m pytest hbench/tests -q
 """
@@ -19,26 +20,17 @@ import torch
 from hbench.core import harness, spec
 from hbench.reference import lowp
 
-TINY = {
-    "r101-3level.train-769": {
-        "modes": {"train": {"model": {"depth": 50}, "transform": {"resize": [64, 64]},
-                            "training": {"batch_size": 4}}},
-        "traffic": {"pool_batches": 4, "trace_units": 1}},
-    "r50-2level.train-files": {
-        "modes": {"train": {"transform": {"resize": [64, 64]},
-                            "training": {"batch_size": 4, "num_workers": 2}}},
-        "traffic": {"frames": 8, "frame_hw": [64, 128], "trace_units": 1}},
-    "r101-3level.infer-1024": {
-        "modes": {"infer": {"model": {"depth": 50}, "transform": {"resize": [64, 64]}}},
-        "traffic": {"batch": 2, "pool": 4, "sample": 1, "trace_units": 1},
-        # the widest gap grows with the pixels it is taken over: at 64^2 on
-        # the CPU the program read 0.04-0.12 and the fp8 control 0.8-1.5
-        # (seeds 11, 12, SEED), so the rehearsal's limit lies between
-        "limits": {"mask_gap": {"limit": 0.4}}},
-}
-CELLS = list(TINY)
 SEED = 3_000_000_019  # above 2**31, as the driver's are
 BENCH = spec.Bench()
+CELLS = [w["name"] for w in BENCH.spec["workloads"]]
+
+
+def _kind(bench, cell):
+    return bench.driver(bench.traffic(bench.workload(cell)["traffic"])["driver"]).Driver.kind
+
+
+TRAIN = [c for c in CELLS if _kind(BENCH, c) == "train"]
+INFER = [c for c in CELLS if _kind(BENCH, c) == "infer"]
 
 
 @pytest.fixture(autouse=True)
@@ -50,13 +42,18 @@ def _few_threads():
 
 
 def rehearse(cell, trace=False, control=None, bench=None, overrides=None):
-    return harness.run_cell(bench or BENCH, cell, SEED, 0.5, trace, device="cpu",
-                            overrides=overrides or TINY[cell], control=control,
+    bench = bench or BENCH
+    return harness.run_cell(bench, cell, SEED, 0.5, trace, device="cpu",
+                            overrides=overrides or bench.rehearsal(cell), control=control,
                             say=lambda _: None)
 
 
 def test_every_cell_of_the_benchmark_is_rehearsed():
-    assert sorted(CELLS) == sorted(w["name"] for w in BENCH.spec["workloads"])
+    """Every cell has its rehearsal file, whose overrides patch only what a
+    run reads."""
+    for cell in CELLS:
+        ov = BENCH.rehearsal(cell)
+        assert set(ov) <= {"modes", "traffic", "limits", "note"}, cell
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -88,9 +85,6 @@ def test_the_fp8_control_in_the_programs_place_is_not_correct(cell):
     assert list(out)[-1] == "checks"
 
 
-TRAIN = ["r101-3level.train-769", "r50-2level.train-files"]
-
-
 @pytest.mark.parametrize("cell", TRAIN)
 def test_a_step_that_leaves_its_state_unchanged_is_not_correct(cell, monkeypatch):
     from seghiero_torch.train import steps
@@ -118,7 +112,8 @@ def test_half_the_batch_left_out_is_not_correct(cell, monkeypatch):
     assert rehearse(cell)["correct"] is False
 
 
-def test_an_answer_altered_where_it_is_produced_is_not_correct(monkeypatch):
+@pytest.mark.parametrize("cell", INFER)
+def test_an_answer_altered_where_it_is_produced_is_not_correct(cell, monkeypatch):
     from seghiero_torch.infer import predictor
 
     real = predictor.decode_masks
@@ -132,7 +127,7 @@ def test_an_answer_altered_where_it_is_produced_is_not_correct(monkeypatch):
         return dict(masks, fine=fine)
 
     monkeypatch.setattr(predictor, "decode_masks", altered)
-    assert rehearse("r101-3level.infer-1024")["correct"] is False
+    assert rehearse(cell)["correct"] is False
 
 
 def test_the_control_precision_rounds_to_fp8():
@@ -143,38 +138,107 @@ def test_the_control_precision_rounds_to_fp8():
     assert torch.allclose(x.grad, torch.ones_like(x))
 
 
-def test_a_made_up_extra_cell_needs_only_new_files(tmp_path):
-    """A new traffic mix (the inference driver at another batch), a new
-    per-layer metric, a new kernel count and the new cell's limits, as
-    files beside copies of the harness's, plus entries in the spec."""
+# a made-up configuration's reference module: reference/model.py's model,
+# with residual-last names of its own, leaving a mark where it is built
+MADE_UP_REFERENCE = '''from pathlib import Path
+
+from hbench.reference import model as _model
+from hbench.reference.model import *  # noqa: F401,F403
+
+RESIDUAL_LAST = (".bn3.", "aux_head.1.")
+
+
+def build(model_cfg, tree):
+    Path(__file__).with_suffix(".built").write_text(repr(RESIDUAL_LAST))
+    return _model.build(model_cfg, tree)
+'''
+
+# a made-up optimizer's update: plain SGD, leaving a mark at each step
+PLAIN_SGD = '''from pathlib import Path
+
+
+def update(params, grads, state, training, step):
+    state.setdefault("steps", []).append(step)
+    Path(__file__).with_suffix(".steps").write_text(repr(state["steps"]))
+    for k, p in params.items():
+        p -= float(training["lr"]) * grads[k]
+'''
+
+
+def _harness_copy(tmp_path):
+    """A copy of the harness under ``tmp_path/hbench`` and the spec."""
     home = tmp_path / "hbench"
     shutil.copytree(spec.HBENCH, home, ignore=shutil.ignore_patterns("tests", "__pycache__",
                                                                     ".cache"))
+    return home, json.loads((spec.ROOT / "BENCHMARK.json").read_text())
+
+
+def test_a_made_up_extra_cell_needs_only_new_files(tmp_path):
+    """A made-up configuration (its own reference module, which re-exports
+    ``reference/model.py`` with its own ``RESIDUAL_LAST``), a new traffic
+    mix (the inference driver at another batch), a new per-layer metric, a
+    new kernel count, and the new cell's rehearsal and limits, as files
+    beside copies of the harness's, plus entries in the spec."""
+    home, s = _harness_copy(tmp_path)
+    config = json.loads((home / "configs" / "r101-3level.json").read_text())
+    config["reference"] = "hbench/reference/made_up.py"
+    (home / "configs" / "made-up.json").write_text(json.dumps(config))
+    (home / "reference" / "made_up.py").write_text(MADE_UP_REFERENCE)
     (home / "traffic" / "infer-odd.json").write_text(json.dumps(
         {"driver": "infer_batch", "batch": 3, "pool": 6, "sample": 1, "trace_units": 1}))
-    (home / "limits" / "r101-3level.infer-odd.json").write_text(
+    rehearsal = BENCH.rehearsal("r101-3level.infer-1024")
+    rehearsal["traffic"] = {}
+    (home / "rehearsal" / "made-up.infer-odd.json").write_text(json.dumps(rehearsal))
+    (home / "limits" / "made-up.infer-odd.json").write_text(
         (home / "limits" / "r101-3level.infer-1024.json").read_text())
     (home / "metrics" / "calls.infer.py").write_text(
         "def read(run):\n    return run.units if run.kind == 'infer' else None\n")
     (home / "kernels" / "made_up.py").write_text(
         'COUNTER = ("seghiero_torch.ops.upsample_argmax", "launches")\n'
         'NAMES = ("made_up_kernel",)\n\n\ndef launches(u):\n    return []\n')
-    s = json.loads((spec.ROOT / "BENCHMARK.json").read_text())
-    s["workloads"].append({"name": "r101-3level.infer-odd", "config": "r101-3level",
+    s["configs"].append({"name": "made-up", "source": "https://example.org/made-up",
+                         "file": "hbench/configs/made-up.json", "reduced": [], "why": "a test"})
+    s["workloads"].append({"name": "made-up.infer-odd", "config": "made-up",
                            "traffic": "infer-odd", "chips": 1, "why": "a test"})
     next(m for m in s["end_to_end"] if m["name"] == "infer_images_per_s")["workloads"].append(
-        "r101-3level.infer-odd")
+        "made-up.infer-odd")
     s["per_layer"].append({"name": "calls.infer", "unit": "count", "better": "higher",
                            "source": "host_clock", "layer": "predictor",
-                           "moves": "infer_images_per_s",
-                           "workloads": ["r101-3level.infer-odd"]})
-    bench = spec.Bench(spec.ROOT / "BENCHMARK.json", spec=s, home=home)
+                           "moves": "infer_images_per_s", "workloads": ["made-up.infer-odd"]})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(s))
+    bench = spec.Bench(tmp_path / "BENCHMARK.json", home=home)
     assert "made_up" in bench.kernels()
-    ov = json.loads(json.dumps(TINY["r101-3level.infer-1024"]))
-    ov["traffic"] = {}
-    out = rehearse("r101-3level.infer-odd", trace=True, bench=bench, overrides=ov)
+    out = rehearse("made-up.infer-odd", trace=True, bench=bench)
+    # the made-up reference module was the one built, for the program's
+    # weights and for the reference's check
+    assert (home / "reference" / "made_up.built").read_text() == repr((".bn3.", "aux_head.1."))
     assert out["metrics"]["calls.infer"]["value"] >= 1
     assert out["attempted"] % 3 == 0
+
+
+@pytest.mark.parametrize("cell", TRAIN)
+def test_the_reference_optimizer_is_found_by_name(cell, tmp_path):
+    """``training.optimizer`` names ``reference/optim/<name>.py``: a made-up
+    plain SGD in a copy of the harness is the update the reference's steps
+    take, each parameter moving by the learning rate times its first
+    gradient. The reference runs alone: the program has SGD only."""
+    from hbench.core import scene
+
+    home, s = _harness_copy(tmp_path)
+    (home / "reference" / "optim" / "made_up.py").write_text(PLAIN_SGD)
+    bench = spec.Bench(spec.ROOT / "BENCHMARK.json", spec=s, home=home)
+    ov = harness.merge(bench.rehearsal(cell), {"modes": {"train": {"training": {
+        "optimizer": "made_up", "lr": 0.01}}}})
+    drv = bench.driver(bench.traffic(bench.workload(cell)["traffic"])["driver"]).Driver(
+        harness.context(bench, cell, SEED, "cpu", overrides=ov))
+    images, fine = scene.scenes(scene.generator(SEED, "cpu", stream=1), drv.batch_size,
+                                drv.hw, drv.ctx.tree.n_fine)
+    out = drv._reference(drv._weights(), [{"image": images, "fine": fine.to(torch.int32)}])
+    assert (home / "reference" / "optim" / "made_up.steps").read_text() == "[0]"
+    grads, changes = out["grad_norms"], out["change_norms"]
+    median = sorted(grads.values())[len(grads) // 2]
+    moved = [k for k, g in grads.items() if g >= median]
+    assert moved and all(changes[k] == pytest.approx(0.01 * grads[k], rel=1e-3) for k in moved)
 
 
 def test_run_py_refuses_without_a_card():
@@ -191,6 +255,7 @@ def test_the_harness_imports_neither_jax_nor_the_jax_package():
             "from hbench.core import harness, trainlib, predictlib; "
             "from hbench.core import spec; b = spec.Bench(); b.kernels(); "
             "[b.driver(t) for t in ('train_resident', 'train_files', 'infer_batch')]; "
+            "[b.reference(b.config(c['name'])) for c in b.spec['configs']]; b.optimizer('sgd'); "
             "[b.metric_reader(m['name']) for m in b.spec['per_layer']]; "
             "import hbench.calibrate; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('seghiero_tpu')]; "
