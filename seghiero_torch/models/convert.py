@@ -13,6 +13,13 @@ original SegHiero saves. It is the port's own copy of that logic:
   running_mean / running_var`` (+ ``num_batches_tracked``);
 * the classifier's bias, the only conv bias in the model.
 
+A MiT backbone with the SegFormer head (``backbone: mit``, ``head:
+segformer_mlp``) goes through ``mit_backbone_state_dict`` and
+``segformer_head_state_dict``: dense kernels ``[in, out]`` → linear
+weights ``[out, in]``, LayerNorm ``scale / bias`` → ``weight / bias``,
+every conv bias, and the JAX package's separate ``k`` and ``v`` joined
+into the port's ``kv`` (``k`` first).
+
 ``load_reference_checkpoint`` loads such a dict into the port's model,
 each part with ``strict=True``.
 
@@ -25,12 +32,13 @@ from __future__ import annotations
 
 import pickle
 import re
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
+from seghiero_torch.models.mit import VARIANTS
 from seghiero_torch.models.resnet import BOTTLENECK_DEPTHS, STAGE_BLOCKS
 
 PARTS = {
@@ -82,13 +90,7 @@ def backbone_state_dict(params: Mapping, stats: Mapping, depth: int) -> Dict:
 
 def head_state_dict(params: Mapping, stats: Mapping, proj_type: str = "convmlp") -> Dict:
     sd: Dict = {"step": torch.zeros(1, dtype=torch.long)}
-    ph = params["proj_head"]
-    if proj_type == "convmlp":
-        sd["proj_head.proj.0.weight"] = _conv(ph["fc1"]["kernel"])
-        _bn(sd, "proj_head.proj.1", ph["bn"], stats["proj_head"]["bn"])
-        sd["proj_head.proj.3.weight"] = _conv(ph["fc2"]["kernel"])
-    else:
-        sd["proj_head.proj.weight"] = _conv(ph["proj"]["kernel"])
+    _proj_head(sd, params, stats, proj_type)
     aspp, aspp_s = params["aspp"], stats["aspp"]
     sd["aspp.branches.0.0.weight"] = _conv(aspp["branch0_conv"]["kernel"])
     _bn(sd, "aspp.branches.0.1", aspp["branch0_bn"], aspp_s["branch0_bn"])
@@ -116,15 +118,84 @@ def aux_head_state_dict(params: Mapping, stats: Mapping) -> Dict:
     return sd
 
 
+def _dense(sd: Dict, dst: str, params: Mapping) -> None:
+    sd[f"{dst}.weight"] = _t(np.asarray(params["kernel"]).T)
+    sd[f"{dst}.bias"] = _t(params["bias"])
+
+
+def _conv_bias(sd: Dict, dst: str, params: Mapping) -> None:
+    sd[f"{dst}.weight"] = _conv(params["kernel"])
+    sd[f"{dst}.bias"] = _t(params["bias"])
+
+
+def _ln(sd: Dict, dst: str, params: Mapping) -> None:
+    sd[f"{dst}.weight"] = _t(params["scale"])
+    sd[f"{dst}.bias"] = _t(params["bias"])
+
+
+def mit_backbone_state_dict(params: Mapping, variant: str) -> Dict:
+    """A JAX ``MiTBackbone``'s params → the port's ``MiTBackbone`` state dict."""
+    sd: Dict = {}
+    for s, depth in enumerate(VARIANTS[variant][0], start=1):
+        _conv_bias(sd, f"patch_embed{s}.proj", params[f"patch_embed{s}_proj"])
+        _ln(sd, f"patch_embed{s}.norm", params[f"patch_embed{s}_norm"])
+        for b in range(depth):
+            src, dst = params[f"stage{s}_{b}"], f"block{s}.{b}"
+            attn, mlp = src["attn"], src["mlp"]
+            _ln(sd, f"{dst}.norm1", src["norm1"])
+            _dense(sd, f"{dst}.attn.q", attn["q"])
+            _dense(sd, f"{dst}.attn.kv", {
+                "kernel": np.concatenate([attn["k"]["kernel"], attn["v"]["kernel"]], axis=1),
+                "bias": np.concatenate([attn["k"]["bias"], attn["v"]["bias"]])})
+            if "sr" in attn:
+                _conv_bias(sd, f"{dst}.attn.sr", attn["sr"])
+                _ln(sd, f"{dst}.attn.norm", attn["sr_norm"])
+            _dense(sd, f"{dst}.attn.proj", attn["proj"])
+            _ln(sd, f"{dst}.norm2", src["norm2"])
+            _dense(sd, f"{dst}.mlp.fc1", mlp["fc1"])
+            _conv_bias(sd, f"{dst}.mlp.dwconv", mlp["dwconv"])
+            _dense(sd, f"{dst}.mlp.fc2", mlp["fc2"])
+        _ln(sd, f"norm{s}", params[f"norm{s}"])
+    return sd
+
+
+def _proj_head(sd: Dict, params: Mapping, stats: Mapping, proj_type: str) -> None:
+    ph = params["proj_head"]
+    if proj_type == "convmlp":
+        sd["proj_head.proj.0.weight"] = _conv(ph["fc1"]["kernel"])
+        _bn(sd, "proj_head.proj.1", ph["bn"], stats["proj_head"]["bn"])
+        sd["proj_head.proj.3.weight"] = _conv(ph["fc2"]["kernel"])
+    else:
+        sd["proj_head.proj.weight"] = _conv(ph["proj"]["kernel"])
+
+
+def segformer_head_state_dict(params: Mapping, stats: Mapping,
+                              proj_type: str = "convmlp") -> Dict:
+    """A JAX ``SegFormerMLPHead``'s variables → the port's state dict."""
+    sd: Dict = {}
+    _proj_head(sd, params, stats, proj_type)
+    for i in range(1, 5):
+        _dense(sd, f"linear_c{i}", params[f"linear_c{i}"])
+    sd["linear_fuse.0.weight"] = _conv(params["linear_fuse"]["conv"]["kernel"])
+    _bn(sd, "linear_fuse.1", params["linear_fuse"]["bn"], stats["linear_fuse"]["bn"])
+    _conv_bias(sd, "cls_seg", params["cls_seg"])
+    return sd
+
+
 def export_reference_checkpoint(variables: Mapping, depth: int,
-                                proj_type: str = "convmlp") -> Dict:
-    """JAX variables (numpy leaves) → reference-layout checkpoint dict."""
+                                proj_type: str = "convmlp",
+                                mit_variant: Optional[str] = None) -> Dict:
+    """JAX variables (numpy leaves) → reference-layout checkpoint dict: a
+    ResNet of ``depth`` with the sep-ASPP head, or with ``mit_variant`` a
+    MiT backbone with the SegFormer head."""
     params, stats = variables["params"], variables["batch_stats"]
-    out = {
-        "epoch": 0,
-        "backbone_state_dict": backbone_state_dict(params["backbone"], stats["backbone"], depth),
-        "aspp_head_state_dict": head_state_dict(params["head"], stats["head"], proj_type),
-    }
+    if mit_variant is not None:
+        parts = (mit_backbone_state_dict(params["backbone"], mit_variant),
+                 segformer_head_state_dict(params["head"], stats["head"], proj_type))
+    else:
+        parts = (backbone_state_dict(params["backbone"], stats["backbone"], depth),
+                 head_state_dict(params["head"], stats["head"], proj_type))
+    out = {"epoch": 0, "backbone_state_dict": parts[0], "aspp_head_state_dict": parts[1]}
     if "aux_head" in params:
         out["aux_head_state_dict"] = aux_head_state_dict(params["aux_head"], stats["aux_head"])
     return out

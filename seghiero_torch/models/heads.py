@@ -157,6 +157,47 @@ class SepASPPContrastHead(nn.Module):
         return logits, embedding
 
 
+class SegFormerMLPHead(nn.Module):
+    """SegFormer's all-MLP decoder (the JAX package's
+    ``decode_heads.SegFormerMLPHead``): a linear projection of each stage
+    to ``channels``, bilinear to the stride-4 grid
+    (``ops.resize.resize_bilinear`` in f32), the concatenation ``[c4, c3,
+    c2, c1]``, a 1×1 conv → BN → ReLU fuse, dropout (training) and the 1×1
+    classifier; the embedding is a ``ProjectionHead`` on C4.
+
+    forward(feats, outputs) → (logits ``[B, num_classes, H/4, W/4]`` f32 or
+    None, embedding ``[B, proj_dim, H/32, W/32]`` f32 or None), each only
+    when named in ``outputs``."""
+
+    def __init__(self, num_classes: int, widths: Sequence[int], channels: int = 256,
+                 dropout_rate: float = 0.1, proj_dim: int = 256, proj_type: str = "convmlp"):
+        super().__init__()
+        self.proj_head = ProjectionHead(widths[3], proj_dim, proj_type)
+        for i, w in enumerate(widths, start=1):
+            self.add_module(f"linear_c{i}", nn.Linear(w, channels))
+        self.linear_fuse = _conv_bn_relu(4 * channels, channels)
+        self.dropout = nn.Dropout(dropout_rate)
+        self.cls_seg = nn.Conv2d(channels, num_classes, 1, bias=True)
+
+    def forward(
+        self, feats: Sequence[torch.Tensor], outputs: Sequence[str] = ("logits", "embedding")
+    ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+        embedding = self.proj_head(feats[3]) if "embedding" in outputs else None
+        logits = None
+        if "logits" in outputs:
+            hw = feats[0].shape[-2:]
+            parts = []
+            for i, x in enumerate(feats, start=1):
+                # on the NHWC view: a linear layer over the channels, then NCHW again
+                y = getattr(self, f"linear_c{i}")(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+                if y.shape[-2:] != hw:
+                    y = resize_bilinear(y.to(torch.float32), hw).to(y.dtype)
+                parts.append(y)
+            y = self.linear_fuse(torch.cat(parts[::-1], dim=1))
+            logits = self.cls_seg(self.dropout(y)).to(torch.float32)
+        return logits, embedding
+
+
 class AuxHead(nn.Sequential):
     """1×1 conv → BN → ReLU on C3, fine classes only (the ReLU after the
     classifier is the reference's)."""

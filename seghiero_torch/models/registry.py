@@ -16,9 +16,9 @@ from typing import Callable, Dict
 _BACKBONES: Dict[str, Callable] = {}
 _HEADS: Dict[str, Callable] = {}
 
-# families of the JAX package still to be ported (ROADMAP.md queue 1, item 8)
-NOT_PORTED_BACKBONES = ("convnext", "hrnet", "unet", "mit", "vit", "swin")
-NOT_PORTED_HEADS = ("aspp", "segformer_mlp", "upernet")
+# families of the JAX package still to be ported (ROADMAP.md)
+NOT_PORTED_BACKBONES = ("convnext", "hrnet", "unet", "vit", "swin")
+NOT_PORTED_HEADS = ("aspp", "upernet")
 
 
 def register_backbone(name: str) -> Callable:
@@ -43,7 +43,7 @@ def _lookup(table: Dict[str, Callable], not_ported, kind: str, name: str) -> Cal
     if name in not_ported:
         raise NotImplementedError(
             f"model.{kind} {name!r} is not ported to seghiero_torch yet "
-            "(ROADMAP.md queue 1, item 8); the port has "
+            "(ROADMAP.md); the port has "
             f"{sorted(table)}"
         )
     raise ValueError(f"unknown model.{kind} {name!r}; registered: {sorted(table)}")

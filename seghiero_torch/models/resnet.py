@@ -115,6 +115,7 @@ class ResNetBackbone(nn.Module):
         if output_stride not in (8, 16, 32):
             raise ValueError("output_stride must be 8, 16 or 32")
         block_cls = Bottleneck if depth in BOTTLENECK_DEPTHS else BasicBlock
+        self.widths = self.stage_channels(depth)
         dilate_stage = {8: (2, 3), 16: (3,), 32: ()}[output_stride]
         self.stem_conv = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.stem_bn = batch_norm(64)

@@ -2,7 +2,8 @@
 (the port of ``seghiero_tpu/models/segmenter.py``).
 
 Top-level submodules are named after the reference checkpoint's three
-state dicts: ``backbone``, ``aspp_head`` and ``aux_head``.
+state dicts: ``backbone``, ``aspp_head`` (whatever the decode head is)
+and ``aux_head``. A backbone gives its four stage widths as ``widths``.
 """
 
 from __future__ import annotations
@@ -12,8 +13,10 @@ from typing import Dict, Sequence
 import torch
 from torch import nn
 
+from seghiero_torch import trace
 from seghiero_torch.config import SegHieroConfig
-from seghiero_torch.models.heads import AuxHead, SepASPPContrastHead
+from seghiero_torch.models.heads import AuxHead, SegFormerMLPHead, SepASPPContrastHead
+from seghiero_torch.models.mit import MiTBackbone
 from seghiero_torch.models.registry import (
     backbone_builder,
     head_builder,
@@ -33,8 +36,10 @@ class HieroSegmenter(nn.Module):
 
     Asking only for what is consumed matters in eager PyTorch: the
     predictor asks for ``("logits",)`` and the projection and aux heads do
-    not run. The input is cast to the dtype of the stem's weight, so a
-    model whose convolutions were cast to bf16 computes in bf16."""
+    not run. The input is cast to the dtype of the backbone's first
+    parameter (its stem), so a model whose convolutions and linear layers
+    were cast to bf16 computes in bf16. The spans ``model.backbone`` and
+    ``model.head`` (the decode and aux heads) time the two halves."""
 
     def __init__(self, backbone: nn.Module, head: nn.Module, aux_head: nn.Module):
         super().__init__()
@@ -47,21 +52,30 @@ class HieroSegmenter(nn.Module):
         unknown = set(outputs) - set(ALL_OUTPUTS)
         if unknown:
             raise ValueError(f"unknown outputs {sorted(unknown)}; choose from {ALL_OUTPUTS}")
-        feats = self.backbone(images.to(self.backbone.stem_conv.weight.dtype))
-        logits, embedding = self.aspp_head(feats, outputs)
-        out = {}
-        if logits is not None:
-            out["logits"] = logits
-        if embedding is not None:
-            out["embedding"] = embedding
-        if "aux_logits" in outputs:
-            out["aux_logits"] = self.aux_head(feats[2])
+        with trace.span("model.backbone"):
+            feats = self.backbone(images.to(next(self.backbone.parameters()).dtype))
+        with trace.span("model.head"):
+            logits, embedding = self.aspp_head(feats, outputs)
+            out = {}
+            if logits is not None:
+                out["logits"] = logits
+            if embedding is not None:
+                out["embedding"] = embedding
+            if "aux_logits" in outputs:
+                out["aux_logits"] = self.aux_head(feats[2])
         return out
 
 
 @register_backbone("resnet")
 def _build_resnet(cfg: SegHieroConfig) -> nn.Module:
     return ResNetBackbone(cfg.model.depth, cfg.model.output_stride)
+
+
+@register_backbone("mit")
+def _build_mit(cfg: SegHieroConfig) -> nn.Module:
+    opts = cfg.model.backbone_options or {}
+    return MiTBackbone(str(opts.get("variant", "b0")), float(opts.get("drop_path_rate", 0.0)),
+                       dw_kernel=cfg.model.depthwise_backend == "pallas")
 
 
 @register_head("sep_aspp_contrast")
@@ -80,20 +94,34 @@ def _build_sep_aspp_contrast(cfg: SegHieroConfig, widths) -> nn.Module:
     )
 
 
+@register_head("segformer_mlp")
+def _build_segformer_mlp(cfg: SegHieroConfig, widths) -> nn.Module:
+    m, opts = cfg.model, cfg.model.head_options or {}
+    return SegFormerMLPHead(
+        num_classes=cfg.hierarchy.total_classes,
+        widths=widths,
+        channels=int(opts.get("channels", 256)),
+        dropout_rate=float(opts.get("dropout_rate", 0.1)),
+        proj_dim=m.proj_dim,
+        proj_type=m.proj_type,
+    )
+
+
 def seeded_init_(model: nn.Module, seed: int) -> nn.Module:
     """Initialize like the JAX package's flax modules, from ``seed``:
-    conv kernels lecun-normal (a normal truncated at ±2σ, rescaled so the
-    standard deviation is 1/√fan_in), conv biases 0, BatchNorm scale 1 and
-    shift 0. (The draws differ from JAX's: tests carry weights across.)"""
+    conv and linear kernels lecun-normal (a normal truncated at ±2σ,
+    rescaled so the standard deviation is 1/√fan_in), their biases 0,
+    BatchNorm and LayerNorm scale 1 and shift 0. (The draws differ from
+    JAX's: tests carry weights across.)"""
     gen = torch.Generator().manual_seed(int(seed))
     with torch.no_grad():
         for mod in model.modules():
-            if isinstance(mod, nn.Conv2d):
+            if isinstance(mod, (nn.Conv2d, nn.Linear)):
                 std = (1.0 / mod.weight[0].numel()) ** 0.5 / 0.87962566103423978
                 nn.init.trunc_normal_(mod.weight, 0.0, std, -2 * std, 2 * std, generator=gen)
                 if mod.bias is not None:
                     mod.bias.zero_()
-            elif isinstance(mod, nn.BatchNorm2d):
+            elif isinstance(mod, (nn.BatchNorm2d, nn.LayerNorm)):
                 mod.reset_parameters()
     return model
 
@@ -102,7 +130,6 @@ def build_model(cfg: SegHieroConfig) -> HieroSegmenter:
     """f32 model on the CPU from a validated config. The aux head is always
     built, so reference checkpoints load strictly; serving never runs it."""
     backbone = backbone_builder(cfg.model.backbone)(cfg)
-    widths = ResNetBackbone.stage_channels(cfg.model.depth)
-    head = head_builder(cfg.model.head)(cfg, widths)
-    return HieroSegmenter(backbone, head, AuxHead(widths[2], cfg.hierarchy.n_fine))
+    head = head_builder(cfg.model.head)(cfg, backbone.widths)
+    return HieroSegmenter(backbone, head, AuxHead(backbone.widths[2], cfg.hierarchy.n_fine))
 

@@ -1,10 +1,13 @@
 """Optimizer and learning-rate schedule (the port of
 ``seghiero_tpu/train/optim.py``).
 
-``torch.optim.SGD(momentum, weight_decay, dampening=0)`` updates in the
-order the JAX package's optax chain copies from it
-(``add_decayed_weights`` → ``trace`` → ``scale_by_learning_rate``):
-``g ← g + wd·p; buf ← μ·buf + g; p ← p − lr·buf``. ``make_schedule``
+``training.optimizer: sgd`` is ``torch.optim.SGD(momentum, weight_decay,
+dampening=0)``, which updates in the order the JAX package's optax chain
+copies from it (``add_decayed_weights`` → ``trace`` →
+``scale_by_learning_rate``): ``g ← g + wd·p; buf ← μ·buf + g; p ← p −
+lr·buf``. ``adamw`` is ``torch.optim.AdamW(betas=(adam_beta1,
+adam_beta2), eps=1e-8)``, ``optax.adamw``'s update: ``p ← p − lr·(m̂ /
+(√v̂ + eps) + wd·p)``, the decay decoupled from the moments. ``make_schedule``
 builds the optax schedules (poly / cosine / constant, with linear warmup)
 as a ``LambdaLR`` multiplier of each parameter group's learning rate,
 evaluated at the update count as optax does.
@@ -14,12 +17,12 @@ The fine-tuning options of the JAX package's optax chain:
 * ``backbone_lr_scale``: the backbone's parameters form groups of their
   own at ``lr · scale`` (the schedule multiplies every group alike); at
   ``0`` they are left out of the optimizer — no update, no decay, no
-  momentum, as ``optax.set_to_zero`` — and keep their bits.
+  momentum or moments, as ``optax.set_to_zero`` — and keep their bits.
 * ``wd_skip_norm_bias``: weight decay on conv and linear weights only
-  (flax's ``kernel`` leaves); BatchNorm affine parameters and the
-  classifier's bias get none.
+  (flax's ``kernel`` leaves, ``_wd_mask``); BatchNorm and LayerNorm
+  affine parameters and every bias get none.
 * ``grad_clip_norm``: ``clip_grad_global_norm_``, before weight decay and
-  momentum, over every gradient.
+  the optimizer's update, over every gradient.
 """
 
 from __future__ import annotations
@@ -34,13 +37,11 @@ from seghiero_torch.config import TrainingConfig
 
 
 def _not_yet_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not yet ported to seghiero_torch (ROADMAP queue 1)")
+    return NotImplementedError(f"{what} is not yet ported to seghiero_torch (ROADMAP.md)")
 
 
 def check_optimizer_options(cfg: TrainingConfig) -> None:
     """Raise for the optimizer options the port does not have yet."""
-    if cfg.optimizer != "sgd":
-        raise _not_yet_ported(f"training.optimizer: {cfg.optimizer}")
     if cfg.grad_accum_steps != 1:
         raise _not_yet_ported("training.grad_accum_steps > 1")
     if cfg.ema_decay:
@@ -104,8 +105,12 @@ def param_groups(cfg: TrainingConfig, model: nn.Module) -> List[dict]:
     return [{"params": ps, "lr": lr, "weight_decay": wd} for (lr, wd), ps in groups.items()]
 
 
-def make_optimizer(cfg: TrainingConfig, model: nn.Module) -> torch.optim.SGD:
+def make_optimizer(cfg: TrainingConfig, model: nn.Module) -> torch.optim.Optimizer:
     check_optimizer_options(cfg)
+    if cfg.optimizer == "adamw":
+        return torch.optim.AdamW(param_groups(cfg, model), lr=cfg.lr,
+                                 betas=(cfg.adam_beta1, cfg.adam_beta2), eps=1e-8,
+                                 weight_decay=cfg.weight_decay)
     return torch.optim.SGD(param_groups(cfg, model), lr=cfg.lr, momentum=cfg.momentum,
                            weight_decay=cfg.weight_decay, dampening=0.0, nesterov=False)
 

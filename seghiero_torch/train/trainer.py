@@ -35,6 +35,10 @@ def _check_model_options(cfg: SegHieroConfig) -> None:
             "download); set model.pretrained to a torchvision ResNet .pth path, "
             "or to false for a fresh init"
         )
+    if isinstance(cfg.model.pretrained, str) and cfg.model.backbone != "resnet":
+        raise NotImplementedError(
+            f"model.pretrained for model.backbone: {cfg.model.backbone} is not yet ported to "
+            "seghiero_torch (ROADMAP.md); the port loads torchvision ResNet files only")
     if cfg.model.remat:
         raise NotImplementedError(
             "model.remat is not yet ported to seghiero_torch (ROADMAP queue 1 item 8)")

@@ -414,3 +414,77 @@ def test_rmi_kernel_path_matches_the_materialized_op_on_the_card():
     torch.testing.assert_close(out["pallas"][0], out["xla"][0], rtol=2e-4, atol=0)
     # the gradient of the mean over B·9 is 1/18 of the per-map half's
     torch.testing.assert_close(out["pallas"][1] * 18, out["xla"][1] * 18, rtol=5e-3, atol=2e-5)
+
+
+# the Mix-FFN's depthwise convolutions of MiT-B5 at a 1024² image: each
+# stage's grid at 4× its embed dim
+MIT_DW = ((1, 256, 256, 256), (1, 128, 128, 512), (1, 64, 64, 1280), (1, 32, 32, 2048))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", MIT_DW)
+def test_depthwise_kernels_at_the_mix_ffn_shapes(shape):
+    """Card-only: #1 and #1b bit for bit against their plain versions, #2
+    within 1e-5·Σ|x·g| per entry, in bf16 at the four Mix-FFN shapes."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    g = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    k9 = torch.randn((9, shape[-1]), generator=gen, device=dev).to(torch.bfloat16)
+    assert torch.equal(port_dw.depthwise3x3_forward(x, k9), port_dw.depthwise3x3_plain(x, k9))
+    assert torch.equal(port_dw.depthwise3x3_dgrad(g, k9),
+                       port_dw.depthwise3x3_plain(g, k9.flip(0)))
+    dk = port_dw.depthwise3x3_wgrad(x, g)
+    want = port_dw.depthwise3x3_wgrad_plain(x, g)
+    mag = port_dw.depthwise3x3_wgrad_plain(x.float().abs(), g.float().abs())
+    assert ((dk - want).abs() <= 1e-5 * mag + 1e-30).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float32))
+def test_sr_attention_takes_a_fused_kernel_and_counts(dtype):
+    """Card-only: ``sr_attention`` at MiT-B5's first and third stages runs
+    the flash kernel in bf16 (the memory-efficient one in f32, which flash
+    does not take), never the math path's softmax; it matches the plain
+    path (scores in f32) and counts one forward and one backward a call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from seghiero_torch.ops import attention
+
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for B, h, N, M in ((1, 1, 65536, 1024), (2, 5, 4096, 1024)):
+        q, k, v = (torch.randn((B, h, n, 64), generator=gen, device=dev).to(dtype)
+                   .requires_grad_() for n in (N, M, M))
+        before = (attention.launches, attention.bwd_launches)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = attention.sr_attention(q, k, v)
+            out.float().square().sum().backward()
+            torch.cuda.synchronize()
+        assert (attention.launches, attention.bwd_launches) == (before[0] + 1, before[1] + 1)
+        names = {e.name for e in prof.events() if e.device_type.name == "CUDA"}
+        want = ("flash_fwd", "flash_bwd") if dtype == torch.bfloat16 else ("fmha_cutlassF",
+                                                                          "fmha_cutlassB")
+        assert all(any(w in n for n in names) for w in want), sorted(names)[:20]
+        assert not any("softmax" in n.lower() for n in names), sorted(names)[:20]
+        grads = [t.grad for t in (q, k, v)]
+        q2, k2, v2 = (t.detach().float().requires_grad_() for t in (q, k, v))
+        ref = attention.sr_attention_plain(q2, k2, v2)
+        ref.square().sum().backward()
+        tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+        scale = ref.abs().max()
+        assert (out.float() - ref).abs().max() <= tol * scale
+        for got, t in zip(grads, (q2, k2, v2)):
+            assert (got.float() - t.grad).abs().max() <= tol * t.grad.abs().max() + 1e-6
+
+
+@pytest.mark.gpu
+def test_sr_attention_raises_where_no_fused_kernel_takes_the_call():
+    """Card-only: a head dimension neither fused backend takes (f64) raises
+    instead of running the math path."""
+    from seghiero_torch.ops import attention
+
+    dev = _card()
+    q = torch.randn((1, 1, 64, 64), device=dev, dtype=torch.float64)
+    with pytest.raises(RuntimeError):
+        attention.sr_attention(q, q, q)

@@ -2,10 +2,11 @@
 
 * off (no profiler): ``train_step``, a ``BatchLoader`` epoch and
   ``predict_array`` record nothing and never reach ``record_function``,
-  the clock or the lock; the evaluation records no span at all;
+  the clock or the lock; the evaluation records no span but the model's own;
 * under ``torch.profiler``: the train step's four phase spans under
   ``train.step``, in the profiler's events too and covering 90 % of the
-  step; the loader's ``loader.batch`` (worker thread) and ``loader.wait``
+  step; the model's ``model.backbone`` and ``model.head`` once a forward,
+  under ``train.forward`` and ``predict.forward``; the loader's ``loader.batch`` (worker thread) and ``loader.wait``
   once a batch; ``predict`` and its four children once a call; a new
   stretch of recording resets the totals, and a span that outlives its
   stretch is left out;
@@ -49,6 +50,7 @@ CLASSES = {
 }
 PHASES = ("train.forward", "train.loss", "train.backward", "train.optimizer")
 PREDICT = ("predict.upload", "predict.forward", "predict.decode", "predict.download")
+MODEL = ("model.backbone", "model.head")
 
 
 def _cfg_dict(tmp=None):
@@ -163,6 +165,20 @@ def test_train_step_records_its_four_phases_under_the_step(training):
     assert not any(k.startswith("eval.") for k in t)
 
 
+def test_the_model_records_its_backbone_and_head_under_each_forward(training, predictor):
+    training()
+    prof, t = _profiled(training)
+    for name in MODEL:
+        assert t[name]["count"] == 1 and t[name]["parent"] == "train.forward", name
+    assert t["model.backbone"]["seconds"] + t["model.head"]["seconds"] <= \
+        t["train.forward"]["seconds"]
+    assert {trace.PREFIX + n for n in MODEL} <= {e.name for e in prof.events()}
+    predictor.predict_array(_images())
+    _, t = _profiled(lambda: predictor.predict_array(_images()))
+    for name in MODEL:
+        assert t[name]["count"] == 1 and t[name]["parent"] == "predict.forward", name
+
+
 def test_a_loader_epoch_counts_one_batch_and_one_wait_a_batch():
     _epoch(1)
     _, t = _profiled(lambda: _epoch(3))
@@ -209,7 +225,11 @@ def test_eval_step_records_no_span(training, monkeypatch):
     coarse = np.repeat(np.arange(4), [4, 3, 1, 1])  # CLASSES' coarse_to_fine_map
     batch["coarse"] = torch.from_numpy(coarse[batch["fine"].numpy()].astype(np.int32))
 
-    def refuse(name):
+    real = trace.span
+
+    def refuse(name):  # the model's own spans time any forward
+        if name in MODEL:
+            return real(name)
         raise AssertionError(f"the evaluation opened the span {name}")
 
     monkeypatch.setattr(trace, "span", refuse)
@@ -223,6 +243,7 @@ METRICS = {
     "backward_host_ms.train": "train", "optimizer_host_ms.train": "train",
     "loader_busy_ms.train": "loader", "loader_queue_wait_ms.train": "loader",
     "issue_host_ms.infer": "infer", "result_wait_ms.infer": "infer",
+    "backbone_host_ms.train": "train",
 }
 
 
@@ -289,7 +310,7 @@ def test_fit_with_profile_dir_writes_the_trace_and_the_spans(tmp_path):
     assert "seghiero::train.step" in _trace_names(tmp_path / "prof" / "trace.json")
     spans = json.loads((tmp_path / "prof" / "spans.json").read_text())
     assert spans["train.step"]["count"] == 2  # steps 3 and 4 of the epoch's 4
-    assert set(spans) <= {"train.step", *PHASES, "loader.batch", "loader.wait"}
+    assert set(spans) <= {"train.step", *PHASES, *MODEL, "loader.batch", "loader.wait"}
 
 
 def test_infer_cli_with_profile_dir_writes_the_trace_and_the_spans(tmp_path, predictor):

@@ -278,7 +278,7 @@ def test_train_entry_point_raises_without_a_card(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("optimizer", "adamw"), ("fast_losses", False), ("grad_accum_steps", 2),
+    ("hiera_variant", "focal"), ("fast_losses", False), ("grad_accum_steps", 2),
     ("ohem_thresh", 0.7), ("ema_decay", 0.99), ("extra_losses", [{"type": "dice"}]),
 ])
 def test_unported_training_options_raise(tmp_path, key, value):
