@@ -5,6 +5,7 @@ collates and prefetches batches on a background thread."""
 
 from __future__ import annotations
 
+import functools
 import queue
 import threading
 from typing import Dict, Iterator
@@ -15,6 +16,13 @@ import torch
 from seghiero_torch import trace
 
 
+@functools.lru_cache(maxsize=16)
+def _scaled_by_255(values: tuple, device: torch.device) -> torch.Tensor:
+    """``255 · values`` as an f32 tensor on ``device``, made once (a copy
+    from host memory in every step would wait for the card)."""
+    return torch.tensor(values, dtype=torch.float32, device=device) * 255.0
+
+
 def normalize_images(
     images_u8: torch.Tensor,
     mean=(0.485, 0.456, 0.406),
@@ -23,8 +31,8 @@ def normalize_images(
     """uint8 NHWC → f32 ``(x − 255·mean) / (255·std)`` on the tensor's
     device, matching torchvision ToTensor+Normalize."""
     dev = images_u8.device
-    mean = torch.tensor(mean, dtype=torch.float32, device=dev) * 255.0
-    std = torch.tensor(std, dtype=torch.float32, device=dev) * 255.0
+    mean = _scaled_by_255(tuple(float(m) for m in mean), dev)
+    std = _scaled_by_255(tuple(float(s) for s in std), dev)
     return (images_u8.to(torch.float32) - mean) / std
 
 

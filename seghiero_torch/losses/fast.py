@@ -34,6 +34,7 @@ from seghiero_torch.losses.hiera import (
     _log_one_minus_sig_eps,
     _log_sig_eps,
     _one_hot_valid,
+    device_table,
     lut_lookup,
     prepare_targets_three_level,
     prepare_targets_two_level,
@@ -96,7 +97,10 @@ def _bucket_max_cmajor(child_l, buckets: Sequence[Sequence[int]], own_l) -> torc
     cols = []
     for i, ids in enumerate(buckets):
         o = own_l[:, i]
-        cols.append(torch.maximum(torch.amax(child_l[:, list(ids)], dim=1), o) if ids else o)
+        if ids:
+            idx = device_table(tuple(int(c) for c in ids), torch.int64, child_l.device)
+            o = torch.maximum(torch.amax(child_l[:, idx], dim=1), o)
+        cols.append(o)
     return torch.stack(cols, dim=1)
 
 

@@ -3,20 +3,31 @@
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Tuple
 
-import numpy as np
 import torch
 
 from seghiero_torch.hierarchy import Hierarchy
+
+
+@functools.lru_cache(maxsize=256)
+def device_table(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``torch.tensor(values, dtype=dtype)`` on ``device`` (``values``: a
+    tuple of numbers, or of equal-length tuples), made once per ``(values,
+    dtype, device)``. The losses' static tables go to the card once rather
+    than in every step: each copy from host memory waits for the card, and a
+    CUDA graph cannot hold one. Every caller gets the same tensor: read it,
+    never write it."""
+    return torch.tensor(values, dtype=dtype, device=device)
 
 
 def lut_lookup(lut, idx: torch.Tensor) -> torch.Tensor:
     """``lut[idx]`` for a small static table, int32. Indices outside
     ``[0, len(lut))`` give ``lut[0]``, as the JAX package's unrolled
     compare-select chain does; callers pass in-range indices."""
-    table = torch.as_tensor(np.asarray(lut, np.int32), device=idx.device)
+    table = device_table(tuple(int(v) for v in lut), torch.int32, idx.device)
     inside = (idx >= 0) & (idx < len(table))
     return torch.where(inside, table[idx.clamp(0, len(table) - 1).long()], table[0])
 

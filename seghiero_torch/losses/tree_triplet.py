@@ -23,10 +23,10 @@ from __future__ import annotations
 import math
 from typing import Sequence, Tuple
 
-import numpy as np
 import torch
 
 from seghiero_torch.hierarchy import Hierarchy
+from seghiero_torch.losses.hiera import device_table
 from seghiero_torch.ops.resize import downsample_labels_nearest
 
 # static crossover between the two selections (DESIGN decision 22)
@@ -59,15 +59,24 @@ def _per_class_first_k(lbl: torch.Tensor, n_fine: int, k: int):
     return order[at], counts
 
 
-def _merged_first_k(idx_by_class, counts, member_rows: np.ndarray, k: int, n: int):
+def _member_rows(rows: Sequence[Sequence[int]], width: int) -> tuple:
+    """``rows`` padded with -1 to ``width`` columns, as a tuple of tuples
+    (``_merged_first_k``'s table)."""
+    return tuple(tuple(r) + (-1,) * (width - len(r)) for r in rows)
+
+
+def _merged_first_k(idx_by_class, counts, member_rows: tuple, k: int, n: int):
     """First ``k`` flat positions of a UNION of per-class first-k lists
     (exact: a position among the k smallest of the union is among the k
-    smallest of its own class)."""
+    smallest of its own class). ``member_rows``: each row's classes,
+    padded with -1 (``_member_rows``)."""
     dev = idx_by_class.device
-    safe = torch.as_tensor(np.maximum(member_rows, 0), device=dev)
+    safe = device_table(tuple(tuple(max(c, 0) for c in r) for r in member_rows), torch.int64,
+                        dev)
     cand = idx_by_class[safe]  # [C, m, k]
     lane = torch.arange(k, device=dev)
-    present = torch.as_tensor(member_rows >= 0, device=dev)
+    present = device_table(tuple(tuple(c >= 0 for c in r) for r in member_rows), torch.bool,
+                           dev)
     cand_valid = (lane[None, None, :] < counts[safe][:, :, None]) & present[:, :, None]
     merged = torch.where(cand_valid, cand, n).reshape(len(member_rows), -1)
     sel = torch.topk(merged, k, dim=-1, largest=False).values  # ascending
@@ -131,11 +140,13 @@ def tree_triplet_loss_range(
     dev = lbl.device
     if selection == "auto":
         selection = "sorted" if n_fine >= SORTED_SELECTION_MIN_CLASSES else "mask"
-    f2c = np.asarray(hierarchy.fine_to_coarse, np.int64)
+    f2c = tuple(int(c) for c in hierarchy.fine_to_coarse)
 
     if selection == "mask":
-        starts = torch.as_tensor([hierarchy.coarse_ranges[c][0] for c in f2c], device=dev)
-        ends = torch.as_tensor([hierarchy.coarse_ranges[c][1] for c in f2c], device=dev)
+        starts = device_table(tuple(int(hierarchy.coarse_ranges[c][0]) for c in f2c),
+                              torch.int64, dev)
+        ends = device_table(tuple(int(hierarchy.coarse_ranges[c][1]) for c in f2c),
+                            torch.int64, dev)
         lblr = lbl[None, :]
         anchor = lblr == torch.arange(n_fine, device=dev)[:, None]
         in_bucket = (lblr >= starts[:, None]) & (lblr < ends[:, None])
@@ -146,7 +157,7 @@ def tree_triplet_loss_range(
         raise ValueError(f"selection must be auto|mask|sorted, got {selection!r}")
     n = lbl.shape[0]
     k = min(max_triplet, n)
-    f2c_t = torch.as_tensor(f2c, device=dev)
+    f2c_t = device_table(f2c, torch.int64, dev)
     idx_by_class, counts = _per_class_first_k(lbl, n_fine, k)
     bucket_totals = torch.zeros(hierarchy.n_coarse, dtype=counts.dtype, device=dev)
     bucket_totals.index_add_(0, f2c_t, counts[:n_fine])
@@ -156,14 +167,12 @@ def tree_triplet_loss_range(
     min_size = torch.minimum(torch.minimum(n_anchor, n_pos), torch.clamp(n_neg, max=k))
 
     max_b = max(len(m) for m in hierarchy.fine_by_coarse)
-    member_rows = np.full((n_fine, max(max_b - 1, 1)), -1, dtype=np.int64)
-    for c in range(n_fine):
-        others = [p for p in hierarchy.fine_by_coarse[f2c[c]] if p != c]
-        member_rows[c, : len(others)] = others
+    member_rows = _member_rows([[int(p) for p in hierarchy.fine_by_coarse[f2c[c]] if p != c]
+                                for c in range(n_fine)], max(max_b - 1, 1))
     idx_p = _merged_first_k(idx_by_class, counts, member_rows, k, n)
 
-    bstarts = torch.as_tensor([r[0] for r in hierarchy.coarse_ranges], device=dev)
-    bends = torch.as_tensor([r[1] for r in hierarchy.coarse_ranges], device=dev)
+    bstarts = device_table(tuple(int(r[0]) for r in hierarchy.coarse_ranges), torch.int64, dev)
+    bends = device_table(tuple(int(r[1]) for r in hierarchy.coarse_ranges), torch.int64, dev)
     neg_mask = ~((lbl[None, :] >= bstarts[:, None]) & (lbl[None, :] < bends[:, None]))
     idx_n = _first_k_selection(neg_mask, k)[f2c_t]
     return _triplet_from_indices(feats, idx_by_class, idx_p, idx_n, min_size, k, margin)
@@ -206,17 +215,17 @@ def tree_triplet_loss_groups(
         selection = "sorted" if C >= SORTED_SELECTION_MIN_CLASSES else "mask"
 
     if selection == "mask":
-        pos_lut = np.zeros((C, n_fine), dtype=bool)
-        neg_lut = np.zeros((C, n_fine), dtype=bool)
-        for row, c in enumerate(listed):
+        pos_lut, neg_lut = [], []
+        for c in listed:
             group, other = (upper, lower) if c in upper else (lower, upper)
-            pos_lut[row, [p for p in group if p != c]] = True
-            neg_lut[row, other] = True
+            pos_lut.append(tuple(p in group and p != c for p in range(n_fine)))
+            neg_lut.append(tuple(p in other for p in range(n_fine)))
         valid = (lbl >= 0) & (lbl < n_fine) & (lbl != ignore_index)
         safe = torch.where(valid, lbl, 0).long()
-        anchor = (lbl[None, :] == torch.as_tensor(listed, device=dev)[:, None]) & valid[None, :]
-        pos = torch.as_tensor(pos_lut, device=dev)[:, safe] & valid[None, :]
-        neg = torch.as_tensor(neg_lut, device=dev)[:, safe] & valid[None, :]
+        listed_t = device_table(tuple(listed), torch.int64, dev)
+        anchor = (lbl[None, :] == listed_t[:, None]) & valid[None, :]
+        pos = device_table(tuple(pos_lut), torch.bool, dev)[:, safe] & valid[None, :]
+        neg = device_table(tuple(neg_lut), torch.bool, dev)[:, safe] & valid[None, :]
         return _triplet_core(feats, anchor, pos, neg, max_triplet, margin)
 
     if selection != "sorted":
@@ -226,11 +235,12 @@ def tree_triplet_loss_groups(
     # ignore_index into the invalid bucket even if it were < n_fine
     lbl_sel = torch.where(lbl == ignore_index, n_fine, lbl)
     idx_by_class, counts = _per_class_first_k(lbl_sel, n_fine, k)
-    group_of = torch.as_tensor([0 if c in upper else 1 for c in listed], device=dev)
+    group_of = device_table(tuple(0 if c in upper else 1 for c in listed), torch.int64, dev)
     zero = torch.zeros((), dtype=counts.dtype, device=dev)
-    group_sum = torch.stack([counts[torch.as_tensor(upper, device=dev)].sum() if upper else zero,
-                             counts[torch.as_tensor(lower, device=dev)].sum() if lower else zero])
-    listed_t = torch.as_tensor(listed, device=dev)
+    group_sum = torch.stack(
+        [counts[device_table(tuple(upper), torch.int64, dev)].sum() if upper else zero,
+         counts[device_table(tuple(lower), torch.int64, dev)].sum() if lower else zero])
+    listed_t = device_table(tuple(listed), torch.int64, dev)
     n_anchor = counts[listed_t]
     n_pos = group_sum[group_of] - n_anchor
     n_neg = group_sum[1 - group_of]
@@ -239,23 +249,22 @@ def tree_triplet_loss_groups(
 
     # positives: the own group's per-class lists merged, the own class left out
     m = max(max(len(upper), len(lower)) - 1, 1)
-    member_rows = np.full((C, m), -1, dtype=np.int64)
-    for row, c in enumerate(listed):
-        others = [p for p in (upper if c in upper else lower) if p != c]
-        member_rows[row, : len(others)] = others
+    member_rows = _member_rows([[p for p in (upper if c in upper else lower) if p != c]
+                                for c in listed], m)
     idx_p = _merged_first_k(idx_by_class, counts, member_rows, k, n)
 
-    # negatives: one shared row per group (the first k of the other group)
-    neg_rows = np.full((2, max(len(upper), len(lower), 1)), -1, dtype=np.int64)
-    neg_rows[0, : len(lower)] = lower  # anchors in upper draw from lower
-    neg_rows[1, : len(upper)] = upper
+    # negatives: one shared row per group (the first k of the other group):
+    # anchors in upper draw from lower, and vice versa
+    neg_rows = _member_rows([lower, upper], max(len(upper), len(lower), 1))
     idx_n = _merged_first_k(idx_by_class, counts, neg_rows, k, n)[group_of]
     return _triplet_from_indices(feats, idx_a, idx_p, idx_n, min_size, k, margin)
 
 
 def triplet_schedule_factor(step, total_steps: int, device=None) -> torch.Tensor:
     """Cosine ramp of the triplet weight: ``0.25·(1 + cos((step − T)/T·π))``
-    before ``T`` steps, else 0.5 — in f32, as a 0-dim tensor."""
+    before ``T`` steps, else 0.5 — in f32, as a 0-dim tensor. ``step`` is a
+    Python int or a 0-dim tensor on ``device`` (the train step's, which it
+    writes before each step without a host sync): the same value either way."""
     s = torch.as_tensor(step, dtype=torch.float32, device=device)
     t = float(total_steps)
     ramp = 0.25 * (1.0 + torch.cos((s - t) / t * math.pi))

@@ -26,6 +26,8 @@ from typing import Dict, List, Optional
 import torch
 
 from seghiero_torch.models.convert import load_reference_checkpoint, reference_checkpoint
+from seghiero_torch.train.optim import load_optimizer_state
+from seghiero_torch.train.steps import forget_step_graph
 
 MODEL_FILE = "model.pth"
 
@@ -118,7 +120,8 @@ class CheckpointManager:
         state = torch.load(os.path.join(d, "train_state.pt"), map_location="cpu",
                            weights_only=True)
         if optimizer is not None:
-            optimizer.load_state_dict(state["optimizer"])
+            forget_step_graph(optimizer)  # its graph holds the state replaced here
+            load_optimizer_state(optimizer, state["optimizer"])
         if scheduler is not None and state["scheduler"] is not None:
             scheduler.load_state_dict(state["scheduler"])
         with open(os.path.join(d, "meta.json")) as f:

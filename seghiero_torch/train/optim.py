@@ -27,6 +27,7 @@ The fine-tuning options of the JAX package's optax chain:
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
@@ -105,14 +106,40 @@ def param_groups(cfg: TrainingConfig, model: nn.Module) -> List[dict]:
     return [{"params": ps, "lr": lr, "weight_decay": wd} for (lr, wd), ps in groups.items()]
 
 
+# the update's implementation flags: how it is computed on the parameters'
+# device, not what it computes (``load_optimizer_state`` keeps them)
+IMPLEMENTATION = ("foreach", "fused", "capturable")
+
+
 def make_optimizer(cfg: TrainingConfig, model: nn.Module) -> torch.optim.Optimizer:
+    """The optimizer of ``training.optimizer`` over ``param_groups``. With
+    every parameter on the card it is the form that reads a learning rate
+    from a device tensor and keeps its state there, so the train step needs
+    no host sync and can run as one CUDA graph (``train/steps.py``): SGD's
+    fused update, AdamW's ``capturable`` one (the step count on the card).
+    Elsewhere, the default (foreach) forms."""
     check_optimizer_options(cfg)
+    groups = param_groups(cfg, model)
+    params = [p for g in groups for p in g["params"]]
+    on_card = bool(params) and all(p.is_cuda for p in params)
     if cfg.optimizer == "adamw":
-        return torch.optim.AdamW(param_groups(cfg, model), lr=cfg.lr,
-                                 betas=(cfg.adam_beta1, cfg.adam_beta2), eps=1e-8,
-                                 weight_decay=cfg.weight_decay)
-    return torch.optim.SGD(param_groups(cfg, model), lr=cfg.lr, momentum=cfg.momentum,
-                           weight_decay=cfg.weight_decay, dampening=0.0, nesterov=False)
+        return torch.optim.AdamW(groups, lr=cfg.lr, betas=(cfg.adam_beta1, cfg.adam_beta2),
+                                 eps=1e-8, weight_decay=cfg.weight_decay, capturable=on_card)
+    return torch.optim.SGD(groups, lr=cfg.lr, momentum=cfg.momentum,
+                           weight_decay=cfg.weight_decay, dampening=0.0, nesterov=False,
+                           fused=on_card or None)
+
+
+def load_optimizer_state(optimizer: torch.optim.Optimizer, state: Dict) -> None:
+    """``optimizer.load_state_dict(state)``, keeping the optimizer's own
+    ``IMPLEMENTATION`` flags: a state saved by a run on another device (or
+    by an older version of this module) resumes with the update this
+    optimizer was built to run here."""
+    groups = [dict(saved, **{k: g[k] for k in IMPLEMENTATION if k in g})
+              for saved, g in zip(state["param_groups"], optimizer.param_groups)]
+    # the flags go in before the load, which places each state value by them
+    # (AdamW's step count on the card only where it is capturable)
+    optimizer.load_state_dict(dict(state, param_groups=groups))
 
 
 def clip_grad_global_norm_(params: Iterable[torch.Tensor], max_norm: float) -> torch.Tensor:
@@ -124,6 +151,32 @@ def clip_grad_global_norm_(params: Iterable[torch.Tensor], max_norm: float) -> t
     norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
     torch._foreach_mul_(grads, max_norm / torch.clamp(norm, min=max_norm))
     return norm
+
+
+def write_lrs(optimizer: torch.optim.Optimizer, lrs: List[torch.Tensor]) -> None:
+    """Each group's learning rate, the float the schedule set, into its
+    0-dim f32 tensor in ``lrs``: a fill that takes the value as its
+    argument, so no host sync."""
+    for t, g in zip(lrs, optimizer.param_groups):
+        t.fill_(g["lr"])
+
+
+@contextlib.contextmanager
+def device_lrs(optimizer: torch.optim.Optimizer, lrs: List[torch.Tensor]):
+    """Inside, each group's learning rate is its tensor in ``lrs``, which
+    the update reads on the device (SGD's fused and AdamW's capturable
+    forms take it), so a captured update reads the value written before
+    each replay; outside, the schedule's floats, as the optimizer's state
+    and checkpoints keep them."""
+    groups = optimizer.param_groups
+    floats = [g["lr"] for g in groups]
+    for g, t in zip(groups, lrs):
+        g["lr"] = t
+    try:
+        yield
+    finally:
+        for g, f in zip(groups, floats):
+            g["lr"] = f
 
 
 def make_schedule(cfg: TrainingConfig, total_steps: int, optimizer):

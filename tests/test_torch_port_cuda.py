@@ -488,3 +488,247 @@ def test_sr_attention_raises_where_no_fused_kernel_takes_the_call():
     q = torch.randn((1, 1, 64, 64), device=dev, dtype=torch.float64)
     with pytest.raises(RuntimeError):
         attention.sr_attention(q, q, q)
+
+
+# -- the train step as one CUDA graph (``train/steps.py``) -------------------
+# the benchmark's three training configurations at their CPU rehearsal's
+# tiny size (64², ResNet-50 / MiT-B0), with the harness's weights and scenes
+GRAPH_CELLS = ("r50-2level.train-files", "r101-3level.train-769", "mitb5-3level.train-1024")
+GRAPH_SEED = 3_000_000_019
+
+
+def _graph_setup(cell, drop_path_rate=None):
+    """(cfg, model, composite, optimizer, scheduler, batches, limits) of
+    ``cell`` on the card; ``drop_path_rate`` overrides."""
+    from hbench.core import harness, scene, spec, weights
+    from seghiero_torch.config import SegHieroConfig
+    from seghiero_torch.models.segmenter import build_model
+    from seghiero_torch.train.optim import make_optimizer, make_schedule
+    from seghiero_torch.train.steps import make_composite_loss
+
+    dev = _card()
+    bench = spec.Bench()
+    ctx = harness.context(bench, cell, GRAPH_SEED, "cuda", overrides=bench.rehearsal(cell))
+    port = ctx.port_config("train")
+    # the weights of the configuration as it is (the reference runs no drop path)
+    sd = weights.make(ctx.reference.build(port["model"], ctx.tree), ctx.seed, dev,
+                      ctx.reference.RESIDUAL_LAST)
+    if drop_path_rate is not None:
+        port["model"].setdefault("backbone_options", {})["drop_path_rate"] = drop_path_rate
+    cfg = SegHieroConfig.from_dict(port)
+    with torch.device(dev):
+        model = build_model(cfg)
+    model = model.to(memory_format=torch.channels_last)
+    model.load_state_dict(sd, strict=True)
+    optimizer = make_optimizer(cfg.training, model)
+    scheduler = make_schedule(cfg.training, 10**9, optimizer)
+    b, hw = cfg.training.batch_size, tuple(cfg.transform.resize)
+    images, fine = scene.scenes(scene.generator(GRAPH_SEED, dev, stream=1), 4 * b, hw,
+                                ctx.tree.n_fine)
+    batches = [{"image": images[i:i + b].contiguous(), "fine": fine[i:i + b].to(torch.int32)}
+               for i in range(0, 4 * b, b)]
+    return cfg, model, make_composite_loss(cfg), optimizer, scheduler, batches, \
+        bench.limits(cell)
+
+
+def _graph_run(cell, n_steps, eager, monkeypatch, after=None):
+    """``n_steps`` train steps of ``cell`` from its fresh state: the losses,
+    the parameters after, each step's launch counts, and whether a graph
+    ran. ``eager``: never capture."""
+    from seghiero_torch.train import steps
+
+    monkeypatch.setattr(steps, "EAGER_CALLS", 10**9 if eager else 2)
+    cfg, model, composite, optimizer, scheduler, batches, _ = _graph_setup(cell)
+    losses, counts = [], []
+    for i in range(n_steps):
+        before = steps._counters()
+        out = steps.train_step(model, composite, optimizer, cfg, batches[i % len(batches)], i,
+                               0, scheduler)
+        after_ = steps._counters()
+        counts.append({f"{m.__name__}.{n}": after_[(m, n)] - before[(m, n)]
+                       for (m, n) in before})
+        losses.append(out["loss"])
+    torch.cuda.synchronize()
+    graphed = steps._steps[optimizer].graph is not None
+    params = {n: p.detach().clone() for n, p in model.named_parameters()}
+    return [float(x) for x in losses], params, counts, graphed
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cell", GRAPH_CELLS)
+def test_replayed_steps_equal_eager_steps(cell, monkeypatch):
+    """Card-only: ten steps whose third is captured and the rest replayed
+    against ten eager steps from the same state: the same losses and
+    parameters, bit for bit where two eager runs agree bit for bit, else
+    within the cell's loss and ``change_gap`` limits; and every op's launch
+    counter moves by one eager step's count on every replayed step."""
+    from hbench.reference import compare
+
+    eager_a = _graph_run(cell, 10, True, monkeypatch)
+    eager_b = _graph_run(cell, 10, True, monkeypatch)
+    graph = _graph_run(cell, 10, False, monkeypatch)
+    assert not eager_a[3] and graph[3]
+    assert all(np.isfinite(graph[0]))
+    # the launch counts: each replayed step counts what an eager step counts
+    assert graph[2] == eager_a[2], (graph[2][-1], eager_a[2][-1])
+    assert any(n > 0 for n in graph[2][-1].values())
+    deterministic = eager_a[0] == eager_b[0] and all(
+        torch.equal(eager_a[1][k], eager_b[1][k]) for k in eager_a[1])
+    if deterministic:
+        assert graph[0] == eager_a[0]
+        assert all(torch.equal(graph[1][k], eager_a[1][k]) for k in eager_a[1])
+        return
+    *_, limits = _graph_setup(cell)
+    loss_limit = next(v["limit"] for k, v in limits.items() if k.startswith("loss_gap"))
+    gaps = [abs(a - b) / abs(b) for a, b in zip(graph[0], eager_a[0])]
+    assert max(gaps) <= loss_limit, gaps
+    init = _graph_setup(cell)[1].state_dict()
+    norm = {k: float((eager_a[1][k] - init[k]).double().norm()) for k in eager_a[1]}
+    mine = {k: float((graph[1][k] - init[k]).double().norm()) for k in graph[1]}
+    gap = compare._median(compare.leaf_gaps(mine, norm).values())
+    assert gap <= limits["change_gap"]["limit"], gap
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cell", GRAPH_CELLS)
+def test_a_replayed_step_makes_no_host_sync(cell):
+    """Card-only: once captured, a step runs under the sync debug mode's
+    ``error`` without raising."""
+    from seghiero_torch.train import steps
+
+    cfg, model, composite, optimizer, scheduler, batches, _ = _graph_setup(cell)
+    for i in range(3):
+        steps.train_step(model, composite, optimizer, cfg, batches[i], i, 0, scheduler)
+    torch.cuda.synchronize()
+    assert steps._steps[optimizer].graph is not None
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = steps.train_step(model, composite, optimizer, cfg, batches[3], 3, 0, scheduler)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.isfinite(out["loss"])
+
+
+@pytest.mark.gpu
+def test_a_batch_of_another_shape_runs_eagerly():
+    """Card-only: after the capture, a batch of another size (48² crops)
+    runs the eager step (no replay, the graph kept), and the captured shape
+    replays again."""
+    from seghiero_torch.train import steps
+
+    cfg, model, composite, optimizer, scheduler, batches, _ = _graph_setup(
+        "r101-3level.train-769")
+    for i in range(3):
+        steps.train_step(model, composite, optimizer, cfg, batches[i], i, 0, scheduler)
+    runner = steps._steps[optimizer]
+    real = runner.graph
+
+    class Spy:
+        n = 0
+
+        def replay(self):
+            Spy.n += 1
+            real.replay()
+
+    runner.graph = Spy()
+    short = {k: v[:, :48, :48].contiguous() for k, v in batches[3].items()}
+    out = steps.train_step(model, composite, optimizer, cfg, short, 3, 0, scheduler)
+    assert Spy.n == 0 and steps._steps[optimizer] is runner
+    assert torch.isfinite(out["loss"])
+    out = steps.train_step(model, composite, optimizer, cfg, batches[0], 4, 0, scheduler)
+    torch.cuda.synchronize()
+    assert Spy.n == 1 and torch.isfinite(out["loss"])
+
+
+@pytest.mark.gpu
+def test_a_restore_after_the_capture_resumes_as_the_run_went_on(tmp_path):
+    """Card-only: a checkpoint saved after the capture, restored into the
+    same objects (which drops their graph), then four steps: the same
+    losses and parameters as the four steps the run took after the save
+    (bit for bit where two such runs agree, else within the cell's
+    change limit)."""
+    from seghiero_torch.train import steps
+    from seghiero_torch.train.checkpoint import CheckpointManager
+
+    cell = "mitb5-3level.train-1024"
+    cfg, model, composite, optimizer, scheduler, batches, limits = _graph_setup(cell)
+    ckpt = CheckpointManager(str(tmp_path), "graph")
+    for i in range(4):
+        steps.train_step(model, composite, optimizer, cfg, batches[i], i, 0, scheduler)
+    ckpt.save(model, optimizer, scheduler, step=4, epoch=0, metrics={}, best_val_loss=1.0,
+              config_raw={}, is_best=False)
+
+    def four_more():
+        losses = [steps.train_step(model, composite, optimizer, cfg, batches[i], 4 + i, 0,
+                                   scheduler)["loss"] for i in range(4)]
+        torch.cuda.synchronize()
+        return ([float(x) for x in losses],
+                {n: p.detach().clone() for n, p in model.named_parameters()})
+
+    first = steps._steps[optimizer]
+    went_on = four_more()
+    ckpt.restore(4, model, optimizer, scheduler)
+    assert optimizer not in steps._steps
+    resumed = four_more()
+    assert steps._steps[optimizer] is not first and steps._steps[optimizer].graph is not None
+    if resumed[0] == went_on[0]:
+        assert all(torch.equal(resumed[1][k], went_on[1][k]) for k in went_on[1])
+        return
+    gaps = [abs(a - b) / abs(b) for a, b in zip(resumed[0], went_on[0])]
+    assert max(gaps) <= limits["loss_gap_median"]["limit"], gaps
+
+
+@pytest.mark.gpu
+def test_replays_draw_fresh_drop_path_masks():
+    """Card-only: with MiT's drop path on and the learning rate 0 (a state
+    that does not move), two replays of step 0 on one batch give two
+    losses; with it off, the same loss."""
+    from seghiero_torch.train import steps
+
+    def two_replays(rate):
+        cfg, model, composite, optimizer, _, batches, _ = _graph_setup(
+            "mitb5-3level.train-1024", drop_path_rate=rate)
+        for g in optimizer.param_groups:
+            g["lr"] = 0.0
+        losses = [steps.train_step(model, composite, optimizer, cfg, batches[0], 0)["loss"]
+                  for _ in range(5)]
+        assert steps._steps[optimizer].graph is not None
+        return float(losses[3]), float(losses[4])
+
+    a, b = two_replays(0.5)
+    assert a != b
+    a, b = two_replays(0.0)
+    assert a == b
+
+
+@pytest.mark.gpu
+def test_fit_replays_the_step_under_the_profiler(tmp_path):
+    """Card-only: ``Trainer.fit`` on a tiny 2-level config (kernels, flips,
+    clip) with ``output.profile_dir``: the profiled steps 3–10 are the
+    capture and its replays, traced; the epoch evaluates and saves."""
+    import json
+
+    from seghiero_torch.config import SegHieroConfig
+    from seghiero_torch.train.trainer import Trainer
+
+    _card()
+    d = {
+        "dataset": {"kind": "synthetic", "synthetic_size": 20},
+        "classes": {"coarse_to_fine_map": [[0, 3], [4, 6], [7], [8]],
+                    "coarse_names": {0: "a", 1: "b", 2: "c", 3: "d"},
+                    "fine_names": {i: f"f{i}" for i in range(9)}},
+        "model": {"depth": 18, "dtype": "bfloat16", "aspp_channels": 16, "c1_channels": 8,
+                  "proj_dim": 8, "dilations": [1, 2, 3, 4], "depthwise_backend": "pallas"},
+        "training": {"epochs": 1, "batch_size": 2, "lr": 0.01, "momentum": 0.9,
+                     "weight_decay": 1e-4, "num_workers": 0, "log_every": 100,
+                     "pallas_fused_loss": True, "grad_clip_norm": 1.0},
+        "transform": {"resize": [64, 64], "hflip_prob": 0.5, "device_hflip": True},
+        "output": {"checkpoint_dir": str(tmp_path / "ckpt"), "project_name": "graph",
+                   "profile_dir": str(tmp_path / "prof")},
+    }
+    history = Trainer(SegHieroConfig.from_dict(d), device="cuda", verbose=False).fit()
+    assert np.isfinite(history[-1]["train_loss"]) and np.isfinite(history[-1]["val_loss"])
+    spans = json.loads((tmp_path / "prof" / "spans.json").read_text())
+    assert spans["train.step"]["count"] == 8 and spans["train.replay"]["count"] == 8
+    assert spans["train.forward"]["count"] == 1  # the capture's; a replay runs none
+    assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
