@@ -18,98 +18,45 @@ printed as one line, any failure exits non-zero:
    library call computing the same function (for the fused loss and the
    RMI Gram kernels, which have none, the port's library-op path of the
    same loss term), and the least time the card could take; the
-   depthwise kernels also at config 4's shapes (193², odd); the dilated
-   depthwise forward (#9) at the served ASPP input ``[4, 128, 128, 2048]``
-   bf16 at dilations 12 / 24 / 36, beside ``F.conv2d(groups=C,
-   dilation=d)``; the decode
-   in f32 and bf16, eagerly (as a served batch launches it) and by
-   CUDA-graph replay (the kernel alone: it is shorter than a launch's
-   host cost); the fused
-   loss kernels also at the 150-class config's (``[8, 165, 128, 128]``);
-   the RMI Gram
-   kernels at config 3's shapes (f32) and their bf16-view variants at
-   config 4's (beside the f32 kernels' times there), #8 / #8f also in
-   turns with the same function as two cuDNN calls, then the RMI term at
-   config 4's shapes on four routes (fast kernels, parity kernels,
-   materialized op, streaming), value, gradient, time and memory;
+   depthwise kernels also at config 4's shapes (193², odd) and the
+   forward at config 5's (``[4, 256, 256, ·]``); the dilated depthwise
+   forward (#9) at the served ASPP input ``[4, 128, 128, 2048]`` bf16 at
+   dilations 12 / 24 / 36, beside ``F.conv2d(groups=C, dilation=d)``;
+   the decode in f32 and bf16, at the serving shape and config 5's
+   (``[4, 15, 256, 256]``, 3 levels), eagerly (as a served batch
+   launches it) and by CUDA-graph replay (the kernel alone: it is
+   shorter than a launch's host cost); the fused loss kernels also at
+   the 150-class config's (``[8, 165, 128, 128]``); the RMI Gram kernels
+   at config 3's shapes (f32) and their bf16-view variants at config 4's
+   (beside the f32 kernels' times there), #8 / #8f also in turns with
+   the same function as two cuDNN calls, then the RMI term at config 4's
+   shapes on four routes (fast kernels, parity kernels, materialized op,
+   streaming), value, gradient, time and memory;
 4. serve   — ``configs/example-serving-hopper.yaml`` at full width with
-   weights made from a fixed seed: the port's ``ServingModel`` +
-   ``make_server`` answer two bursts of concurrent 512×512 requests on a
-   local port; each response must equal the predictor called directly on
-   the same batch, the library-op predictor (both backends ``xla``) must
-   agree on ≥99.5% of pixels per level, and each kernel's launch counter
-   must show the serving run went through it;
-4b. infer5 — ``configs/example-serving-3level-r101-hopper.yaml`` (BASELINE
-   config 5: ResNet-101, 3 levels, 1024², batch 4, bf16) at full width and
-   depth: the depthwise forward (#1) and the decode (#3) at its shapes
-   against their plain versions, timed; weights from the seed saved as a
-   port checkpoint directory (``best.json``); the port's infer CLI
-   (``python -m seghiero_torch.infer``, in-process, no ``--checkpoint``) on
-   8 PNGs of 1024² and 3 of 1280×960, whose written masks must equal
-   ``Predictor.predict_array`` on the same batches; the batch-4
-   ``predict_masks`` time; a sliding window over a 1536×2048 image (6
-   windows of 1024²) and TTA at scales 0.75 / 1.0 / 1.25 with flip — every
-   run's masks within 99.5 % per level of the library-op predictor's, and
-   its launches exactly 2 of #1 and 3 of #9 per forward and 1 of #3 per
-   1024² batch (none in the 1280×960 group, the sliding window or TTA);
-5. train   — ``configs/example-train-hopper.yaml`` (ResNet-50, 512², batch
-   8, bf16) with weights made from the seed: the kernel path against the
-   library path (``depthwise_backend: xla``, ``pallas_fused_loss: false``)
-   on one batch (loss, per-parameter gradient cosine); both paths' device
-   step time; then ``Trainer.fit()`` — one epoch of SGD steps, each with
-   exactly 2/2/2/1/1 launches of the depthwise forward, input gradient,
-   weight gradient, fused loss forward and backward, a finite loss, and on
-   step 1 a finite gradient for every parameter — the evaluation pass and
-   a checkpoint, restored into a fresh ``Trainer`` whose eval loss must be
-   the same bits;
-5b. trainfiles — ``configs/example-train-files-hopper.yaml``: config 2
-   trained from files. It writes 64 train and 16 val image / mask PNGs of
-   1024×2048 (the synthetic shapes at the seed) and the seeded backbone as
-   a torchvision-layout ResNet-50 ``.pth`` into a temporary directory,
-   prebuilds the raw cache with ``python -m seghiero_torch.data.cache``'s
-   ``main`` in process, and checks that the ``Trainer``'s backbone holds
-   the ``.pth``'s tensors, that the first train batch from the cache equals
-   the uncached dataset's bit for bit, and that the native transforms equal
-   their plain versions on those images; then the checks of ``train`` with
-   the native transforms, scale-crop, colour jitter, the flip on the card,
-   the backbone at a tenth of the learning rate, no decay on norm and bias
-   and the gradient norm clipped, each ``fit`` step with exactly 2/2/2/1/1
-   launches; then one line setting its loop images/s and loader ms per
-   batch beside ``train``'s;
-5c. train150 — ``configs/example-train-150-hopper.yaml`` (config 2 with
-   the 150 + 15 classes of ``example-many-classes.yaml``), the same checks
-   as ``train`` against its library path (``pallas_fused_loss: false``),
-   each ``fit`` step with exactly 2/2/2/1/1 launches;
-6. train3  — ``configs/example-train-3level-hopper.yaml`` (BASELINE config
-   3: ResNet-50, 3-level hierarchy of 15 classes, 512², batch 4, bf16), the
-   same checks against the library path (``depthwise_backend: xla``,
-   ``rmi_backend: xla``), each ``fit`` step with exactly 2/2/2 depthwise
-   launches and 1/1/1 of the RMI Gram kernels, the evaluation's fine,
-   coarse and super mIoU, and the checkpoint round trip;
-7. train4  — ``configs/example-train-r101-769-hopper.yaml`` (BASELINE
-   config 4 on one card: ResNet-101, the same hierarchy, 769², batch 2,
-   bf16, ``rmi_precision: fast``): on one batch the parity kernel path
-   against the library path, and the fast kernel path against the parity
-   kernel path; the three paths' device step times; each ``fit`` step with
-   exactly 2/2/2 depthwise launches and 1/1/1 of the bf16-view RMI kernels
-   #6f–#8f (none of #6–#8), eval at three levels, checkpoint round trip.
+   the benchmark's seeded weights (``hbench/core/predictlib.py``): the
+   port's ``ServingModel`` + ``make_server`` answer two bursts of
+   concurrent 512×512 requests on a local port; each response must equal
+   the predictor called directly on the same batch, the library-op
+   predictor (both backends ``xla``) must agree on ≥99.5% of pixels per
+   level, and each kernel's launch counter must show the serving run
+   went through it.
 
-Then one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` name/power
-line, and as the last line ``{"ok": true, "device": {...}}``.
+The training and inference paths, and how many times a step or a
+forward launches each kernel, are the card tests'
+(``tests/test_torch_port_cuda.py``) and the benchmark's (``hbench/``).
+Then one JSON line ``{"kernels": [...]}`` (each kernel's times and
+bound), the ``nvidia-smi`` name/power line, and as the last line
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
-import contextlib
-import dataclasses
 import io
 import json
 import subprocess
 import sys
-import tempfile
 import threading
-import types
 import time
 import urllib.request
 from pathlib import Path
@@ -402,15 +349,23 @@ def phase_kernels(seed: int):
     results = {}
 
     # the depthwise kernels at config 2's (and serving's) shapes, and at
-    # config 4's, which the kernels line carries beside them
+    # config 4's and (the forward) config 5's, which the kernels line
+    # carries beside them
     results.update(depthwise_checks(gen, DW_SHAPES["config 2"]))
     results["config4"] = depthwise_checks(gen, DW_SHAPES["config 4"])
+    results["config5"] = depthwise_checks(gen, DW_SHAPES["config 5"], timed=("depthwise3x3",))
     results["depthwise3x3_dilated"] = dilated_checks(gen)
 
-    # fused 4× upsample + per-level argmax at the serving decode shape, in f32
-    # and in bf16 (the serving model's logits)
+    # fused 4× upsample + per-level argmax at the serving decode shape and at
+    # config 5's, in f32 and in bf16 (the serving model's logits)
     results["upsample_argmax"] = decode_checks(gen)
+    results["config5"]["upsample_argmax"] = decode_checks(gen, *DECODE5)
     return results
+
+
+# config 5's decode (``example-serving-3level-r101-hopper.yaml``: batch 4 of
+# 1024², 15 channels in 3 levels)
+DECODE5 = ((4, 15, 256, 256), ((0, 9), (9, 13), (13, 15)))
 
 
 def decode_checks(gen, shape=(8, 13, 128, 128), slices=((0, 9), (9, 13))):
@@ -989,53 +944,6 @@ def rmi_fast_checks(seed: int):
     return out
 
 
-# ---------------------------------------------------------------------------
-def random_init_(model, generator):
-    """Fill every parameter from ``generator``: convs lecun-normal (std
-    1/√fan_in, the JAX package's init), biases and BN shifts N(0, 0.1²),
-    BN scales U(0.5, 1.5)."""
-    import math
-
-    import torch
-
-    with torch.no_grad():
-        for mod in model.modules():
-            if isinstance(mod, torch.nn.Conv2d):
-                std = 1.0 / math.sqrt(mod.weight[0].numel())
-                mod.weight.copy_(torch.randn(mod.weight.shape, generator=generator) * std)
-                if mod.bias is not None:
-                    mod.bias.copy_(torch.randn(mod.bias.shape, generator=generator) * 0.1)
-            elif isinstance(mod, torch.nn.BatchNorm2d):
-                mod.weight.copy_(torch.rand(mod.weight.shape, generator=generator) + 0.5)
-                mod.bias.copy_(torch.randn(mod.bias.shape, generator=generator) * 0.1)
-    return model
-
-
-def made_up_checkpoint(cfg, seed: int):
-    """Full-width weights from ``seed``, with BatchNorm statistics set from
-    one train-mode pass over random images (momentum 1), so activations
-    keep a realistic scale through all 50 layers."""
-    import torch
-
-    from seghiero_torch.data.pipeline import normalize_images
-    from seghiero_torch.models.convert import reference_checkpoint
-    from seghiero_torch.models.segmenter import build_model
-
-    gen = torch.Generator().manual_seed(seed)
-    model = random_init_(build_model(cfg), gen)
-    for mod in model.modules():
-        if isinstance(mod, torch.nn.BatchNorm2d):
-            mod.momentum = 1.0
-    model = model.to("cuda", memory_format=torch.channels_last).train()
-    hw = cfg.transform.resize
-    imgs = torch.randint(0, 256, (4, *hw, 3), generator=gen, dtype=torch.uint8)
-    with torch.no_grad():
-        x = normalize_images(imgs.cuda(), cfg.transform.normalize_mean,
-                             cfg.transform.normalize_std)
-        model(x.permute(0, 3, 1, 2))
-    return reference_checkpoint(model.eval())
-
-
 def _post(url: str, body: bytes):
     req = urllib.request.Request(url, data=body, method="POST")
     req.add_header("Content-Type", "application/octet-stream")
@@ -1046,20 +954,26 @@ def _post(url: str, body: bytes):
     return status, data, (time.perf_counter() - t0) * 1e3
 
 
+# ---------------------------------------------------------------------------
 def phase_serve(seed: int, n_requests: int, device_line: str):
     import torch
+    import yaml
 
-    from seghiero_torch.config import load_config
-    from seghiero_torch.infer.predictor import Predictor
-    from seghiero_torch.ops import depthwise, upsample_argmax
+    from hbench.core import predictlib
+    from hbench.reference import model as reference
+    from hbench.reference.tree import from_classes
+    from seghiero_torch import ops
     from seghiero_torch.serve import ServingModel, make_server
 
-    cfg = load_config(str(ROOT / "configs" / "example-serving-hopper.yaml"))
-    if (cfg.model.depthwise_backend, cfg.model.argmax_backend) != ("pallas", "pallas"):
+    port = yaml.safe_load((ROOT / "configs" / "example-serving-hopper.yaml").read_text())
+    if (port["model"]["depthwise_backend"], port["model"]["argmax_backend"]) != ("pallas",
+                                                                                  "pallas"):
         raise AssertionError("the serving config must select both kernels")
     t0 = time.perf_counter()
-    ckpt = made_up_checkpoint(cfg, seed)
-    predictor = Predictor(cfg, ckpt, device="cuda")
+    # the benchmark's seeded weights, BatchNorm statistics calibrated once
+    sd = predictlib.seeded_weights(reference, port, from_classes(port["classes"]), seed, "cuda")
+    predictor = predictlib.predictor(port, sd, "cuda")
+    cfg = predictor.cfg
     setup_s = time.perf_counter() - t0
 
     class RecordingModel(ServingModel):
@@ -1109,9 +1023,7 @@ def phase_serve(seed: int, n_requests: int, device_line: str):
     try:
         with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
             health = json.loads(r.read())
-        depthwise.launches = 0
-        depthwise.dilated_launches = 0
-        upsample_argmax.launches = 0
+        before = ops.launch_counts()
         for burst in range(N_BURSTS):
             t_burst = time.perf_counter()
             group = [threading.Thread(target=call, args=(i,))
@@ -1123,9 +1035,11 @@ def phase_serve(seed: int, n_requests: int, device_line: str):
             burst_s.append(time.perf_counter() - t_burst)
             threads += group
             burst_batch_ms.append(model.batch_ms[sum(len(b) for b in burst_batch_ms):])
-        launches = {"depthwise3x3": depthwise.launches,
-                    "depthwise3x3_dilated": depthwise.dilated_launches,
-                    "upsample_argmax": upsample_argmax.launches}
+        after = ops.launch_counts()
+        launches = {name: after[key] - before[key] for name, key in (
+            ("depthwise3x3", "seghiero_torch.ops.depthwise.launches"),
+            ("depthwise3x3_dilated", "seghiero_torch.ops.depthwise.dilated_launches"),
+            ("upsample_argmax", "seghiero_torch.ops.upsample_argmax.launches"))}
         with urllib.request.urlopen(url + "/stats", timeout=60) as r:
             stats = json.loads(r.read())
     finally:
@@ -1166,9 +1080,9 @@ def phase_serve(seed: int, n_requests: int, device_line: str):
         raise AssertionError("non-finite logits")
 
     # the library-op path (both backends xla) on the same card and weights
-    cfg_xla = dataclasses.replace(cfg, model=dataclasses.replace(
-        cfg.model, depthwise_backend="xla", argmax_backend="xla"))
-    predictor_xla = Predictor(cfg_xla, ckpt, device="cuda")
+    port_xla = dict(port, model=dict(port["model"], depthwise_backend="xla",
+                                     argmax_backend="xla"))
+    predictor_xla = predictlib.predictor(port_xla, sd, "cuda")
     # on the same device batches as the server formed: cuDNN's bf16
     # backbone then computes the same bits on both paths, and only the two
     # swapped functions differ (depthwise: f32 sums in another order,
@@ -1185,7 +1099,7 @@ def phase_serve(seed: int, n_requests: int, device_line: str):
     if min(worst.values()) < AGREE_MIN:
         raise AssertionError(f"kernel path vs library path agreement {worst} < {AGREE_MIN}")
     # informational: the same comparison at another batch composition
-    # (cuDNN may pick other algorithms per batch size; with made-up
+    # (cuDNN may pick other algorithms per batch size; with seeded random
     # weights the bf16 rounding differences grow through the 50 layers)
     across = {lvl: [] for lvl in n_classes}
     for start in range(0, n_total, 8):
@@ -1208,778 +1122,6 @@ def phase_serve(seed: int, n_requests: int, device_line: str):
         images_per_s_by_burst=[n_requests / t for t in burst_s],
         predict_b8_ms=batch_ms, predict_b8_library_ms=batch_ms_xla,
         setup_s=round(setup_s, 2), healthz=health, card=device_line)
-    return launches
-
-
-# config 5 (bench.py:88): the inference phase's config, its decode shape
-# and levels, and its image sets: the CLI's two size groups, the sliding
-# window's image, window and stride, and TTA's scales
-INFER5_CONFIG = "example-serving-3level-r101-hopper.yaml"
-DECODE5 = ((4, 15, 256, 256), ((0, 9), (9, 13), (13, 15)))
-CLI_IMAGES = {(1024, 1024): 8, (960, 1280): 3}  # (H, W): count
-SLIDING = {"hw": (1536, 2048), "window": (1024, 1024), "stride": (512, 512), "windows": 6}
-TTA_SCALES = (0.75, 1.0, 1.25)
-
-
-def _event_ms(fn, n: int = 10, warmup: int = 2):
-    """Device ms of each of ``n`` calls of ``fn`` after ``warmup`` calls,
-    from CUDA events around each call."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    events = []
-    for _ in range(n):
-        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-        ev[0].record()
-        fn()
-        ev[1].record()
-        events.append(ev)
-    torch.cuda.synchronize()
-    return [a.elapsed_time(b) for a, b in events]
-
-
-def _levels_agree(a, b):
-    """Per level, the smallest share over the batch's images of pixels
-    where the two masks agree."""
-    return {lvl: min(float((a[lvl][j] == b[lvl][j]).mean()) for j in range(len(a[lvl])))
-            for lvl in a}
-
-
-def _counted(fn, want):
-    """Run ``fn`` with the launch counters set to 0; the counts it made,
-    which must equal ``want`` for each kernel ``want`` names."""
-    zero_counts()
-    out = fn()
-    counts = read_counts()
-    if any(counts[k] != n for k, n in want.items()):
-        raise AssertionError(f"launches {counts}, want {want}")
-    return out, counts
-
-
-def phase_infer5(seed: int, device_line: str):
-    """Config 5's inference (ResNet-101, 3 levels, 1024², batch 4, bf16) at
-    full width and depth: the kernels #1 and #3 at its shapes against their
-    plain versions; weights from ``seed`` saved as a port checkpoint
-    directory; then the port's infer CLI on PNGs of two sizes, the batch-4
-    ``predict_masks`` time, the sliding window and TTA, each checked
-    against the library-op predictor on the same batches. Returns (the
-    kernels' config-5 entries, the launch counts of the phase's runs)."""
-    import contextlib
-    import tempfile
-
-    import torch
-    import yaml
-    from PIL import Image
-
-    from seghiero_torch.config import load_config
-    from seghiero_torch.infer.__main__ import main as infer_main
-    from seghiero_torch.infer.predictor import Predictor, preprocess_image
-    from seghiero_torch.models.convert import load_reference_checkpoint
-    from seghiero_torch.models.segmenter import build_model
-    from seghiero_torch.train.checkpoint import CheckpointManager
-
-    torch.cuda.empty_cache()  # what the previous phase left cached
-    cfg = load_config(str(ROOT / "configs" / INFER5_CONFIG))
-    m, h = cfg.model, cfg.hierarchy
-    if ((m.depth, m.dtype, m.depthwise_backend, m.argmax_backend, tuple(cfg.transform.resize),
-         cfg.training.batch_size, h.has_super, h.total_classes)
-            != (101, "bfloat16", "pallas", "pallas", (1024, 1024), 4, True, 15)):
-        raise AssertionError("the infer5 config must be config 5 with both kernels on")
-    levels = ("fine", "coarse", "super")
-
-    # -- #1 and #3 at config 5's shapes against their plain versions
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    k5 = depthwise_checks(gen, DW_SHAPES["config 5"], timed=("depthwise3x3",))
-    k5["upsample_argmax"] = decode_checks(gen, *DECODE5)
-
-    with tempfile.TemporaryDirectory(prefix="chip-smoke-infer5-") as tmp:
-        tmp = Path(tmp)
-        # -- weights from the seed, saved as the port trainer saves them
-        t0 = time.perf_counter()
-        weights = made_up_checkpoint(cfg, seed)
-        model = load_reference_checkpoint(build_model(cfg), weights)
-        cfg = dataclasses.replace(cfg, output=dataclasses.replace(
-            cfg.output, checkpoint_dir=str(tmp / "ckpt")))
-        raw = dict(cfg.raw, output={"checkpoint_dir": cfg.output.checkpoint_dir,
-                                    "project_name": cfg.output.project_name})
-        CheckpointManager(cfg.output.checkpoint_dir, cfg.output.project_name).save(
-            model, torch.optim.SGD(model.parameters(), lr=0.0), None, step=1, epoch=1,
-            metrics={}, best_val_loss=0.0, config_raw=raw, is_best=True)
-        del model
-        cfg_path = tmp / "config.yaml"
-        cfg_path.write_text(yaml.safe_dump(raw))
-        predictor = Predictor.from_checkpoint(cfg, None, device="cuda")  # best.json, as the CLI
-        cfg_xla = dataclasses.replace(cfg, model=dataclasses.replace(
-            cfg.model, depthwise_backend="xla", argmax_backend="xla"))
-        predictor_xla = Predictor(cfg_xla, weights, device="cuda")
-        rng = np.random.default_rng(seed)
-        images = tmp / "images"
-        images.mkdir()
-        for (H, W), n in CLI_IMAGES.items():
-            for i in range(n):
-                Image.fromarray(rng.integers(0, 256, (H, W, 3), dtype=np.uint8)).save(
-                    images / f"img{W}x{H}_{i}.png")
-        setup_s = time.perf_counter() - t0
-
-        # -- the CLI, in-process: every image in batches of 4 per size group
-        out_dir = tmp / "out"
-        size = tuple(cfg.transform.resize)  # the group the fused decode takes
-        n_fused = -(-CLI_IMAGES[size] // 4)
-        n_batches = sum(-(-n // 4) for n in CLI_IMAGES.values())
-        log = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(log):
-            rc, cli_counts = _counted(lambda: infer_main([
-                "--config", str(cfg_path), "--image-dir", str(images),
-                "--batch-size", "4", "--output-dir", str(out_dir)]),
-                {"depthwise3x3": 2 * n_batches, "depthwise3x3_dilated": 3 * n_batches,
-                 "upsample_argmax": n_fused})
-        cli_s = time.perf_counter() - t0
-        if rc != 0:
-            raise AssertionError(f"infer CLI exited {rc}")
-        names = sorted(p.stem for p in images.iterdir())
-        want_files = {f"{n}_{lvl}{sfx}.png" for n in names for lvl in levels
-                      for sfx in ("", "_color")}
-        written = {p.name for p in out_dir.iterdir()}
-        if written != want_files:
-            raise AssertionError(f"CLI wrote {sorted(written)}, want {sorted(want_files)}")
-        cli_agree = {lvl: [] for lvl in levels}
-        for (H, W), n in CLI_IMAGES.items():
-            group = [f"img{W}x{H}_{i}" for i in range(n)]
-            for start in range(0, n, 4):
-                chunk = group[start:start + 4]
-                batch = np.stack([preprocess_image(str(images / f"{b}.png"),
-                                                   cfg.transform.resize)[0] for b in chunk])
-                direct = predictor.predict_array(batch, out_hw=(H, W))
-                ref = predictor_xla.predict_array(batch, out_hw=(H, W))
-                for j, b in enumerate(chunk):
-                    for lvl in levels:
-                        got = np.asarray(Image.open(out_dir / f"{b}_{lvl}.png"))
-                        if not np.array_equal(got, direct[lvl][j]):
-                            raise AssertionError(f"CLI {b} {lvl}: differs from predict_array")
-                for lvl, v in _levels_agree(direct, ref).items():
-                    cli_agree[lvl].append(v)
-        cli_agree = {lvl: min(v) for lvl, v in cli_agree.items()}
-
-    # -- the batch-4 predict_masks, by CUDA events
-    batch4 = rng.integers(0, 256, (4, *size, 3), dtype=np.uint8)
-    n_timed, n_warm = 10, 2
-    predict_ms, predict_counts = _counted(
-        lambda: _event_ms(lambda: predictor.predict_masks(batch4), n_timed, n_warm),
-        {"depthwise3x3": 2 * (n_timed + n_warm), "depthwise3x3_dilated": 3 * (n_timed + n_warm),
-         "upsample_argmax": n_timed + n_warm})
-    predict_ms_xla = _event_ms(lambda: predictor_xla.predict_masks(batch4), n_timed, n_warm)
-    with torch.inference_mode():
-        if not bool(torch.isfinite(predictor.logits(batch4)).all().item()):
-            raise AssertionError("non-finite logits")
-
-    # -- sliding window and TTA, batch 1: timed runs after one warm-up run,
-    # peak memory, and the masks against the library-op predictor's
-    big = rng.integers(0, 256, (1, *SLIDING["hw"], 3), dtype=np.uint8)
-    img = batch4[:1]
-    runs = {
-        "sliding": (lambda p: p.predict_sliding(big, SLIDING["window"], SLIDING["stride"]),
-                    SLIDING["windows"]),
-        "tta": (lambda p: p.predict_tta(img, scales=TTA_SCALES, flip=True),
-                2 * len(TTA_SCALES)),
-    }
-    report, counts = {}, {"cli": cli_counts, "predict_masks": predict_counts}
-    for what, (run, forwards) in runs.items():
-        run(predictor)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        n_runs = 3
-
-        def timed():
-            ms = []
-            for _ in range(n_runs):
-                t0 = time.perf_counter()
-                out = run(predictor)  # masks on the host: the run has ended
-                ms.append((time.perf_counter() - t0) * 1e3)
-            return out, ms
-
-        (masks, ms), c = _counted(timed, {"depthwise3x3": 2 * forwards * n_runs,
-                                          "depthwise3x3_dilated": 3 * forwards * n_runs,
-                                          "upsample_argmax": 0})
-        counts[what] = c
-        peak_mb = torch.cuda.max_memory_allocated() / 2**20
-        agree = _levels_agree(masks, run(predictor_xla))
-        report[what] = {"ms": ms, "ms_median": float(np.median(ms)), "forwards": forwards,
-                        "peak_mb": peak_mb, "min_pixel_agreement_vs_library": agree,
-                        "shape": list(masks["fine"].shape)}
-    worst = min([*cli_agree.values()] + [v for r in report.values()
-                                         for v in r["min_pixel_agreement_vs_library"].values()])
-    if worst < AGREE_MIN:
-        raise AssertionError(f"kernel path vs library path agreement {worst} < {AGREE_MIN}: "
-                             f"CLI {cli_agree}, {report}")
-    launches = {run: {k: c[k] for k in ("depthwise3x3", "depthwise3x3_dilated", "upsample_argmax")}
-                for run, c in counts.items()}
-    total = {k: sum(c[k] for c in counts.values()) for k in cli_counts}
-    say("infer5", cli_images=sum(CLI_IMAGES.values()), cli_batches=n_batches, cli_s=cli_s,
-        cli_images_per_s=sum(CLI_IMAGES.values()) / cli_s,
-        cli_timing="in-process main(): model build, checkpoint load, PNG decode, predict and "
-        "PNG encode of 6 masks per image",
-        cli_min_pixel_agreement_vs_library=cli_agree,
-        predict_b4_ms_median=float(np.median(predict_ms)), predict_b4_ms=predict_ms,
-        predict_b4_library_ms_median=float(np.median(predict_ms_xla)),
-        sliding=report["sliding"], tta=report["tta"],
-        launches_by_run=launches,
-        setup_s=round(setup_s, 2), card=device_line)
-    return k5, total
-
-
-# ---------------------------------------------------------------------------
-# The train phase's tolerances, kernel path against library path on one
-# batch with the same weights. The two paths run the same cuDNN backbone
-# and differ in the head's two 3×3 depthwise convolutions (f32 sums in
-# another order before the bf16 rounding, forward and both gradients) and
-# in the loss (the fused kernels' f32 order; an l_f == l_coarse tie goes
-# wholly to the fine channel where autograd splits it in half). A logit
-# moves by about one bf16 ulp (2^-8) where a rounding flips; the loss is a
-# mean over 2.1 M pixels, so it moves far less than one ulp:
-LOSS_RTOL = 1e-3
-# each gradient entry carries such one-ulp differences back through up to
-# 50 bf16 layers; uncorrelated perturbations of ≤ 0.4 % keep each
-# parameter's gradient direction well within 1 %:
-GRAD_COS_MIN = 0.99
-# and each parameter's gradient norm within 2 % of the library path's (5×
-# that 0.4 %), so that a term whose gradient is off by a constant factor
-# fails where a cosine alone would pass it:
-GRAD_NORM_RTOL = 0.02
-# the triplet ramp is exactly 0 in f32 for the first steps of a run; the
-# comparison pass evaluates the loss mid-schedule so that the projection
-# head's gradient is live on both paths
-TRIPLET_LIVE_STEP = 40_000
-# train4's comparison (b), the fast kernel path (rmi_precision: fast)
-# against the parity kernel path on one batch: only the RMI term's Grams
-# differ (bf16 views), so the loss moves by at most that term's
-# fast-vs-parity tolerance times its share of the loss (λ·RMI / loss,
-# measured on the batch on the parity path). The RMI term's gradient moves
-# by a few 1e-3 of itself (one bf16 rounding of P and of z), which reaches
-# the parameters through the same bf16 layers as the kernel-vs-library
-# differences: GRAD_COS_MIN and GRAD_NORM_RTOL hold for it too.
-# The train phases. Per phase: its config, the depth and image size it
-# must have and what else it must select, the library path's knobs, other
-# paths compared on the one batch (their knobs and launches), the pairs
-# compared, and the kernel launches of one train step of the config's own
-# path — depthwise forward, input gradient and weight gradient (the head's
-# two sep-bottleneck convolutions) and the loss kernels (config 2: the
-# fused loss forward and backward; config 3: the RMI Gram kernels #6, #7
-# forward and #8 backward; config 4: their bf16-view variants #6f–#8f).
-# A train step needs the ASPP's backward, so its dilated branches stay on
-# cuDNN: none of the dilated forward #9 (the evaluation's batches take it).
-_DW = {"depthwise3x3": 2, "depthwise3x3_dgrad": 2, "depthwise3x3_wgrad": 2,
-       "depthwise3x3_dilated": 0}
-_NO_FUSED = {"hiera2_fused_fwd": 0, "hiera2_fused_bwd": 0}
-_NO_RMI = {"rmi_gram18": 0, "rmi_residual_gram": 0, "rmi_grad_maps": 0,
-           "rmi_gram18_fast": 0, "rmi_residual_gram_fast": 0, "rmi_grad_maps_fast": 0}
-_RMI_PARITY = dict(_NO_RMI, rmi_gram18=1, rmi_residual_gram=1, rmi_grad_maps=1)
-_RMI_FAST = dict(_NO_RMI, rmi_gram18_fast=1, rmi_residual_gram_fast=1, rmi_grad_maps_fast=1)
-TRAIN_PHASES = {
-    "train": {
-        "config": "example-train-hopper.yaml", "what": "config 2", "model": (50, (512, 512)),
-        "selects": lambda m, t, h: (t.pallas_fused_loss, t.batch_size, h.has_super)
-        == (True, 8, False),
-        "library": {"pallas_fused_loss": False},
-        "paths": {},
-        "compare": (("kernel", "library"),),
-        "launches": dict(_DW, hiera2_fused_fwd=1, hiera2_fused_bwd=1, **_NO_RMI),
-    },
-    "trainfiles": {
-        "config": "example-train-files-hopper.yaml",
-        "what": "config 2 from files (raw cache, native transforms, device flip, "
-                "backbone LR scale 0.1, no decay on norm and bias, clip 1.0)",
-        "model": (50, (512, 512)),
-        "selects": lambda m, t, h: (
-            t.pallas_fused_loss, t.batch_size, h.has_super, t.backbone_lr_scale,
-            t.wd_skip_norm_bias, t.grad_clip_norm, t.num_workers)
-        == (True, 8, False, 0.1, True, 1.0, 4),
-        "files": True,
-        "library": {"pallas_fused_loss": False},
-        "paths": {},
-        "compare": (("kernel", "library"),),
-        "launches": dict(_DW, hiera2_fused_fwd=1, hiera2_fused_bwd=1, **_NO_RMI),
-    },
-    "train150": {
-        "config": "example-train-150-hopper.yaml", "what": "the 150-class config",
-        "model": (50, (512, 512)),
-        "selects": lambda m, t, h: (t.pallas_fused_loss, t.hiera_precision, t.batch_size,
-                                    h.has_super, h.total_classes)
-        == (True, "parity", 8, False, 165),
-        "library": {"pallas_fused_loss": False},
-        "paths": {},
-        "compare": (("kernel", "library"),),
-        "launches": dict(_DW, hiera2_fused_fwd=1, hiera2_fused_bwd=1, **_NO_RMI),
-    },
-    "train3": {
-        "config": "example-train-3level-hopper.yaml", "what": "config 3",
-        "model": (50, (512, 512)),
-        "selects": lambda m, t, h: (t.rmi_backend, t.rmi_precision, t.pallas_fused_loss,
-                                    t.batch_size, h.has_super, h.total_classes)
-        == ("pallas", "parity", False, 4, True, 15),
-        "library": {"rmi_backend": "xla"},
-        "paths": {},
-        "compare": (("kernel", "library"),),
-        "launches": dict(_DW, **_NO_FUSED, **_RMI_PARITY),
-    },
-    "train4": {
-        "config": "example-train-r101-769-hopper.yaml", "what": "config 4",
-        "model": (101, (769, 769)),
-        "selects": lambda m, t, h: (t.rmi_backend, t.rmi_precision, t.pallas_fused_loss,
-                                    t.batch_size, h.has_super, h.total_classes)
-        == ("pallas", "fast", False, 2, True, 15),
-        "library": {"rmi_backend": "xla"},
-        "paths": {"parity": ({"rmi_precision": "parity"}, dict(_DW, **_NO_FUSED, **_RMI_PARITY))},
-        # (a) parity kernels vs library ops, (b) fast kernels vs parity kernels
-        "compare": (("parity", "library"), ("kernel", "parity")),
-        "launches": dict(_DW, **_NO_FUSED, **_RMI_FAST),
-    },
-}
-
-
-def _counters():
-    from seghiero_torch.ops import depthwise, hiera2_fused, rmi_gram, upsample_argmax
-
-    return {"depthwise3x3": (depthwise, "launches"),
-            "depthwise3x3_dgrad": (depthwise, "dgrad_launches"),
-            "depthwise3x3_wgrad": (depthwise, "wgrad_launches"),
-            "depthwise3x3_dilated": (depthwise, "dilated_launches"),
-            "hiera2_fused_fwd": (hiera2_fused, "fwd_launches"),
-            "hiera2_fused_bwd": (hiera2_fused, "bwd_launches"),
-            "rmi_gram18": (rmi_gram, "gram18_launches"),
-            "rmi_residual_gram": (rmi_gram, "residual_launches"),
-            "rmi_grad_maps": (rmi_gram, "grad_launches"),
-            "rmi_gram18_fast": (rmi_gram, "gram18_fast_launches"),
-            "rmi_residual_gram_fast": (rmi_gram, "residual_fast_launches"),
-            "rmi_grad_maps_fast": (rmi_gram, "grad_fast_launches"),
-            "upsample_argmax": (upsample_argmax, "launches"),
-            "backward_copies": (depthwise, "backward_copies")}
-
-
-def read_counts():
-    return {k: getattr(mod, attr) for k, (mod, attr) in _counters().items()}
-
-
-def zero_counts():
-    for mod, attr in _counters().values():
-        setattr(mod, attr, 0)
-
-
-def _grads(model, composite, cfg, batch):
-    """Loss and f32 gradients of one train-mode pass (no update)."""
-    from seghiero_torch.train.steps import forward_losses
-
-    model.train()
-    model.zero_grad(set_to_none=True)
-    loss, _, _, _ = forward_losses(model, composite, cfg, batch, TRIPLET_LIVE_STEP)
-    loss.backward()
-    return loss.item(), {n: p.grad for n, p in model.named_parameters()}
-
-
-def _step_times(model, composite, optimizer, cfg, batch, n_steps: int = 8):
-    """Device ms of each of ``n_steps`` ``train_step`` calls on one batch
-    already on the card, from CUDA events around each call."""
-    import torch
-
-    from seghiero_torch.train.steps import train_step
-
-    events = []
-    for i in range(n_steps):
-        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-        ev[0].record()
-        train_step(model, composite, optimizer, cfg, batch, i)
-        ev[1].record()
-        events.append(ev)
-    torch.cuda.synchronize()
-    return [a.elapsed_time(b) for a, b in events]
-
-
-def _median_3_to_8(ms):
-    return float(np.median(ms[2:8]))
-
-
-# the trainfiles phase's data: PNG frames of Cityscapes' size, in the
-# config's train and val directories
-FILES_HW = (1024, 2048)
-FILES_N = {"train": 64, "val": 16}
-
-
-def prepare_files(cfg, weights, seed: int, data_dir: Path):
-    """The data of a phase from files, in ``data_dir``: image and mask PNGs
-    of the synthetic shapes at ``FILES_HW`` made from ``seed``, the made-up
-    backbone in torchvision's layout (``conv1``, ``bn1``, a classifier
-    ``fc``) as a ``.pth``, and the config pointed at both, whose raw caches
-    the port's cache CLI then prebuilds in process. Returns that config and
-    a report (the ``.pth``'s state dict under ``pth``)."""
-    import copy
-    import re
-    from concurrent.futures import ThreadPoolExecutor
-
-    import torch
-    import yaml
-    from PIL import Image
-
-    from seghiero_torch.config import load_config
-    from seghiero_torch.data import cache
-    from seghiero_torch.data.synthetic import SyntheticShapesDataset
-
-    pth = {re.sub(r"^stem_bn\.", "bn1.", re.sub(r"^stem_conv\.", "conv1.", k)): v
-           for k, v in weights["backbone_state_dict"].items()}
-    gen = torch.Generator().manual_seed(seed + 2)
-    pth["fc.weight"] = torch.randn(1000, 2048, generator=gen) * 0.01
-    pth["fc.bias"] = torch.zeros(1000)
-    torch.save(pth, data_dir / "resnet50.pth")
-    raw = copy.deepcopy(cfg.raw)
-    raw["dataset"].update(root=str(data_dir / "data"), cache_dir=str(data_dir / "cache"))
-    raw["model"]["pretrained"] = str(data_dir / "resnet50.pth")
-    raw["output"] = dict(raw.get("output") or {}, checkpoint_dir=cfg.output.checkpoint_dir)
-    path = data_dir / "config.yaml"
-    path.write_text(yaml.safe_dump(raw))
-    cfg = load_config(str(path))
-
-    t0 = time.perf_counter()
-    for split, n in FILES_N.items():
-        ds = SyntheticShapesDataset(cfg, split=split, seed=seed, size=n, image_hw=FILES_HW)
-        img_dir, msk_dir = Path(cfg.dataset.image_dir(split)), Path(cfg.dataset.mask_dir(split))
-        img_dir.mkdir(parents=True)
-        msk_dir.mkdir(parents=True)
-
-        def write(i, ds=ds, img_dir=img_dir, msk_dir=msk_dir):
-            s = ds[i]
-            Image.fromarray(s["image"]).save(img_dir / f"{i:04d}.png", compress_level=1)
-            Image.fromarray(s["fine"].astype(np.uint8)).save(msk_dir / f"{i:04d}.png",
-                                                             compress_level=1)
-
-        with ThreadPoolExecutor(8) as pool:
-            list(pool.map(write, range(n)))
-    write_s = time.perf_counter() - t0
-    png_mb = sum(f.stat().st_size for f in (data_dir / "data").rglob("*.png")) / 2**20
-
-    t0 = time.perf_counter()
-    log = io.StringIO()
-    with contextlib.redirect_stdout(log):
-        if cache.main(["--config", str(path)]) != 0:
-            raise AssertionError(f"the cache CLI failed:\n{log.getvalue()}")
-    build_s = time.perf_counter() - t0
-    cache_mb = sum(f.stat().st_size for f in (data_dir / "cache").rglob("*") if f.is_file())
-    return cfg, {"pngs": FILES_N, "png_hw": FILES_HW, "png_mb": png_mb,
-                 "png_write_s": round(write_s, 2), "cache_build_s": build_s,
-                 "cache_mb": cache_mb / 2**20,
-                 "cache_cli": log.getvalue().strip().splitlines(), "pth": pth}
-
-
-def check_files(trainer, cfg, pth):
-    """A phase from files, before its own checks: the backbone the
-    ``Trainer`` built holds the ``.pth``'s tensors; the first train batch
-    from the raw cache — through the loader, and through ``get_batch`` in
-    its uint8 storage — equals the uncached dataset's bit for bit; the
-    native transforms equal their plain versions on the phase's images."""
-    import torch
-
-    from seghiero_torch.data import native
-    from seghiero_torch.data.dataset import HieroDataset, read_pair
-    from seghiero_torch.data.pipeline import BatchLoader
-    from seghiero_torch.models.convert import import_torchvision_backbone
-
-    if "conv1.weight" not in pth or "fc.weight" not in pth:
-        raise AssertionError("the .pth is not in torchvision's layout")
-    want = import_torchvision_backbone(pth, cfg.model.depth)
-    backbone = trainer.model.backbone.state_dict()
-    bad = [k for k in backbone if not torch.equal(backbone[k].cpu(), want[k])]
-    if bad or set(backbone) != set(want):
-        raise AssertionError(f"backbone differs from the .pth at {bad[:5]}")
-
-    t = cfg.training
-    loader = trainer.train_loader
-    loader.set_epoch(0)
-    idx = next(loader._batch_indices())
-    uncached = BatchLoader(HieroDataset(cfg, "train", seed=t.seed, include_levels=False),
-                           t.batch_size, shuffle=True, seed=t.seed, num_workers=t.num_workers)
-    uncached.set_epoch(0)
-    want = uncached.make_batch(idx)
-    for what, got in (("loader", loader.make_batch(idx)),
-                      ("get_batch", trainer.train_ds.get_batch(idx))):
-        if set(got) != set(want) or any(
-                not np.array_equal(got[k], want[k]) for k in want):
-            raise AssertionError(f"the cached first batch ({what}) differs from the uncached")
-    if trainer.train_ds.get_batch(idx)["fine"].dtype != np.uint8:
-        raise AssertionError("the cache's labels are not stored as uint8")
-
-    img, fine = read_pair(trainer.train_ds.base.img_paths[0],
-                          trainer.train_ds.base.msk_paths[0])
-    img, fine = np.asarray(img), fine.astype(np.int32)
-    base = np.asarray(trainer.train_ds.images[0])
-    lut = cfg.hierarchy.fine_to_coarse
-    ops = {
-        "resize_bilinear_u8": lambda m: m.resize_bilinear_u8(img, cfg.transform.resize),
-        "resize_bilinear_u8 up": lambda m: m.resize_bilinear_u8(base, (701, 701)),
-        "resize_bilinear_u8 down": lambda m: m.resize_bilinear_u8(base, (301, 301)),
-        "resize_nearest_i32": lambda m: m.resize_nearest_i32(fine, cfg.transform.resize),
-        "hflip_u8": lambda m: m.hflip_u8(base),
-        "hflip_i32": lambda m: m.hflip_i32(fine),
-        "lut_remap_i32": lambda m: m.lut_remap_i32(fine, lut),
-    }
-    plain = types.SimpleNamespace(**{
-        k: getattr(native, k + "_plain") for k in
-        ("resize_bilinear_u8", "resize_nearest_i32", "hflip_u8", "hflip_i32", "lut_remap_i32")})
-    timings = {}
-    for what, op in ops.items():
-        t0 = time.perf_counter()
-        a = op(native)
-        t1 = time.perf_counter()
-        b = op(plain)
-        t2 = time.perf_counter()
-        if a.dtype != b.dtype or not np.array_equal(a, b):
-            raise AssertionError(f"native {what} differs from its plain version")
-        timings[what] = {"native_ms": (t1 - t0) * 1e3, "plain_ms": (t2 - t1) * 1e3}
-    return {"first_batch_cached_equals_uncached": True, "backbone_tensors_equal_pth": len(backbone),
-            "native_equals_plain_ms": timings}
-
-
-def loader_ms_per_batch(loader) -> float:
-    """Host ms per batch of one pass over ``loader`` with nothing else to
-    do (epoch 1's augmentation; the copy to the card included)."""
-    import torch
-
-    loader.set_epoch(1)
-    n = 0
-    t0 = time.perf_counter()
-    for _ in loader:
-        n += 1
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3 / max(n, 1)
-    loader.set_epoch(0)
-    return ms
-
-
-def phase_train(name: str, seed: int, device_line: str):
-    """One train phase of ``TRAIN_PHASES``; returns the launch counts of
-    its ``fit`` run, loop images/s and loader ms per batch. A phase from
-    files first writes its data and backbone weights (``prepare_files``)
-    and checks them (``check_files``)."""
-    import shutil
-
-    import torch
-
-    from seghiero_torch.config import load_config
-    from seghiero_torch.models.convert import load_reference_checkpoint
-    from seghiero_torch.train.trainer import Trainer
-
-    torch.cuda.empty_cache()  # what the previous phase left cached
-    spec = TRAIN_PHASES[name]
-    cfg = load_config(str(ROOT / "configs" / spec["config"]))
-    m, t = cfg.model, cfg.training
-    depth, hw = spec["model"]
-    if ((m.depth, m.dtype, m.depthwise_backend, tuple(cfg.transform.resize))
-            != (depth, "bfloat16", "pallas", hw) or not spec["selects"](m, t, cfg.hierarchy)):
-        raise AssertionError(f"the {name} config must be {spec['what']} with its kernels on")
-    ckpt_dir = ROOT / "checkpoints" / f"chip-smoke-{name}"
-    shutil.rmtree(ckpt_dir, ignore_errors=True)
-    cfg = dataclasses.replace(cfg, output=dataclasses.replace(
-        cfg.output, checkpoint_dir=str(ckpt_dir)))
-    t0 = time.perf_counter()
-    weights = made_up_checkpoint(cfg, seed)
-    with contextlib.ExitStack() as stack:
-        files = None
-        if spec.get("files"):
-            data_dir = Path(stack.enter_context(tempfile.TemporaryDirectory()))
-            cfg, files = prepare_files(cfg, weights, seed, data_dir)
-        trainer = Trainer(cfg, device="cuda")
-        if files is not None:
-            files.update(check_files(trainer, cfg, files.pop("pth")))
-        load_reference_checkpoint(trainer.model, weights)
-        setup_s = time.perf_counter() - t0
-        return _train_checks(name, spec, cfg, trainer, weights, setup_s, files, device_line,
-                             ckpt_dir)
-
-
-def _train_checks(name, spec, cfg, trainer, weights, setup_s, files, device_line, ckpt_dir):
-    """The checks and measurements every train phase runs, on its
-    ``Trainer`` with the made-up ``weights`` loaded."""
-    import copy
-    import shutil
-
-    import torch
-
-    from seghiero_torch.losses import fast as loss_fast
-    from seghiero_torch.models.convert import load_reference_checkpoint
-    from seghiero_torch.models.segmenter import build_model
-    from seghiero_torch.train import loop
-    from seghiero_torch.train.optim import make_optimizer
-    from seghiero_torch.train.steps import make_composite_loss
-    from seghiero_torch.train.trainer import Trainer
-
-    step_launches = spec["launches"]
-    m, t = cfg.model, cfg.training
-
-    # -- the paths compared on one batch with the same weights: the
-    # config's own ("kernel"), the library ops ("library") and the
-    # phase's other kernel paths (a copy of the model, another loss)
-    cfg_lib = dataclasses.replace(
-        cfg, model=dataclasses.replace(m, depthwise_backend="xla"),
-        training=dataclasses.replace(t, **spec["library"]))
-    lib_model = load_reference_checkpoint(build_model(cfg_lib), weights).to(
-        "cuda", memory_format=torch.channels_last)
-    ker_model = copy.deepcopy(trainer.model)
-    paths = {"kernel": (ker_model, trainer.composite, cfg, step_launches),
-             "library": (lib_model, make_composite_loss(cfg_lib), cfg_lib, None)}
-    for path, (knobs, launches) in spec["paths"].items():
-        c = dataclasses.replace(cfg, training=dataclasses.replace(t, **knobs))
-        paths[path] = (ker_model, make_composite_loss(c), c, launches)
-    batch = {k: torch.from_numpy(v).cuda() for k, v in
-             trainer.train_loader.make_batch(np.arange(t.batch_size)).items()}
-    losses_1, grads_1, rmi_share = {}, {}, {}
-    real_rmi = loss_fast.rmi_lower_bound_cmajor
-    for path, (model, composite, c, launches) in paths.items():
-        rmi_seen = []
-
-        def recording_rmi(*a, **kw):  # the RMI term's value, for its share
-            v = real_rmi(*a, **kw)
-            rmi_seen.append(float(v.detach()))
-            return v
-
-        zero_counts()
-        loss_fast.rmi_lower_bound_cmajor = recording_rmi
-        try:
-            losses_1[path], grads_1[path] = _grads(model, composite, c, batch)
-        finally:
-            loss_fast.rmi_lower_bound_cmajor = real_rmi
-        counts = read_counts()
-        if launches is not None and any(counts[k] != n for k, n in launches.items()):
-            raise AssertionError(f"{path} comparison pass launches {counts}, want {launches}")
-        if rmi_seen:
-            rmi_share[path] = abs(c.training.fine_weight * rmi_seen[0] / losses_1[path])
-        # the copy of the model is shared: keep this path's gradients
-        grads_1[path] = {n: g.clone() for n, g in grads_1[path].items() if g is not None}
-    bad = [n for n, p in ker_model.named_parameters()
-           if n not in grads_1["kernel"] or not bool(torch.isfinite(grads_1["kernel"][n]).all())
-           or not bool(grads_1["kernel"][n].abs().max() > 0)]
-    if bad:
-        raise AssertionError(f"kernel path: no finite non-zero gradient for {bad}")
-    failed = []
-    for a, b in spec["compare"]:
-        ga, gb = grads_1[a], grads_1[b]
-        cos = {n: float(torch.nn.functional.cosine_similarity(
-            ga[n].flatten().double(), gb[n].flatten().double(), dim=0)) for n in ga}
-        norm_dev = {n: abs(float(ga[n].double().norm() / gb[n].double().norm()) - 1.0)
-                    for n in ga}
-        worst = sorted(cos.items(), key=lambda kv: kv[1])[:5]
-        worst_norm = sorted(norm_dev.items(), key=lambda kv: -kv[1])[:5]
-        loss_rel = abs(losses_1[a] - losses_1[b]) / abs(losses_1[b])
-        # kernel paths against each other differ in the RMI term's precision only
-        loss_rtol = (RMI_FAST_VALUE_RTOL * rmi_share[b] if b != "library" else LOSS_RTOL)
-        say(name, check=f"{a} path vs {b} path, one batch, same weights",
-            loss=losses_1[a], loss_ref=losses_1[b], loss_rel_diff=loss_rel, loss_rtol=loss_rtol,
-            rmi_share_of_loss=rmi_share.get(b), grad_cos_min=worst[0][1],
-            grad_cos_floor=GRAD_COS_MIN, worst_params=worst,
-            grad_norm_ratio_max_dev=worst_norm[0][1], grad_norm_rtol=GRAD_NORM_RTOL,
-            worst_norm_params=worst_norm, params=len(cos), setup_s=round(setup_s, 2))
-        if (loss_rel > loss_rtol or worst[0][1] < GRAD_COS_MIN
-                or not worst_norm[0][1] <= GRAD_NORM_RTOL):
-            failed.append(f"{a} vs {b}")
-    if failed:
-        raise AssertionError(f"paths disagree beyond the tolerances: {failed}")
-    del grads_1
-
-    # -- device step time of every path on the batch already on the card,
-    # in the order kernel, others, library, library, others, kernel
-    opts = {p: make_optimizer(c.training, mdl)
-            for p, (mdl, _, c, _) in paths.items()}
-    times = {p: {"step_ms_median_3_8": [], "peak_mb_above_resident": 0.0} for p in paths}
-    order = ["kernel", *spec["paths"], "library"]
-    for path in order + order[::-1]:
-        model, composite, c, _ = paths[path]
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        ms = _step_times(model, composite, opts[path], c, batch)
-        times[path]["step_ms_median_3_8"].append(_median_3_to_8(ms))
-        times[path]["peak_mb_above_resident"] = max(
-            times[path]["peak_mb_above_resident"],
-            (torch.cuda.max_memory_allocated() - base) / 2**20)
-    loader_ms = loader_ms_per_batch(trainer.train_loader)
-    del ker_model, lib_model, paths, opts
-    torch.cuda.empty_cache()
-
-    # -- the main path: Trainer.fit() — every step through the kernels
-    per_step, losses, events, grad_report = [], [], [], {}
-    real_step = loop.train_step
-
-    def checked_step(model, composite, optimizer, cfg_, batch_, step, epoch=0, scheduler=None):
-        before = read_counts()
-        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-        ev[0].record()
-        out = real_step(model, composite, optimizer, cfg_, batch_, step, epoch, scheduler)
-        ev[1].record()
-        after = read_counts()
-        per_step.append({k: after[k] - before[k] for k in after})
-        events.append(ev)
-        losses.append(out["loss"])
-        if len(per_step) == 1:  # step 1: every gradient finite; non-zero
-            # except the projection head's, which the triplet ramp (0 at
-            # step 0) multiplies by 0
-            grad_report["non_finite"] = [
-                n for n, p in model.named_parameters()
-                if p.grad is None or not bool(torch.isfinite(p.grad).all())]
-            grad_report["zero"] = [n for n, p in model.named_parameters()
-                                   if p.grad is not None and not bool(p.grad.abs().max() > 0)]
-        return out
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    zero_counts()
-    loop.train_step = checked_step
-    try:
-        t_fit = time.perf_counter()
-        history = trainer.fit()
-        fit_s = time.perf_counter() - t_fit
-    finally:
-        loop.train_step = real_step
-    fit_counts = read_counts()
-    peak_mb = torch.cuda.max_memory_allocated() / 2**20
-    n_steps = len(per_step)
-    if n_steps != len(trainer.train_loader) or n_steps < 8:
-        raise AssertionError(f"{n_steps} train steps ran")
-    for i, c in enumerate(per_step):
-        if any(c[k] != n for k, n in step_launches.items()):
-            raise AssertionError(f"step {i + 1} launches {c}, want {step_launches}")
-    if grad_report["non_finite"] or any(
-            not n.startswith("aspp_head.proj_head.") for n in grad_report["zero"]):
-        raise AssertionError(f"step 1 gradients: {grad_report}")
-    step_losses = [float(x) for x in losses]
-    if not all(np.isfinite(step_losses)):
-        raise AssertionError(f"non-finite step loss: {step_losses}")
-    fit_ms = [a.elapsed_time(b) for a, b in events]
-    rec = history[-1]
-    levels = ("fine", "coarse", "super") if cfg.hierarchy.has_super else ("fine", "coarse")
-    if not (np.isfinite(rec["val_loss"])
-            and all(0.0 <= rec[f"val_{lvl}_miou"] <= 1.0 for lvl in levels)):
-        raise AssertionError(f"evaluation: {rec}")
-
-    # -- checkpoint round trip: a fresh Trainer resumes, same eval loss bits
-    fresh = Trainer(cfg, device="cuda", verbose=False, resume=True)
-    if fresh.step != trainer.step or fresh.start_epoch != 1:
-        raise AssertionError(f"resumed at step {fresh.step}, epoch {fresh.start_epoch}")
-    val_again = fresh.evaluate()["loss"]
-    if val_again != rec["val_loss"]:
-        raise AssertionError(f"eval loss after restore {val_again!r} != {rec['val_loss']!r}")
-    del fresh
-    shutil.rmtree(ckpt_dir, ignore_errors=True)
-
-    say(name, steps=n_steps, launches_per_step=per_step[0], launches_total=fit_counts,
-        backward_copies_per_step=per_step[0]["backward_copies"],
-        step_losses=step_losses, zero_grad_params_step1=grad_report["zero"],
-        val=rec, eval_loss_after_restore=val_again,
-        device_step_ms_median_3_8={p: v["step_ms_median_3_8"] for p, v in times.items()},
-        peak_mb_above_resident={k: v["peak_mb_above_resident"] for k, v in times.items()},
-        fit_step_ms=fit_ms, fit_step_ms_median_3_8=_median_3_to_8(fit_ms),
-        fit_images_per_s=rec["train_images_per_sec"], fit_train_seconds=rec["train_seconds"],
-        fit_s=round(fit_s, 2), fit_max_memory_allocated_mb=peak_mb,
-        loader_ms_per_batch=loader_ms,
-        **({"files": files} if files else {}), card=device_line)
-    return {"counts": fit_counts, "fit_images_per_s": rec["train_images_per_sec"],
-            "loader_ms_per_batch": loader_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -1992,31 +1134,15 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device is visible; this run needs the card",
               file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT))
-    import seghiero_torch  # noqa: F401  (fails outside a checkout of the repo)
-
     t_start = time.perf_counter()
     name, count, smi, sm_mhz = phase_device()
     phase_build()
     kernels = phase_kernels(SEED)
     kernels.update(phase_train_kernels(SEED, sm_mhz))
     t_kernels = time.perf_counter()
-    paths = {"serve": phase_serve(SEED, N_REQUESTS, smi)}
-    t_serve = time.perf_counter()
-    kernels["config5"], paths["infer5"] = phase_infer5(SEED, smi)
-    t_infer5 = time.perf_counter()
-    train_s, reports = {}, {}
-    for phase in TRAIN_PHASES:
-        t_phase = time.perf_counter()
-        reports[phase] = phase_train(phase, SEED, smi)
-        paths[phase] = reports[phase]["counts"]
-        train_s[phase] = round(time.perf_counter() - t_phase, 1)
-    # config 2 from files against config 2 on synthetic batches made in memory
-    say("trainfiles vs train", **{k: {p: reports[p][k] for p in ("train", "trainfiles")} for k in
-                                  ("fit_images_per_s", "loader_ms_per_batch")}, card=smi)
+    phase_serve(SEED, N_REQUESTS, smi)
     say("elapsed", seconds_to_kernels_end=round(t_kernels - t_start, 1),
-        serve_s=round(t_serve - t_kernels, 1), infer5_s=round(t_infer5 - t_serve, 1),
-        train_s=train_s,
+        serve_s=round(time.perf_counter() - t_kernels, 1),
         total_s=round(time.perf_counter() - t_start, 1))
     sources = {
         "depthwise3x3": ("seghiero_torch/csrc/depthwise3x3.cu",
@@ -2048,18 +1174,10 @@ def main(argv=None) -> int:
     line = []
     for kname, (src, replaces) in sources.items():
         k = kernels[kname]
-        by_path = {p: c[kname] for p, c in paths.items() if c.get(kname)}
-        if sum(by_path.values()) <= 0:
-            raise AssertionError(f"{kname} was not launched on its path")
-        if kname.endswith("_fast") and not by_path.get("train4"):
-            raise AssertionError(f"{kname} was not launched on train4")
-        if kname in kernels["config5"] and not by_path.get("infer5"):
-            raise AssertionError(f"{kname} was not launched on infer5")
         line.append({
             "name": kname, "route": "cuda", "source": src, "replaces": replaces,
             **({"instantiation": "bf16 views (training.rmi_precision: fast)",
                 "f32_twin_ms": k["f32_twin_ms"]} if kname.endswith("_fast") else {}),
-            "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
@@ -2068,15 +1186,12 @@ def main(argv=None) -> int:
                                  "by_dilation",
                                  "kernel_path_ms", "kernel_over_library", "cudnn_two_call_ms",
                                  "kernel_over_cudnn_two_call") if x in k},
-            # the depthwise kernels also at config 4's shapes (train4's path),
-            # #1 and #3 at config 5's (infer5's), the fused loss at the
-            # 150-class config's (train150's)
-            **({"config4": kernels["config4"][kname]} if kname in kernels["config4"] else {}),
-            **({"config5": kernels["config5"][kname]} if kname in kernels["config5"] else {}),
+            # the depthwise kernels also at config 4's shapes, #1 and #3 at
+            # config 5's, the fused loss at the 150-class config's
+            **{c: kernels[c][kname] for c in ("config4", "config5", "config150")
+               if kname in kernels[c]},
             # the decode also in bf16, the dtype of the serving model's logits
             **({"bfloat16": k["bfloat16"]} if "bfloat16" in k else {}),
-            **({"config150": kernels["config150"][kname]}
-               if kname in kernels["config150"] else {}),
         })
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)

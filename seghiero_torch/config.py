@@ -472,6 +472,12 @@ class SegHieroConfig:
         }
 
 
+def not_yet_ported(what: str) -> NotImplementedError:
+    """The error for a config option or feature the port does not have yet
+    (the queue of them is in ``ROADMAP.md``)."""
+    return NotImplementedError(f"{what} is not yet ported to seghiero_torch (ROADMAP.md)")
+
+
 def load_config(path: str) -> SegHieroConfig:
     """Load and validate a SegHiero YAML config file."""
     with open(path, "r") as f:

@@ -29,6 +29,7 @@ from typing import Sequence
 
 import torch
 
+from seghiero_torch.config import not_yet_ported
 from seghiero_torch.hierarchy import Hierarchy
 from seghiero_torch.losses.hiera import (
     _log_one_minus_sig_eps,
@@ -151,10 +152,6 @@ def _upsample(lo: torch.Tensor, out_hw, hiera_precision: str) -> torch.Tensor:
     return resize_bilinear(lo, out_hw)
 
 
-def _not_yet_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not yet ported to seghiero_torch (ROADMAP queue 1)")
-
-
 class FastHieraTripletLoss:
     """``loss_weight · (5·hieraBCE + CE_fine + CE_coarse
     + ready · schedule(step) · triplet)`` from low-res logits.
@@ -174,9 +171,9 @@ class FastHieraTripletLoss:
                  hiera_variant: str = "bce", ohem=None, selection: str = "auto",
                  hiera_precision: str = "parity"):
         if hiera_variant != "bce":
-            raise _not_yet_ported(f"training.hiera_variant: {hiera_variant}")
+            raise not_yet_ported(f"training.hiera_variant: {hiera_variant}")
         if ohem is not None:
-            raise _not_yet_ported("OHEM (training.ohem_thresh)")
+            raise not_yet_ported("OHEM (training.ohem_thresh)")
         self.h = hierarchy
         self.loss_weight = loss_weight
         self.schedule_total_steps = schedule_total_steps
@@ -242,9 +239,9 @@ class FastRMIHieraTripletLoss:
                  selection: str = "auto", use_kernel: bool = False,
                  hiera_precision: str = "parity"):
         if hiera_variant != "bce":
-            raise _not_yet_ported(f"training.hiera_variant: {hiera_variant}")
+            raise not_yet_ported(f"training.hiera_variant: {hiera_variant}")
         if ohem is not None:
-            raise _not_yet_ported("OHEM (training.ohem_thresh)")
+            raise not_yet_ported("OHEM (training.ohem_thresh)")
         self.h = hierarchy
         self.rmi_radius = rmi_radius
         self.loss_weight_lambda = loss_weight_lambda

@@ -21,10 +21,13 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from seghiero_torch.ops import _build
+
 # calls in this process (set to 0 to count a run): forwards on the card,
 # and the backwards autograd ran through them
 launches = 0
 bwd_launches = 0
+COUNTERS = ("launches", "bwd_launches")
 
 
 def sr_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -53,10 +56,8 @@ def sr_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Ten
     """``softmax(q·kᵀ/√d)·v`` for ``q [B, h, N, d]``, ``k, v [B, h, M,
     d]``: the flash or memory-efficient kernel on the card, the plain
     path on the CPU."""
-    if q.device.type == "cpu":
+    if not _build.on_card(q, "sr_attention"):
         return sr_attention_plain(q, k, v)
-    if q.device.type != "cuda":
-        raise ValueError(f"sr_attention runs on cuda or cpu tensors, got {q.device}")
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]):

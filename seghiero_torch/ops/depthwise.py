@@ -37,6 +37,8 @@ wgrad_launches = 0
 dilated_launches = 0
 # cotangents the backward had to copy to NHWC-contiguous before its kernels
 backward_copies = 0
+COUNTERS = ("launches", "dgrad_launches", "wgrad_launches", "dilated_launches",
+            "backward_copies")
 
 
 def depthwise3x3_dilated_plain(x: torch.Tensor, k9: torch.Tensor, d: int) -> torch.Tensor:
@@ -84,15 +86,6 @@ def _vector_width(C: int, itemsize: int, *tensors: torch.Tensor) -> int:
     return 1
 
 
-def _on_card(x: torch.Tensor, what: str) -> bool:
-    """True for a CUDA tensor, False for a CPU one; raises for any other."""
-    if x.device.type == "cpu":
-        return False
-    if x.device.type != "cuda":
-        raise ValueError(f"{what} runs on cuda or cpu tensors, got {x.device}")
-    return True
-
-
 def _check_nhwc(x: torch.Tensor, other: torch.Tensor, other_shape, what: str) -> None:
     if x.ndim != 4:
         raise ValueError(f"{what}: x must be NHWC [B, H, W, C], got shape {tuple(x.shape)}")
@@ -130,7 +123,7 @@ def depthwise3x3_forward(x: torch.Tensor, k9: torch.Tensor) -> torch.Tensor:
     version on the CPU. On the card x must be contiguous in NHWC — which a
     channels_last NCHW activation permuted by ``.permute(0, 2, 3, 1)``
     already is; the wrapper raises instead of copying a tensor that is not."""
-    if not _on_card(x, "depthwise3x3"):
+    if not _build.on_card(x, "depthwise3x3"):
         return depthwise3x3_plain(x, k9)
     out = _launch_forward(x, k9)
     global launches
@@ -145,7 +138,7 @@ def depthwise3x3_dilated_forward(x: torch.Tensor, k9: torch.Tensor, d: int) -> t
     copied)."""
     if d < 1:
         raise ValueError(f"depthwise3x3_dilated: dilation must be ≥ 1, got {d}")
-    if not _on_card(x, "depthwise3x3_dilated"):
+    if not _build.on_card(x, "depthwise3x3_dilated"):
         return depthwise3x3_dilated_plain(x, k9, d)
     B, H, W, C = x.shape
     _check_nhwc(x, k9, (9, C), "depthwise3x3_dilated")
@@ -167,7 +160,7 @@ def depthwise3x3_dgrad(g: torch.Tensor, k9: torch.Tensor) -> torch.Tensor:
     """Input gradient: the forward with the taps reversed (a stride-1
     "same" correlation's transpose), in g's dtype (kernel #1b)."""
     k_flip = k9.flip(0).contiguous()  # reversing (dy·3+dx) flips both axes
-    if not _on_card(g, "depthwise3x3_dgrad"):
+    if not _build.on_card(g, "depthwise3x3_dgrad"):
         return depthwise3x3_plain(g, k_flip)
     out = _launch_forward(g, k_flip)
     global dgrad_launches
@@ -188,7 +181,7 @@ def depthwise3x3_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """Weight gradient ``[9, C]`` f32 from x and the cotangent g (both NHWC
     ``[B, H, W, C]``, f32 or bf16): kernel #2 on the card, the plain
     version on the CPU."""
-    if not _on_card(x, "depthwise3x3_wgrad"):
+    if not _build.on_card(x, "depthwise3x3_wgrad"):
         return depthwise3x3_wgrad_plain(x, g)
     _check_nhwc(x, g, x.shape, "depthwise3x3_wgrad")
     B, H, W, C = x.shape
@@ -235,5 +228,5 @@ def depthwise3x3(x: torch.Tensor, k9: torch.Tensor) -> torch.Tensor:
     """x NHWC ``[B, H, W, C]`` (f32 or bf16), k9 ``[9, C]`` of the same
     dtype → ``[B, H, W, C]`` of x's dtype, differentiable in both (the
     backward through kernels #1b and #2 on the card)."""
-    _on_card(x, "depthwise3x3")
+    _build.on_card(x, "depthwise3x3")
     return _Depthwise3x3.apply(x, k9)

@@ -35,6 +35,7 @@ IGNORE = 255
 # kernel launches in this process (set to 0 to count a run)
 fwd_launches = 0
 bwd_launches = 0
+COUNTERS = ("fwd_launches", "bwd_launches")
 
 _table_cache: Dict[Tuple[torch.device, Tuple[int, ...]], torch.Tensor] = {}
 
@@ -271,27 +272,19 @@ def fused_hiera2_grad_kernel(lo, t_fine, t_coarse, hierarchy: Hierarchy,
     return dlo
 
 
-def _on_card(lo: torch.Tensor) -> bool:
-    if lo.device.type == "cpu":
-        return False
-    if lo.device.type != "cuda":
-        raise ValueError(f"fused_hiera2 runs on cuda or cpu tensors, got {lo.device}")
-    return True
-
-
 class _FusedHiera2(torch.autograd.Function):
     @staticmethod
     def forward(ctx, lo, t_fine, t_coarse, hierarchy):
         ctx.save_for_backward(lo, t_fine, t_coarse)
         ctx.hierarchy = hierarchy
-        if _on_card(lo):
+        if _build.on_card(lo, "fused_hiera2"):
             return fused_hiera2_sums_kernel(lo, t_fine, t_coarse, hierarchy)
         return fused_hiera2_sums_plain(lo, t_fine, t_coarse, hierarchy)
 
     @staticmethod
     def backward(ctx, g):
         lo, t_fine, t_coarse = ctx.saved_tensors
-        if _on_card(lo):
+        if _build.on_card(lo, "fused_hiera2"):
             dlo = fused_hiera2_grad_kernel(lo, t_fine, t_coarse, ctx.hierarchy, g)
         else:
             dlo = fused_hiera2_grad_plain(lo, t_fine, t_coarse, ctx.hierarchy, g)
@@ -305,5 +298,5 @@ def fused_hiera2_loss_sums(lo: torch.Tensor, t_fine: torch.Tensor, t_coarse: tor
     in ``lo`` (the counts carry no gradient). ``lo`` is C-major f32
     ``[B, C, h, w]``; labels int32 ``[B, 4h, 4w]``. On the card all three
     must be contiguous (the wrapper raises instead of copying)."""
-    _on_card(lo)
+    _build.on_card(lo, "fused_hiera2")
     return tuple(_FusedHiera2.apply(lo, t_fine, t_coarse, hierarchy).unbind(0))

@@ -68,6 +68,8 @@ grad_launches = 0
 gram18_fast_launches = 0
 residual_fast_launches = 0
 grad_fast_launches = 0
+COUNTERS = ("gram18_launches", "residual_launches", "grad_launches", "gram18_fast_launches",
+            "residual_fast_launches", "grad_fast_launches")
 
 
 def _check_precision(precision: str) -> bool:
@@ -127,14 +129,6 @@ def grad_maps_plain(la: torch.Tensor, pr: torch.Tensor, p: torch.Tensor,
 
 # ---------------------------------------------------------------------------
 # kernel wrappers
-def _on_card(x: torch.Tensor, what: str) -> bool:
-    if x.device.type == "cpu":
-        return False
-    if x.device.type != "cuda":
-        raise ValueError(f"{what} runs on cuda or cpu tensors, got {x.device}")
-    return True
-
-
 def _check_maps(la: torch.Tensor, pr: torch.Tensor, what: str, *small):
     """(BC, H, W) of two matching contiguous f32 maps on the card; ``small``
     are ``(tensor, shape)`` pairs that must match too."""
@@ -190,7 +184,7 @@ def gram18(la: torch.Tensor, pr: torch.Tensor, precision: str = "parity") -> tor
     ``precision="fast"``) on the card, one launch (its lag sums and the
     finish that adds them into both triangles)."""
     fast = _check_precision(precision)
-    if not _on_card(pr, "rmi gram18"):
+    if not _build.on_card(pr, "rmi gram18"):
         return gram18_plain(la, pr, precision)
     BC, H, W = _check_maps(la, pr, "rmi gram18")
     scratch = gram18_scratch(H, W)
@@ -211,7 +205,7 @@ def residual_gram(la: torch.Tensor, pr: torch.Tensor, w: torch.Tensor,
     regression ``w [BC, 9, 9]``: kernel #7 (#7f) on the card, one launch
     (its partial rows and the finish that adds them into both triangles)."""
     fast = _check_precision(precision)
-    if not _on_card(pr, "rmi residual_gram"):
+    if not _build.on_card(pr, "rmi residual_gram"):
         return residual_gram_plain(la, pr, w, precision)
     BC, H, W = _check_maps(la, pr, "rmi residual_gram", (w, (pr.shape[0], 9, 9)))
     nblk = residual_tiles(H, W)
@@ -233,7 +227,7 @@ def grad_maps(la: torch.Tensor, pr: torch.Tensor, p: torch.Tensor,
     interior's folded 5×5 correlation and the frame's general form are
     blocks of the same grid)."""
     fast = _check_precision(precision)
-    if not _on_card(pr, "rmi grad_maps"):
+    if not _build.on_card(pr, "rmi grad_maps"):
         return grad_maps_plain(la, pr, p, precision)
     BC, H, W = _check_maps(la, pr, "rmi grad_maps", (p, (pr.shape[0], 9, 18)))
     dpr = torch.empty_like(pr)
@@ -357,7 +351,7 @@ def rmi_logdet_kernel_cmajor(oh_map: torch.Tensor, pr_map: torch.Tensor,
     maps must be contiguous f32."""
     _check_precision(precision)
     B, C, H, W = pr_map.shape
-    if _on_card(pr_map, "rmi_logdet_kernel_cmajor") and not (
+    if _build.on_card(pr_map, "rmi_logdet_kernel_cmajor") and not (
             pr_map.is_contiguous() and oh_map.is_contiguous()):
         raise ValueError("rmi_logdet_kernel_cmajor needs contiguous maps; refusing to copy")
     oh = oh_map.detach().to(torch.float32).reshape(B * C, H, W)

@@ -31,6 +31,7 @@ PHASE = (
 
 # kernel launches made by upsample_argmax in this process (set to 0 to count a run)
 launches = 0
+COUNTERS = ("launches",)
 
 
 def upsample_argmax_plain(
@@ -70,12 +71,8 @@ def upsample_argmax(
     ``logits`` is C-major ``[B, C, h, w]``, f32 or bf16; on the card it
     must be contiguous (the wrapper raises instead of copying)."""
     slices = [(int(a), int(b)) for a, b in level_slices]
-    if logits.device.type == "cpu":
+    if not _build.on_card(logits, "upsample_argmax"):
         return upsample_argmax_plain(logits, slices)
-    if logits.device.type != "cuda":
-        raise ValueError(
-            f"upsample_argmax runs on cuda or cpu tensors, got {logits.device}"
-        )
     if logits.ndim != 4:
         raise ValueError(f"logits must be [B, C, h, w], got {tuple(logits.shape)}")
     B, C, h, w = logits.shape

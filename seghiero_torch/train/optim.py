@@ -34,19 +34,15 @@ from typing import Callable, Dict, Iterable, List, Optional, Tuple
 import torch
 from torch import nn
 
-from seghiero_torch.config import TrainingConfig
-
-
-def _not_yet_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not yet ported to seghiero_torch (ROADMAP.md)")
+from seghiero_torch.config import TrainingConfig, not_yet_ported
 
 
 def check_optimizer_options(cfg: TrainingConfig) -> None:
     """Raise for the optimizer options the port does not have yet."""
     if cfg.grad_accum_steps != 1:
-        raise _not_yet_ported("training.grad_accum_steps > 1")
+        raise not_yet_ported("training.grad_accum_steps > 1")
     if cfg.ema_decay:
-        raise _not_yet_ported("training.ema_decay (parameter EMA)")
+        raise not_yet_ported("training.ema_decay (parameter EMA)")
 
 
 def schedule_fn(cfg: TrainingConfig, total_steps: int) -> Optional[Callable[[int], float]]:

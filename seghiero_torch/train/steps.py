@@ -38,35 +38,20 @@ import numpy as np
 import torch
 from torch import nn
 
-from seghiero_torch import trace
-from seghiero_torch.config import SegHieroConfig
+from seghiero_torch import ops, trace
+from seghiero_torch.config import SegHieroConfig, not_yet_ported
 from seghiero_torch.data.pipeline import normalize_images
 from seghiero_torch.losses.fast import (
     FastHieraTripletLoss,
     FastRMIHieraTripletLoss,
     aux_ce_fast,
 )
-from seghiero_torch.ops import attention, depthwise, hiera2_fused, rmi_gram
 from seghiero_torch.ops.resize import resize_bilinear
 from seghiero_torch.train.metrics import confusion_matrix, pixel_accuracy_counts
 from seghiero_torch.train.optim import clip_grad_global_norm_, device_lrs, write_lrs
 
 # calls of one batch signature that run eagerly before the next is captured
 EAGER_CALLS = 2
-# the hand-written ops' launch counters, Python ints that each launch
-# advances: a replay runs no Python, so it adds what its capture counted
-LAUNCH_COUNTERS = (
-    (depthwise, ("launches", "dgrad_launches", "wgrad_launches", "dilated_launches",
-                 "backward_copies")),
-    (rmi_gram, ("gram18_launches", "residual_launches", "grad_launches",
-                "gram18_fast_launches", "residual_fast_launches", "grad_fast_launches")),
-    (hiera2_fused, ("fwd_launches", "bwd_launches")),
-    (attention, ("launches", "bwd_launches")),
-)
-
-
-def _not_yet_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not yet ported to seghiero_torch (ROADMAP queue 1)")
 
 
 def make_composite_loss(cfg: SegHieroConfig):
@@ -89,9 +74,9 @@ def make_composite_loss(cfg: SegHieroConfig):
                 stacklevel=2,
             )
     if not t.fast_losses:
-        raise _not_yet_ported("training.fast_losses: false (the NHWC parity losses)")
+        raise not_yet_ported("training.fast_losses: false (the NHWC parity losses)")
     if t.extra_losses:
-        raise _not_yet_ported("training.extra_losses (dice, lovasz)")
+        raise not_yet_ported("training.extra_losses (dice, lovasz)")
     ohem = (t.ohem_thresh, t.ohem_min_kept * t.batch_size) if t.ohem_thresh is not None else None
     if h.has_super:
         return FastRMIHieraTripletLoss(
@@ -185,10 +170,6 @@ def forward_losses(model: nn.Module, composite, cfg: SegHieroConfig,
 
 def _signature(batch: Dict[str, torch.Tensor]) -> tuple:
     return tuple(sorted((k, tuple(v.shape), v.dtype, v.device) for k, v in batch.items()))
-
-
-def _counters() -> Dict[tuple, int]:
-    return {(mod, name): getattr(mod, name) for mod, names in LAUNCH_COUNTERS for name in names}
 
 
 class _Step:
@@ -288,13 +269,13 @@ class _Step:
         self.inputs = {k: torch.empty_like(batch[k]) for k in ("image", "fine")}
         self.coins = None if coins is None else torch.empty_like(coins)
         optimizer.zero_grad(set_to_none=True)  # the backward's gradients: the graph's own
-        before = _counters()
+        before = ops.counters()
         graph = torch.cuda.CUDAGraph()
         # thread_local: the loader's worker thread may pin memory meanwhile
         with torch.cuda.graph(graph, stream=self.stream, capture_error_mode="thread_local"):
             self.out = self._update(optimizer, self.inputs, 0, self.coins, self.sched,
                                     autocast_cache=False)
-        self.launches = {k: n - before[k] for k, n in _counters().items() if n != before[k]}
+        self.launches = {k: n - before[k] for k, n in ops.counters().items() if n != before[k]}
         model = self.owner[0]
         self.grads = [(p, p.grad) for p in model.parameters() if p.grad is not None]
         self.graph = graph
@@ -314,9 +295,8 @@ class _Step:
             if coins is not None:
                 self.coins.copy_(coins)
             self.graph.replay()
-            if not captured:
-                for (mod, name), n in self.launches.items():
-                    setattr(mod, name, getattr(mod, name) + n)
+            if not captured:  # a replay runs no Python: count what the capture counted
+                ops.add_launches(self.launches)
             if self.grads and self.grads[0][0].grad is not self.grads[0][1]:
                 for p, g in self.grads:  # an eager step replaced them meanwhile
                     p.grad = g

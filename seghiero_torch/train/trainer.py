@@ -16,7 +16,7 @@ from typing import Any, Optional
 
 import torch
 
-from seghiero_torch.config import SegHieroConfig
+from seghiero_torch.config import SegHieroConfig, not_yet_ported
 from seghiero_torch.data.dataset import build_dataset
 from seghiero_torch.data.pipeline import BatchLoader
 from seghiero_torch.infer.predictor import resolve_device
@@ -40,8 +40,7 @@ def _check_model_options(cfg: SegHieroConfig) -> None:
             f"model.pretrained for model.backbone: {cfg.model.backbone} is not yet ported to "
             "seghiero_torch (ROADMAP.md); the port loads torchvision ResNet files only")
     if cfg.model.remat:
-        raise NotImplementedError(
-            "model.remat is not yet ported to seghiero_torch (ROADMAP queue 1 item 8)")
+        raise not_yet_ported("model.remat")
 
 
 @dataclasses.dataclass

@@ -7,9 +7,12 @@ without it; there, skip the JAX-pinning conftest:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_port_cuda.py
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
+import yaml
 
 from seghiero_torch.hierarchy import Hierarchy
 from seghiero_torch.losses.fast import FastHieraTripletLoss
@@ -535,18 +538,17 @@ def _graph_run(cell, n_steps, eager, monkeypatch, after=None):
     """``n_steps`` train steps of ``cell`` from its fresh state: the losses,
     the parameters after, each step's launch counts, and whether a graph
     ran. ``eager``: never capture."""
+    from seghiero_torch import ops
     from seghiero_torch.train import steps
 
     monkeypatch.setattr(steps, "EAGER_CALLS", 10**9 if eager else 2)
     cfg, model, composite, optimizer, scheduler, batches, _ = _graph_setup(cell)
     losses, counts = [], []
     for i in range(n_steps):
-        before = steps._counters()
+        before = ops.launch_counts()
         out = steps.train_step(model, composite, optimizer, cfg, batches[i % len(batches)], i,
                                0, scheduler)
-        after_ = steps._counters()
-        counts.append({f"{m.__name__}.{n}": after_[(m, n)] - before[(m, n)]
-                       for (m, n) in before})
+        counts.append({k: n - before[k] for k, n in ops.launch_counts().items()})
         losses.append(out["loss"])
     torch.cuda.synchronize()
     graphed = steps._steps[optimizer].graph is not None
@@ -732,3 +734,336 @@ def test_fit_replays_the_step_under_the_profiler(tmp_path):
     assert spans["train.step"]["count"] == 8 and spans["train.replay"]["count"] == 8
     assert spans["train.forward"]["count"] == 1  # the capture's; a replay runs none
     assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
+
+
+# -- the shipped configurations' paths --------------------------------------
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _shipped(config):
+    """(config dict, tree, cfg) of ``configs/<config>``."""
+    from hbench.reference.tree import from_classes
+    from seghiero_torch.config import SegHieroConfig
+
+    raw = yaml.safe_load((ROOT / "configs" / config).read_text())
+    return raw, from_classes(raw["classes"]), SegHieroConfig.from_dict(raw)
+
+
+def _model(cfg, sd, dev):
+    from seghiero_torch.models.segmenter import build_model
+
+    with torch.device(dev):
+        model = build_model(cfg)
+    model = model.to(memory_format=torch.channels_last)
+    model.load_state_dict(sd, strict=True)
+    return model
+
+
+def _counted(fn):
+    """``fn()`` and the launches it made, by ``ops.launch_counts``'s keys
+    without their ``seghiero_torch.ops.`` prefix."""
+    from seghiero_torch import ops
+
+    before = ops.launch_counts()
+    out = fn()
+    after = ops.launch_counts()
+    return out, {k.removeprefix("seghiero_torch.ops."): n - before[k] for k, n in after.items()}
+
+
+# Each training config's kernel path against its library path on one batch
+# with the same weights. The two run the same cuDNN backbone and differ in
+# the head's two 3×3 depthwise convolutions and in the loss's kernels: f32
+# sums in another order before a bf16 rounding. A logit moves by about one
+# bf16 ulp (2^-8) where a rounding flips; the loss, a mean over the batch's
+# pixels, by far less:
+LOSS_RTOL = 1e-3
+# each gradient entry carries such one-ulp differences back through up to
+# 100 bf16 layers; uncorrelated perturbations of ≤ 0.4 % keep each
+# parameter's gradient direction within 1 %:
+GRAD_COS_MIN = 0.99
+# and its norm within 2 % (5× that 0.4 %), so that a term whose gradient is
+# off by a constant factor fails where a cosine alone would pass it:
+GRAD_NORM_RTOL = 0.02
+# config 4's fast RMI kernels against its parity kernels differ in the RMI
+# term's Grams alone (bf16 views): the loss by at most the JAX package's
+# fast-vs-parity tolerance of the term (tests/test_rmi_gram_pallas.py:75)
+# times the term's share of the loss; its gradient, P·z with P and z
+# rounded to bf16, reaches the parameters through the same bf16 layers, so
+# it is held to GRAD_COS_MIN and GRAD_NORM_RTOL
+RMI_FAST_VALUE_RTOL = 2e-2
+# the triplet ramp is exactly 0 in f32 for a run's first steps: the
+# comparison takes the loss mid-schedule, so the projection head's gradient
+# is live on both paths
+TRIPLET_LIVE_STEP = 40_000
+# a train step's launches: the head's two separable convolutions' depthwise
+# forward, input and weight gradient (the ASPP's dilated branches need a
+# backward, so cuDNN's: no #9), and the loss's kernels
+_DW = {"depthwise.launches": 2, "depthwise.dgrad_launches": 2, "depthwise.wgrad_launches": 2,
+       "depthwise.dilated_launches": 0}
+_FUSED = {"hiera2_fused.fwd_launches": 1, "hiera2_fused.bwd_launches": 1}
+_RMI_PARITY = {f"rmi_gram.{k}{p}_launches": int(not p) for k in ("gram18", "residual", "grad")
+               for p in ("", "_fast")}
+_RMI_FAST = {k: 1 - n for k, n in _RMI_PARITY.items()}
+_LAUNCHES_2 = {**_DW, **_FUSED, **dict.fromkeys(_RMI_PARITY, 0)}
+# config: (the library path's loss knobs, the kernel path's launches a
+# step), at the config's own size: the tolerances above are those of a loss
+# over ~2 M pixels, and at 64² the stride-32 embedding is 2 × 2, where the
+# device's scenes may hold no triplet (the projection head's gradient is
+# then 0, and untested)
+TRAIN_CONFIGS = {
+    "example-train-hopper.yaml": ({"pallas_fused_loss": False}, _LAUNCHES_2),
+    "example-train-150-hopper.yaml": ({"pallas_fused_loss": False}, _LAUNCHES_2),
+    "example-train-3level-hopper.yaml": ({"rmi_backend": "xla"},
+                                         {**_DW, **dict.fromkeys(_FUSED, 0), **_RMI_PARITY}),
+    "example-train-r101-769-hopper.yaml": ({"rmi_backend": "xla"},
+                                           {**_DW, **dict.fromkeys(_FUSED, 0), **_RMI_FAST}),
+}
+
+
+def _loss_and_grads(cfg, sd, batch, dev, monkeypatch):
+    """(loss, the RMI term or None, each parameter's gradient, the
+    launches) of one train-mode pass of ``cfg``'s path, no update."""
+    from seghiero_torch.losses import fast as loss_fast
+    from seghiero_torch.train.steps import forward_losses, make_composite_loss
+
+    model, composite = _model(cfg, sd, dev).train(), make_composite_loss(cfg)
+    rmi, real = [], loss_fast.rmi_lower_bound_cmajor
+
+    def recording(*a, **kw):
+        v = real(*a, **kw)
+        rmi.append(float(v.detach()))
+        return v
+
+    def one_pass():
+        loss = forward_losses(model, composite, cfg, batch, TRIPLET_LIVE_STEP)[0]
+        loss.backward()
+        return float(loss.detach())
+
+    with monkeypatch.context() as mp:
+        mp.setattr(loss_fast, "rmi_lower_bound_cmajor", recording)
+        loss, counts = _counted(one_pass)
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    return loss, rmi[0] if rmi else None, grads, counts
+
+
+def _compare(a, b, rtol):
+    """Failures of path ``a`` against ``b``: the loss beyond ``rtol``, a
+    parameter's gradient below ``GRAD_COS_MIN`` or its norm beyond
+    ``GRAD_NORM_RTOL``."""
+    (loss_a, grads_a), (loss_b, grads_b) = a, b
+    bad = []
+    if abs(loss_a - loss_b) > rtol * abs(loss_b):
+        bad.append(("loss", loss_a, loss_b, rtol))
+    for n, ga in grads_a.items():
+        ga, gb = ga.double().flatten(), grads_b[n].double().flatten()
+        cos = float(torch.nn.functional.cosine_similarity(ga, gb, dim=0))
+        dev_norm = abs(float(ga.norm() / gb.norm()) - 1.0)
+        if not (cos >= GRAD_COS_MIN and dev_norm <= GRAD_NORM_RTOL):
+            bad.append((n, cos, dev_norm))
+    return bad
+
+
+def _train_setup(config):
+    """(cfg, the benchmark's seeded weights, one batch, the card) of a
+    shipped training config at its own size."""
+    from hbench.core import scene, weights
+    from hbench.reference import model as reference
+
+    dev = _card()
+    raw, tree, cfg = _shipped(config)
+    m, t = cfg.model, cfg.training
+    assert (m.dtype, m.depthwise_backend) == ("bfloat16", "pallas")
+    sd = weights.make(reference.build(raw["model"], tree), GRAPH_SEED, dev,
+                      reference.RESIDUAL_LAST)
+    images, fine = scene.scenes(scene.generator(GRAPH_SEED, dev, stream=1), t.batch_size,
+                                tuple(cfg.transform.resize), tree.n_fine)
+    return cfg, sd, {"image": images.contiguous(), "fine": fine.to(torch.int32)}, dev
+
+
+# (config, path a, path b): each config's kernel path against its library
+# path (``depthwise_backend: xla`` and the loss's library ops); config 4's
+# parity kernels against the library, and its fast kernels against its
+# parity kernels
+COMPARED = (("example-train-hopper.yaml", "kernel", "library"),
+            ("example-train-150-hopper.yaml", "kernel", "library"),
+            ("example-train-3level-hopper.yaml", "kernel", "library"),
+            ("example-train-r101-769-hopper.yaml", "parity", "library"),
+            ("example-train-r101-769-hopper.yaml", "kernel", "parity"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("config,a,b", COMPARED)
+def test_a_training_configs_kernel_path_matches_its_library_path(config, a, b, monkeypatch):
+    """Card-only: a shipped training config at its own size with the
+    benchmark's seeded weights. On one batch, path ``a``'s loss and every
+    parameter's gradient against path ``b``'s; each path's launches
+    exact, every gradient of the kernel path finite and non-zero."""
+    import dataclasses
+
+    cfg, sd, batch, dev = _train_setup(config)
+    library, launches = TRAIN_CONFIGS[config]
+    m, t = cfg.model, cfg.training
+    paths = {"kernel": cfg,
+             "library": dataclasses.replace(
+                 cfg, model=dataclasses.replace(m, depthwise_backend="xla"),
+                 training=dataclasses.replace(t, **library)),
+             "parity": dataclasses.replace(
+                 cfg, training=dataclasses.replace(t, rmi_precision="parity"))}
+    want = {"kernel": launches, "parity": {**_DW, **dict.fromkeys(_FUSED, 0), **_RMI_PARITY}}
+    got, rmi = {}, {}
+    for path in (a, b):
+        loss, rmi[path], grads, counts = _loss_and_grads(paths[path], sd, batch, dev,
+                                                         monkeypatch)
+        if path in want:
+            assert {k: counts[k] for k in want[path]} == want[path], (path, counts)
+        if path == "kernel":
+            bad = [n for n, g in grads.items() if g is None or not bool(torch.isfinite(g).all())
+                   or not bool(g.abs().max() > 0)]
+            assert not bad, bad
+        got[path] = (loss, grads)
+    rtol = LOSS_RTOL
+    if b == "parity":  # the RMI term's share of the loss on the parity path
+        rtol = RMI_FAST_VALUE_RTOL * abs(t.fine_weight * rmi[b] / got[b][0])
+    bad = _compare(got[a], got[b], rtol)
+    assert not bad, (a, b, bad)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("config", TRAIN_CONFIGS)
+def test_a_training_configs_steps_launch_its_kernels(config):
+    """Card-only: four ``train_step`` calls of a shipped training config
+    at its own size (two eager, the capture, a replay), each with exactly
+    the config's launches a step and a finite loss."""
+    from seghiero_torch.train import steps
+    from seghiero_torch.train.optim import make_optimizer
+    from seghiero_torch.train.steps import make_composite_loss
+
+    cfg, sd, batch, dev = _train_setup(config)
+    launches = TRAIN_CONFIGS[config][1]
+    model = _model(cfg, sd, dev)
+    optimizer = make_optimizer(cfg.training, model)
+    composite = make_composite_loss(cfg)
+    for i in range(4):
+        out, counts = _counted(lambda: steps.train_step(model, composite, optimizer, cfg,
+                                                        batch, i))
+        assert {k: counts[k] for k in launches} == launches, (i, counts)
+        assert bool(torch.isfinite(out["loss"]))
+    assert steps._steps[optimizer].graph is not None
+
+
+# Config 5's inference (ResNet-101, 3 levels, both kernels) at its own
+# size, 1024²: the infer CLI on PNGs of two sizes (1024², whose masks take
+# the decode #3, and 960×1280, whose masks take the library decode) in
+# batches of 4; a sliding window (6 windows of 1024² over 1536×2048) and
+# TTA (scales 0.75 / 1 / 1.25 with flip: 6 forwards). The kernel path
+# against the library-op predictor on the same batches: the depthwise
+# kernels sum in another f32 order before a bf16 rounding and the decode
+# multiplies in another order, which flips an argmax only where two logits
+# nearly tie:
+AGREE_MIN = 0.995
+CLI_IMAGES = {(1024, 1024): 8, (960, 1280): 3}  # (H, W): count
+SLIDING = {"hw": (1536, 2048), "window": (1024, 1024), "stride": (512, 512)}
+TTA_SCALES = (0.75, 1.0, 1.25)
+INFER_RUNS = ("cli", "sliding", "tta")
+
+
+def _levels_agree(a, b):
+    """Per level, the smallest share over the images of pixels where the
+    two masks agree."""
+    return {lvl: min(float((a[lvl][j] == b[lvl][j]).mean()) for j in range(len(a[lvl])))
+            for lvl in a}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("run", INFER_RUNS)
+def test_config_5_inference_matches_predict_array_and_the_library_path(run, tmp_path):
+    """Card-only: config 5 at 1024² with the benchmark's seeded, calibrated
+    weights saved as a port checkpoint directory. ``cli``: the infer CLI
+    (in process, the config's best checkpoint) writes every level's masks,
+    equal to ``predict_array``'s on the same batches; ``sliding``, ``tta``:
+    the predictor's runs. Each run's masks agree with the library-op
+    predictor's on ≥ 99.5 % of each level's pixels, its logits are finite,
+    and it launches 2 of #1 and 3 of #9 a forward, and #3 once a batch of
+    1024² masks (no other)."""
+    from PIL import Image
+
+    from hbench.core import predictlib
+    from hbench.reference import model as reference
+    from seghiero_torch.infer.__main__ import main as infer_main
+    from seghiero_torch.infer.predictor import Predictor, preprocess_image
+    from seghiero_torch.models.segmenter import build_model
+    from seghiero_torch.train.checkpoint import CheckpointManager
+
+    dev = _card()
+    raw, tree, cfg = _shipped("example-serving-3level-r101-hopper.yaml")
+    m = cfg.model
+    size = tuple(cfg.transform.resize)
+    assert (m.depth, m.dtype, m.depthwise_backend, m.argmax_backend, tree.total, size) == (
+        101, "bfloat16", "pallas", "pallas", 15, (1024, 1024))
+    raw["output"] = {"checkpoint_dir": str(tmp_path / "ckpt"), "project_name": "infer5"}
+    sd = predictlib.seeded_weights(reference, raw, tree, GRAPH_SEED, dev)
+    model = build_model(cfg)
+    model.load_state_dict(sd, strict=True)
+    CheckpointManager(raw["output"]["checkpoint_dir"], "infer5").save(
+        model, torch.optim.SGD(model.parameters(), lr=0.0), None, step=1, epoch=1, metrics={},
+        best_val_loss=0.0, config_raw=raw, is_best=True)
+    cfg_path = tmp_path / "config.yaml"
+    cfg_path.write_text(yaml.safe_dump(raw))
+    cfg = type(cfg).from_dict(raw)
+    predictor = Predictor.from_checkpoint(cfg, None, device=dev)  # as the CLI finds it
+    library = predictlib.predictor(
+        dict(raw, model=dict(raw["model"], depthwise_backend="xla", argmax_backend="xla")),
+        sd, dev)
+    rng = np.random.default_rng(GRAPH_SEED)
+    per_forward = {"depthwise.launches": 2, "depthwise.dilated_launches": 3}
+
+    if run == "cli":
+        images, out_dir = tmp_path / "images", tmp_path / "out"
+        images.mkdir()
+        for (H, W), n in CLI_IMAGES.items():
+            for i in range(n):
+                Image.fromarray(rng.integers(0, 256, (H, W, 3), dtype=np.uint8)).save(
+                    images / f"img{W}x{H}_{i}.png")
+        rc, counts = _counted(lambda: infer_main([
+            "--config", str(cfg_path), "--image-dir", str(images), "--batch-size", "4",
+            "--output-dir", str(out_dir)]))
+        assert rc == 0
+        n_batches = sum(-(-n // 4) for n in CLI_IMAGES.values())
+        want = {k: v * n_batches for k, v in per_forward.items()}
+        want["upsample_argmax.launches"] = -(-CLI_IMAGES[size] // 4)
+        names = sorted(p.stem for p in images.iterdir())
+        assert {p.name for p in out_dir.iterdir()} == {
+            f"{n}_{lvl}{sfx}.png" for n in names for lvl in tree.levels for sfx in ("", "_color")}
+        agree = []
+        for (H, W), n in CLI_IMAGES.items():
+            for start in range(0, n, 4):
+                chunk = [f"img{W}x{H}_{i}" for i in range(start, min(start + 4, n))]
+                batch = np.stack([preprocess_image(str(images / f"{b}.png"), size)[0]
+                                  for b in chunk])
+                direct = predictor.predict_array(batch, out_hw=(H, W))
+                for j, b in enumerate(chunk):
+                    for lvl in tree.levels:
+                        written = np.asarray(Image.open(out_dir / f"{b}_{lvl}.png"))
+                        assert np.array_equal(written, direct[lvl][j]), (b, lvl)
+                agree.append(_levels_agree(direct, library.predict_array(batch, out_hw=(H, W))))
+                logits = predictor.logits(batch)
+        agree = {lvl: min(a[lvl] for a in agree) for lvl in tree.levels}
+    else:
+        if run == "sliding":
+            img = rng.integers(0, 256, (1, *SLIDING["hw"], 3), dtype=np.uint8)
+
+            def go(p):
+                return p.predict_sliding(img, SLIDING["window"], SLIDING["stride"])
+        else:
+            img = rng.integers(0, 256, (1, *size, 3), dtype=np.uint8)
+
+            def go(p):
+                return p.predict_tta(img, scales=TTA_SCALES, flip=True)
+        masks, counts = _counted(lambda: go(predictor))
+        want = {k: 6 * v for k, v in per_forward.items()}
+        want["upsample_argmax.launches"] = 0
+        agree = _levels_agree(masks, go(library))
+        logits = predictor.logits(img[:, :size[0], :size[1]])
+    assert {k: counts[k] for k in want} == want, counts
+    assert min(agree.values()) >= AGREE_MIN, agree
+    assert bool(torch.isfinite(logits).all())

@@ -260,3 +260,36 @@ def test_cpu_tensors_never_count_launches_and_other_devices_raise():
                              torch.zeros(9, 3, device="meta"))
     with pytest.raises(ValueError, match="cuda or cpu"):
         port_ua.upsample_argmax(torch.zeros(1, 3, 2, 2, device="meta"), [(0, 3)])
+
+
+def test_every_benchmark_counter_is_a_launch_count():
+    """Each ``hbench/kernels/*.py`` ``COUNTER`` names a counter that
+    ``ops.launch_counts`` reads, so a replayed train step advances it."""
+    from hbench.core import spec
+    from seghiero_torch import ops
+
+    counters = {".".join(k.COUNTER) for k in spec.Bench().kernels().values()}
+    assert counters and counters <= set(ops.launch_counts()), counters - set(ops.launch_counts())
+
+
+def test_every_launch_counter_is_listed_in_its_modules_counters():
+    """Each module-level int of ``seghiero_torch/ops/*.py`` named
+    ``*launches`` or ``backward_copies`` is in its module's ``COUNTERS``,
+    and that module is one ``ops.COUNTED`` reads."""
+    import importlib
+    from pathlib import Path
+
+    from seghiero_torch import ops
+
+    found = {}
+    for path in sorted(Path(ops.__file__).parent.glob("*.py")):
+        if path.stem == "__init__":
+            continue
+        mod = importlib.import_module(f"seghiero_torch.ops.{path.stem}")
+        names = {k for k, v in vars(mod).items() if type(v) is int
+                 and (k.endswith("launches") or k == "backward_copies")}
+        if names:
+            found[mod] = names
+            assert mod in ops.COUNTED, mod.__name__
+            assert names == set(mod.COUNTERS), (mod.__name__, names ^ set(mod.COUNTERS))
+    assert set(found) == set(ops.COUNTED)
