@@ -25,7 +25,10 @@ printed as one line, any failure exits non-zero:
    the decode in f32 and bf16, at the serving shape and config 5's
    (``[4, 15, 256, 256]``, 3 levels), eagerly (as a served batch
    launches it) and by CUDA-graph replay (the kernel alone: it is
-   shorter than a launch's host cost); the fused loss kernels also at
+   shorter than a launch's host cost); MiT's attention pair (#10 / #10b)
+   at MiT-B5's four stage shapes, each half's device time (profiler)
+   beside SDPA's flash kernels' (``library_ms``) and the plain path's; the
+   fused loss kernels also at
    the 150-class config's (``[8, 165, 128, 128]``); the RMI Gram kernels
    at config 3's shapes (f32) and their bf16-view variants at config 4's
    (beside the f32 kernels' times there), #8 / #8f also in turns with
@@ -360,7 +363,119 @@ def phase_kernels(seed: int):
     # config 5's, in f32 and in bf16 (the serving model's logits)
     results["upsample_argmax"] = decode_checks(gen)
     results["config5"]["upsample_argmax"] = decode_checks(gen, *DECODE5)
+
+    # MiT's attention pair at MiT-B5's four stages
+    results.update(attention_checks(gen))
     return results
+
+
+# MiT-B5's four attention shapes of a 1024² image at batch 1 (B, h, N, M, d)
+ATTENTION_SHAPES = ((1, 1, 65536, 1024, 64), (1, 2, 16384, 1024, 64), (1, 5, 4096, 1024, 64),
+                    (1, 8, 1024, 1024, 64))
+
+
+def _device_ms(fn, names, iters: int = 10):
+    """Mean device time of one call of ``fn`` in the kernels whose names
+    hold any of ``names`` (profiler, after two warm-up calls), each name
+    apart."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {n: 0.0 for n in names}
+    for e in prof.events():
+        if e.device_type.name == "CUDA":
+            for n in names:
+                if n in e.name:
+                    out[n] += e.device_time / 1e3 / iters
+    return out
+
+
+def attention_checks(gen, shapes=ATTENTION_SHAPES):
+    """The attention pair (#10 forward, #10b backward) in bf16 at ``shapes``,
+    on MiT's strided views: output and q, k, v gradients within 2e-2 of the
+    largest against the plain path in f32; each half's device time
+    (profiler: the kernels named ``flash_fwd`` / ``flash_bwd``, a forward
+    and backward a call) beside SDPA's flash kernels' and the plain path's
+    (CUDA events, forward and backward). Returns both entries summed over
+    the shapes, each shape's under ``by_shape``."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from seghiero_torch.ops import attention
+
+    dev = torch.device("cuda")
+    entries = {"sr_attention_fwd": [], "sr_attention_bwd": []}
+    for B, h, N, M, d in shapes:
+        q = torch.randn((B, N, h, d), generator=gen, device=dev).to(torch.bfloat16)
+        kv = torch.randn((B, M, 2, h, d), generator=gen, device=dev).to(torch.bfloat16)
+        q = q.requires_grad_().transpose(1, 2)
+        k, v = kv.requires_grad_().permute(2, 0, 3, 1, 4)
+        g = torch.randn((B, h, N, d), generator=gen, device=dev).to(torch.bfloat16)
+        out = attention.sr_attention(q, k, v)
+        grads = torch.autograd.grad(out, (q, k, v), g)
+        q2, k2, v2 = (t.detach().float().requires_grad_() for t in (q, k, v))
+        ref = attention.sr_attention_plain(q2, k2, v2)
+        ref_grads = torch.autograd.grad(ref, (q2, k2, v2), g.float())
+        errs = [((a.float() - b).abs().max() / b.abs().max()).item()
+                for a, b in zip((out, *grads), (ref, *ref_grads))]
+        if max(errs) > 2e-2:
+            raise AssertionError(f"sr_attention {(B, h, N, M, d)}: |kernel − plain| / max "
+                                 f"(o, dq, dk, dv) = {errs} > 2e-2")
+        del out, grads, ref, ref_grads
+
+        def kernel():
+            torch.autograd.grad(attention.sr_attention(q, k, v), (q, k, v), g)
+
+        def library():
+            with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+                out = F.scaled_dot_product_attention(q, k, v)
+            torch.autograd.grad(out, (q, k, v), g)
+
+        def plain():
+            torch.autograd.grad(attention.sr_attention_plain(q2, k2, v2), (q2, k2, v2),
+                                g.float())
+
+        names = ("flash_fwd", "flash_bwd")
+        # in turns: kernel, library, library, kernel
+        turns = [_device_ms(f, names) for f in (kernel, library, library, kernel)]
+        with torch.no_grad():
+            plain_fwd = time_ms(lambda: attention.sr_attention_plain(q2, k2, v2), iters=3)
+        plain_ms = {"flash_fwd": plain_fwd, "flash_bwd": time_ms(plain, iters=3) - plain_fwd}
+        work = B * h * N * M * d
+        for name, key, nbytes, flops in (
+            ("sr_attention_fwd", "flash_fwd", 2 * (2 * B * h * N * d + 2 * B * h * M * d),
+             4 * work),
+            ("sr_attention_bwd", "flash_bwd", 2 * (4 * B * h * N * d + 4 * B * h * M * d),
+             8 * work),
+        ):
+            ms = [tr[key] for tr in turns]
+            t = {"ms": (ms[0] + ms[3]) / 2, "library_ms": (ms[1] + ms[2]) / 2,
+                 "plain_ms": plain_ms[key]}
+            b_ms, b_by = bound(nbytes, flops, flops_per_s=H100_BF16_FLOPS)
+            e = dict(t, shape=[B, h, N, M, d], max_abs_err=max(errs), bound_ms=b_ms,
+                     bound_by=b_by)
+            say("kernels", kernel=name, dtype="bfloat16", rel_errs_o_dq_dk_dv=errs,
+                splits=attention.backward_splits(B, h, N, M), share_of_bound=b_ms / t["ms"],
+                kernel_over_library=t["ms"] / t["library_ms"], turns_ms=ms, **e)
+            entries[name].append(e)
+        del q, k, v, kv, g, q2, k2, v2
+    summed = {}
+    for name, es in entries.items():
+        e = summed[name] = _sum_entries(es)
+        e["by_shape"] = [{x: s[x] for x in ("shape", "ms", "library_ms", "plain_ms", "bound_ms")}
+                         for s in es]
+        e["share_of_bound"] = e["bound_ms"] / e["ms"]
+        say("kernels", kernel=name, summed_over=e["shapes"], ms=e["ms"],
+            library_ms=e["library_ms"], bound_ms=e["bound_ms"], share_of_bound=e["share_of_bound"])
+    return summed
 
 
 # config 5's decode (``example-serving-3level-r101-hopper.yaml``: batch 4 of
@@ -1158,6 +1273,12 @@ def main(argv=None) -> int:
                              "seghiero_tpu/ops/pallas/hiera2_fused.py:322"),
         "hiera2_fused_bwd": ("seghiero_torch/csrc/hiera2_fused.cu",
                              "seghiero_tpu/ops/pallas/hiera2_fused.py:348"),
+        "sr_attention_fwd": ("seghiero_torch/csrc/sr_attention.cu",
+                             "no pallas_call: two einsums and a softmax, "
+                             "seghiero_tpu/models/mit.py EfficientAttention"),
+        "sr_attention_bwd": ("seghiero_torch/csrc/sr_attention.cu",
+                             "no pallas_call: the einsums' gradients, "
+                             "seghiero_tpu/models/mit.py EfficientAttention"),
         "upsample_argmax": ("seghiero_torch/csrc/upsample_argmax.cu",
                             "seghiero_tpu/ops/pallas/upsample_argmax.py:153"),
         "rmi_gram18": ("seghiero_torch/csrc/rmi_gram.cu",
@@ -1183,7 +1304,7 @@ def main(argv=None) -> int:
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
             "shapes": k["shapes"],
             **{x: k[x] for x in ("graph_ms", "library_graph_ms", "unfused_ms", "unfused_what",
-                                 "by_dilation",
+                                 "by_dilation", "by_shape",
                                  "kernel_path_ms", "kernel_over_library", "cudnn_two_call_ms",
                                  "kernel_over_cudnn_two_call") if x in k},
             # the depthwise kernels also at config 4's shapes, #1 and #3 at

@@ -69,6 +69,11 @@ SIGNATURES = {
     "seghiero_rmi_residual": [_P] * 5 + [_I] * 6 + [_P],
     # la, pr, p, dpr, BC, H, W, bf16, device, stream
     "seghiero_rmi_grad_maps": [_P] * 4 + [_I] * 5 + [_P],
+    # q, k, v, o, lse, strides, B, heads, N, M, d, q_rows, device, stream
+    "seghiero_sr_attention_fwd": [_P] * 6 + [_I] * 7 + [_P],
+    # q, k, v, o, dout, dq, dk, dv, lse, delta, ws, strides, B, heads, N, M,
+    # d, splits, device, stream
+    "seghiero_sr_attention_bwd": [_P] * 12 + [_I] * 7 + [_P],
 }
 
 _lock = threading.Lock()

@@ -443,42 +443,75 @@ def test_depthwise_kernels_at_the_mix_ffn_shapes(shape):
     assert ((dk - want).abs() <= 1e-5 * mag + 1e-30).all()
 
 
+# (B, h, N, M, d): MiT-B5's four stages of a 1024² image at batch 1, B0's
+# first stage at the graph tests' 64² (d = 32, 4 keys) and at 1024², and a
+# shape whose queries and keys end in ragged tiles
+ATTENTION_SHAPES = ((1, 1, 65536, 1024, 64), (1, 2, 16384, 1024, 64), (1, 5, 4096, 1024, 64),
+                    (1, 8, 1024, 1024, 64), (2, 1, 256, 4, 32), (1, 1, 65536, 1024, 32),
+                    (2, 3, 1000, 70, 64))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float32))
 def test_sr_attention_takes_a_fused_kernel_and_counts(dtype):
-    """Card-only: ``sr_attention`` at MiT-B5's first and third stages runs
-    the flash kernel in bf16 (the memory-efficient one in f32, which flash
-    does not take), never the math path's softmax; it matches the plain
-    path (scores in f32) and counts one forward and one backward a call."""
+    """Card-only: ``sr_attention`` in bf16 runs the hand-written pair
+    (``csrc/sr_attention.cu``) at MiT's shapes: every kernel of its forward
+    and backward is the port's (``seghiero``, ``flash_fwd`` / ``flash_bwd``
+    in its name), no PyTorch flash kernel runs and ``sdpa_launches`` stays,
+    on contiguous operands and on MiT's strided views alike;
+    in f32 it takes SDPA's memory-efficient kernels (``fmha_cutlass*``) and
+    counts them in ``sdpa_launches``; never the math path's softmax. Output
+    and q, k, v gradients match the plain path in f32 within 2e-2 of the
+    largest (bf16 operands; 1e-4 in f32); one forward and one backward
+    count a call."""
     from torch.profiler import ProfilerActivity, profile
 
     from seghiero_torch.ops import attention
 
     dev = _card()
     gen = torch.Generator(device=dev).manual_seed(5)
-    for B, h, N, M in ((1, 1, 65536, 1024), (2, 5, 4096, 1024)):
-        q, k, v = (torch.randn((B, h, n, 64), generator=gen, device=dev).to(dtype)
-                   .requires_grad_() for n in (N, M, M))
-        before = (attention.launches, attention.bwd_launches)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    shapes = ATTENTION_SHAPES if dtype == torch.bfloat16 else ((1, 1, 65536, 1024, 64),
+                                                               (2, 5, 4096, 1024, 64))
+    for i, (B, h, N, M, d) in enumerate(shapes):
+        if i % 2:
+            q, k, v = (torch.randn((B, h, n, d), generator=gen, device=dev).to(dtype)
+                       .requires_grad_() for n in (N, M, M))
+        else:  # MiT's layout: views of the q and kv projections' tokens
+            q = torch.randn((B, N, h, d), generator=gen, device=dev).to(dtype).requires_grad_()
+            kv = torch.randn((B, M, 2, h, d), generator=gen, device=dev).to(dtype)
+            k, v = kv.requires_grad_().permute(2, 0, 3, 1, 4)
+            q = q.transpose(1, 2)
+        g = torch.randn((B, h, N, d), generator=gen, device=dev).to(dtype)
+        # a first call outside the profile: the kernel library's build and
+        # the libraries' first-use set-up stay out of the traced window
+        torch.autograd.grad(attention.sr_attention(q, k, v), (q, k, v), g)
+        torch.cuda.synchronize()
+        before = (attention.launches, attention.bwd_launches, attention.sdpa_launches)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             out = attention.sr_attention(q, k, v)
-            out.float().square().sum().backward()
+            grads = torch.autograd.grad(out, (q, k, v), g)
             torch.cuda.synchronize()
-        assert (attention.launches, attention.bwd_launches) == (before[0] + 1, before[1] + 1)
+        sdpa = 0 if dtype == torch.bfloat16 else 1
+        assert (attention.launches, attention.bwd_launches, attention.sdpa_launches) == (
+            before[0] + 1, before[1] + 1, before[2] + sdpa), (B, h, N, M, d)
         names = {e.name for e in prof.events() if e.device_type.name == "CUDA"}
-        want = ("flash_fwd", "flash_bwd") if dtype == torch.bfloat16 else ("fmha_cutlassF",
-                                                                          "fmha_cutlassB")
-        assert all(any(w in n for n in names) for w in want), sorted(names)[:20]
+        if dtype == torch.bfloat16:
+            assert names and all("seghiero" in n and ("flash_fwd" in n or "flash_bwd" in n)
+                                 for n in names), sorted(names)
+            assert any("flash_fwd" in n for n in names) and any("flash_bwd" in n for n in names)
+            assert not any("pytorch_flash" in n for n in names), sorted(names)
+        else:
+            assert all(any(w in n for n in names) for w in ("fmha_cutlassF", "fmha_cutlassB")), \
+                sorted(names)[:20]
         assert not any("softmax" in n.lower() for n in names), sorted(names)[:20]
-        grads = [t.grad for t in (q, k, v)]
         q2, k2, v2 = (t.detach().float().requires_grad_() for t in (q, k, v))
         ref = attention.sr_attention_plain(q2, k2, v2)
-        ref.square().sum().backward()
+        ref.backward(g.float())
         tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
-        scale = ref.abs().max()
-        assert (out.float() - ref).abs().max() <= tol * scale
+        assert (out.float() - ref).abs().max() <= tol * ref.abs().max(), (B, h, N, M, d)
         for got, t in zip(grads, (q2, k2, v2)):
-            assert (got.float() - t.grad).abs().max() <= tol * t.grad.abs().max() + 1e-6
+            assert (got.float() - t.grad).abs().max() <= tol * t.grad.abs().max() + 1e-6, \
+                (B, h, N, M, d)
 
 
 @pytest.mark.gpu
@@ -563,7 +596,9 @@ def test_replayed_steps_equal_eager_steps(cell, monkeypatch):
     against ten eager steps from the same state: the same losses and
     parameters, bit for bit where two eager runs agree bit for bit, else
     within the cell's loss and ``change_gap`` limits; and every op's launch
-    counter moves by one eager step's count on every replayed step."""
+    counter moves by one eager step's count on every replayed step. MiT's
+    attention takes the hand-written pair on every step: SDPA's count
+    stays at 0."""
     from hbench.reference import compare
 
     eager_a = _graph_run(cell, 10, True, monkeypatch)
@@ -574,6 +609,10 @@ def test_replayed_steps_equal_eager_steps(cell, monkeypatch):
     # the launch counts: each replayed step counts what an eager step counts
     assert graph[2] == eager_a[2], (graph[2][-1], eager_a[2][-1])
     assert any(n > 0 for n in graph[2][-1].values())
+    attn = "seghiero_torch.ops.attention."
+    assert all(c[attn + "sdpa_launches"] == 0 for c in graph[2])
+    if cell.startswith("mitb5"):
+        assert all(c[attn + "launches"] > 0 for c in graph[2])
     deterministic = eager_a[0] == eager_b[0] and all(
         torch.equal(eager_a[1][k], eager_b[1][k]) for k in eager_a[1])
     if deterministic:

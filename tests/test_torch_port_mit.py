@@ -9,7 +9,10 @@
   with random BatchNorm statistics, carried into the port by
   ``models/convert.py``, the logits compared in f32;
 * ``sr_attention`` against ``softmax(QKᵀ/√d)·V`` in f64 at each MiT
-  stage's reduction and head count, forward and backward;
+  stage's reduction and head count, forward and backward; the card
+  kernels' backward arithmetic (``sr_attention_bwd_plain``) likewise, its
+  query splits against one split, and the split chooser at MiT-B5's
+  shapes;
 * the shipped ``configs/example-mit-segformer.yaml`` through the train
   entry point for one tiny step and through ``Predictor``.
 
@@ -290,6 +293,82 @@ def test_sr_attention_matches_softmax_qk_v(stage):
     assert _rel(out.double(), want) < 1e-5
     for t, t2 in ((q, q2), (k, k2), (v, v2)):
         assert _rel(t.grad.double(), t2.grad) < 1e-5
+
+
+def _attention_operands(seed, B, heads, N, M, d):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn((B, heads, n, d), generator=gen) for n in (N, M, M, N)]
+
+
+@pytest.mark.parametrize("stage", range(4))
+def test_sr_attention_bwd_mirror_matches_softmax_qk_v(stage):
+    """The hand-written pair's backward arithmetic (``sr_attention_bwd_plain``:
+    the saved log-sum-exp, D, the query splits the shape gets) at MiT-B0's
+    stage ``stage`` of a 64² image against the formula's gradients in f64:
+    within 1e-5 relative (f32 products)."""
+    heads, sr = ref_mit.NUM_HEADS[stage], ref_mit.SR_RATIOS[stage]
+    side = HW // 4 >> stage
+    N, M, dim = side * side, (side // sr) ** 2, ref_mit.VARIANTS["b0"][1][stage]
+    q, k, v, g = _attention_operands(10 + stage, BATCH, heads, N, M, dim // heads)
+    o = attention.sr_attention_plain(q, k, v)
+    splits = attention.backward_splits(BATCH, heads, N, M)
+    got = attention.sr_attention_bwd_plain(q, k, v, o, attention.sr_attention_lse(q, k), g, splits)
+    q2, k2, v2 = (t.double().requires_grad_() for t in (q, k, v))
+    want = torch.softmax(q2 @ k2.transpose(-1, -2) / (dim // heads) ** 0.5, dim=-1) @ v2
+    want.backward(g.double())
+    for t, t2 in zip(got, (q2, k2, v2)):
+        assert _rel(t.double(), t2.grad) < 1e-5
+
+
+@pytest.mark.parametrize("splits", (1, 3, 16))
+def test_sr_attention_bwd_mirror_splits_agree(splits):
+    """dk and dv summed over ``splits`` query splits, in the kernel's order,
+    agree with one split within 1e-5 relative (f32 sums in another order),
+    at a shape whose queries and keys end in ragged tiles (17 tiles of 64
+    queries, the last of 5 rows; 70 keys); dq does not depend on them."""
+    q, k, v, g = _attention_operands(7, 2, 3, 16 * attention.TILE + 5, 70, 32)
+    o = attention.sr_attention_plain(q, k, v)
+    lse = attention.sr_attention_lse(q, k)
+    one = attention.sr_attention_bwd_plain(q, k, v, o, lse, g, 1)
+    got = attention.sr_attention_bwd_plain(q, k, v, o, lse, g, splits)
+    assert torch.equal(got[0], one[0])
+    for t, t1 in zip(got[1:], one[1:]):
+        assert _rel(t, t1) < 1e-5
+
+
+def test_split_chooser_fills_the_card_at_mitb5_and_stays_within_the_tiles():
+    """At MiT-B5's four stage shapes of a 1024² image at batch 1 (M = 1 024
+    keys, heads 1/2/5/8), the dk/dv grid has at least one block per SM; at
+    those and other shapes the splits are at least 1 and at most the query
+    tiles, and their bounds cover the rows once, in order. The forward
+    takes two warpgroups a block where that leaves no SM more work."""
+    for stage, heads in enumerate(ref_mit.NUM_HEADS):
+        N = (1024 // 4 >> stage) ** 2
+        s = attention.backward_splits(1, heads, N, 1024)
+        assert -(-1024 // attention.TILE) * heads * s >= attention.SMS, (stage, s)
+        # the forward's blocks: 128 queries at the first two stages (512 and
+        # 256 blocks), 64 where 128 would load some SMs twice (160, 64 blocks)
+        assert attention.forward_rows(1, heads, N) == (128, 128, 64, 64)[stage], stage
+    for B, heads, N, M in ((1, 1, 65536, 1024), (2, 5, 4096, 1024), (1, 8, 1024, 1024),
+                           (2, 1, 256, 4), (2, 8, 4, 4), (1, 1, 1, 1), (8, 8, 64, 4096)):
+        s = attention.backward_splits(B, heads, N, M)
+        assert 1 <= s <= -(-N // attention.TILE), (B, heads, N, M, s)
+        bounds = attention.split_bounds(N, s)
+        assert bounds[0][0] == 0 and bounds[-1][1] == N
+        assert all(a[1] == b[0] and a[0] <= a[1] for a, b in zip(bounds, bounds[1:]))
+
+
+def test_attention_tile_is_the_kernels():
+    """``ops/attention.py`` reckons its splits with the tile of
+    csrc/sr_attention.cu (``constexpr int kTile``): queries a block of the
+    backward's dq launch and of each split's streamed tiles, keys a block
+    of its dk/dv launch."""
+    import re
+
+    path = os.path.join(ROOT, "seghiero_torch", "csrc", "sr_attention.cu")
+    with open(path) as f:
+        tile = int(re.search(r"constexpr int kTile = (\d+);", f.read()).group(1))
+    assert attention.TILE == tile
 
 
 def _example_cfg(tmp_path):
