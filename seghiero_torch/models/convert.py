@@ -18,7 +18,14 @@ segformer_mlp``) goes through ``mit_backbone_state_dict`` and
 ``segformer_head_state_dict``: dense kernels ``[in, out]`` → linear
 weights ``[out, in]``, LayerNorm ``scale / bias`` → ``weight / bias``,
 every conv bias, and the JAX package's separate ``k`` and ``v`` joined
-into the port's ``kv`` (``k`` first).
+into the port's ``kv`` (``k`` first). A Swin backbone with UperNet
+(``backbone: swin``, ``head: upernet``) goes through
+``swin_backbone_state_dict`` and ``upernet_head_state_dict``: the same
+dense and LayerNorm rules, ``q``, ``k`` and ``v`` joined into the
+official release's fused ``qkv`` (in that order), ``rel_bias_table``
+renamed ``relative_position_bias_table``, each stage's ``merge{s}`` at
+the end of the stage before it (``layers.{s-1}.downsample``), and the
+head's BatchNorm statistics from the JAX ``batch_stats``.
 
 ``load_reference_checkpoint`` loads such a dict into the port's model,
 each part with ``strict=True``.
@@ -38,6 +45,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from seghiero_torch.models import swin
 from seghiero_torch.models.mit import VARIANTS
 from seghiero_torch.models.resnet import BOTTLENECK_DEPTHS, STAGE_BLOCKS
 
@@ -182,14 +190,70 @@ def segformer_head_state_dict(params: Mapping, stats: Mapping,
     return sd
 
 
+def swin_backbone_state_dict(params: Mapping, variant: str) -> Dict:
+    """A JAX ``SwinBackbone``'s params → the port's ``SwinBackbone`` state dict."""
+    sd: Dict = {}
+    _conv_bias(sd, "patch_embed.proj", params["patch_proj"])
+    _ln(sd, "patch_embed.norm", params["patch_norm"])
+    for s, depth in enumerate(swin.VARIANTS[variant][1]):
+        for b in range(depth):
+            src, dst = params[f"stage{s}_{b}"], f"layers.{s}.blocks.{b}"
+            attn = src["attn"]
+            _ln(sd, f"{dst}.norm1", src["norm1"])
+            _dense(sd, f"{dst}.attn.qkv", {
+                "kernel": np.concatenate([attn[n]["kernel"] for n in "qkv"], axis=1),
+                "bias": np.concatenate([attn[n]["bias"] for n in "qkv"])})
+            sd[f"{dst}.attn.relative_position_bias_table"] = _t(attn["rel_bias_table"])
+            _dense(sd, f"{dst}.attn.proj", attn["proj"])
+            _ln(sd, f"{dst}.norm2", src["norm2"])
+            _dense(sd, f"{dst}.mlp.fc1", src["fc1"])
+            _dense(sd, f"{dst}.mlp.fc2", src["fc2"])
+        if s > 0:
+            merge = params[f"merge{s}"]
+            _ln(sd, f"layers.{s - 1}.downsample.norm", merge["norm"])
+            sd[f"layers.{s - 1}.downsample.reduction.weight"] = _t(
+                np.asarray(merge["reduction"]["kernel"]).T)
+        _ln(sd, f"norm{s}", params[f"out_norm{s}"])
+    return sd
+
+
+def _cbr(sd: Dict, dst: str, params: Mapping, stats: Mapping) -> None:
+    """A JAX ``ConvBNReLU`` → the port's ``_conv_bn_relu`` (``.0`` conv, ``.1`` BN)."""
+    sd[f"{dst}.0.weight"] = _conv(params["conv"]["kernel"])
+    _bn(sd, f"{dst}.1", params["bn"], stats["bn"])
+
+
+def upernet_head_state_dict(params: Mapping, stats: Mapping,
+                            proj_type: str = "convmlp") -> Dict:
+    """A JAX ``UPerNetHead``'s variables → the port's state dict."""
+    sd: Dict = {}
+    _proj_head(sd, params, stats, proj_type)
+    i = 0
+    while f"psp{i}" in params:
+        _cbr(sd, f"psp_modules.{i}", params[f"psp{i}"], stats[f"psp{i}"])
+        i += 1
+    _cbr(sd, "bottleneck", params["psp_bottleneck"], stats["psp_bottleneck"])
+    for i in range(3):
+        _cbr(sd, f"lateral_convs.{i}", params[f"lateral{i}"], stats[f"lateral{i}"])
+        _cbr(sd, f"fpn_convs.{i}", params[f"fpn{i}"], stats[f"fpn{i}"])
+    _cbr(sd, "fpn_bottleneck", params["fuse"], stats["fuse"])
+    _conv_bias(sd, "cls_seg", params["cls_seg"])
+    return sd
+
+
 def export_reference_checkpoint(variables: Mapping, depth: int,
                                 proj_type: str = "convmlp",
-                                mit_variant: Optional[str] = None) -> Dict:
+                                mit_variant: Optional[str] = None,
+                                swin_variant: Optional[str] = None) -> Dict:
     """JAX variables (numpy leaves) → reference-layout checkpoint dict: a
-    ResNet of ``depth`` with the sep-ASPP head, or with ``mit_variant`` a
-    MiT backbone with the SegFormer head."""
+    ResNet of ``depth`` with the sep-ASPP head, with ``mit_variant`` a MiT
+    backbone with the SegFormer head, or with ``swin_variant`` a Swin
+    backbone with UperNet."""
     params, stats = variables["params"], variables["batch_stats"]
-    if mit_variant is not None:
+    if swin_variant is not None:
+        parts = (swin_backbone_state_dict(params["backbone"], swin_variant),
+                 upernet_head_state_dict(params["head"], stats["head"], proj_type))
+    elif mit_variant is not None:
         parts = (mit_backbone_state_dict(params["backbone"], mit_variant),
                  segformer_head_state_dict(params["head"], stats["head"], proj_type))
     else:

@@ -18,8 +18,8 @@ from seghiero_torch.ops.depthwise import depthwise3x3, depthwise3x3_dilated_forw
 from seghiero_torch.ops.resize import resize_bilinear
 
 
-def _conv_bn_relu(cin: int, cout: int) -> nn.Sequential:
-    return nn.Sequential(conv(cin, cout, 1), batch_norm(cout), nn.ReLU(inplace=True))
+def _conv_bn_relu(cin: int, cout: int, kernel: int = 1) -> nn.Sequential:
+    return nn.Sequential(conv(cin, cout, kernel), batch_norm(cout), nn.ReLU(inplace=True))
 
 
 class ProjectionHead(nn.Module):
@@ -196,6 +196,64 @@ class SegFormerMLPHead(nn.Module):
             y = self.linear_fuse(torch.cat(parts[::-1], dim=1))
             logits = self.cls_seg(self.dropout(y)).to(torch.float32)
         return logits, embedding
+
+
+class UPerNetHead(nn.Module):
+    """UPerNet (Xiao et al., arXiv:1807.10221; the JAX package's
+    ``decode_heads.UPerNetHead``): a pyramid pooling module on C4
+    (``F.adaptive_avg_pool2d`` at each of ``pool_scales``, its uneven bins
+    as torch's, a 1×1 conv → BN → ReLU each, bilinear back in f32, the
+    concatenation ``[C4, pools…]`` and a 3×3 ``bottleneck``), 1×1 laterals
+    on C1–C3 summed top-down with the bilinear upsample of the level above,
+    3×3 FPN convs, every level bilinear to the stride-4 grid, their
+    concatenation through a 3×3 ``fpn_bottleneck``, dropout (training) and
+    the 1×1 classifier; the embedding is a ``ProjectionHead`` on C4. Module
+    names are mmseg's ``UPerHead``'s (``psp_modules``, ``bottleneck``,
+    ``lateral_convs``, ``fpn_convs``, ``fpn_bottleneck``) but for the
+    classifier, ``cls_seg`` as in the port's other heads.
+
+    forward(feats, outputs) → (logits ``[B, num_classes, H/4, W/4]`` f32 or
+    None, embedding ``[B, proj_dim, H/32, W/32]`` f32 or None), each only
+    when named in ``outputs``."""
+
+    def __init__(self, num_classes: int, widths: Sequence[int], channels: int = 512,
+                 pool_scales: Sequence[int] = (1, 2, 3, 6), dropout_rate: float = 0.1,
+                 proj_dim: int = 256, proj_type: str = "convmlp"):
+        super().__init__()
+        self.pool_scales = tuple(pool_scales)
+        self.proj_head = ProjectionHead(widths[3], proj_dim, proj_type)
+        self.psp_modules = nn.ModuleList(_conv_bn_relu(widths[3], channels)
+                                         for _ in self.pool_scales)
+        self.bottleneck = _conv_bn_relu(widths[3] + len(self.pool_scales) * channels, channels, 3)
+        self.lateral_convs = nn.ModuleList(_conv_bn_relu(w, channels) for w in widths[:3])
+        self.fpn_convs = nn.ModuleList(_conv_bn_relu(channels, channels, 3) for _ in range(3))
+        self.fpn_bottleneck = _conv_bn_relu(4 * channels, channels, 3)
+        self.dropout = nn.Dropout(dropout_rate)
+        self.cls_seg = nn.Conv2d(channels, num_classes, 1, bias=True)
+
+    def forward(
+        self, feats: Sequence[torch.Tensor], outputs: Sequence[str] = ("logits", "embedding")
+    ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+        c1, c2, c3, c4 = feats
+        embedding = self.proj_head(c4) if "embedding" in outputs else None
+        if "logits" not in outputs:
+            return None, embedding
+        hw4 = c4.shape[-2:]
+        psp = [c4]
+        for s, m in zip(self.pool_scales, self.psp_modules):
+            y = m(F.adaptive_avg_pool2d(c4, s))
+            psp.append(resize_bilinear(y.to(torch.float32), hw4).to(y.dtype))
+        lat = [m(x) for m, x in zip(self.lateral_convs, (c1, c2, c3))]
+        lat.append(self.bottleneck(torch.cat(psp, dim=1)))
+        for i in (2, 1, 0):
+            up = resize_bilinear(lat[i + 1].to(torch.float32), lat[i].shape[-2:])
+            lat[i] = lat[i] + up.to(lat[i].dtype)
+        outs = [m(x) for m, x in zip(self.fpn_convs, lat[:3])] + [lat[3]]
+        hw1 = c1.shape[-2:]
+        outs = [o if o.shape[-2:] == hw1 else resize_bilinear(o.to(torch.float32), hw1).to(o.dtype)
+                for o in outs]
+        y = self.fpn_bottleneck(torch.cat(outs, dim=1))
+        return self.cls_seg(self.dropout(y)).to(torch.float32), embedding
 
 
 class AuxHead(nn.Sequential):

@@ -52,11 +52,12 @@ PATCH = ((7, 4), (3, 2), (3, 2), (3, 2))  # (kernel, stride) per stage
 
 
 class LayerNorm(nn.LayerNorm):
-    """eps 1e-6; statistics and affine in f32, the result in the input's
-    dtype (a bf16 residual stream stays bf16, as in the JAX package)."""
+    """eps 1e-6 (MiT's; Swin's is 1e-5); statistics and affine in f32, the
+    result in the input's dtype (a bf16 residual stream stays bf16, as in
+    the JAX package)."""
 
-    def __init__(self, dim: int):
-        super().__init__(dim, eps=1e-6)
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__(dim, eps=eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias,

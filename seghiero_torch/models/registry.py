@@ -17,8 +17,8 @@ _BACKBONES: Dict[str, Callable] = {}
 _HEADS: Dict[str, Callable] = {}
 
 # families of the JAX package still to be ported (ROADMAP.md)
-NOT_PORTED_BACKBONES = ("convnext", "hrnet", "unet", "vit", "swin")
-NOT_PORTED_HEADS = ("aspp", "upernet")
+NOT_PORTED_BACKBONES = ("convnext", "hrnet", "unet", "vit")
+NOT_PORTED_HEADS = ("aspp",)
 
 
 def register_backbone(name: str) -> Callable:

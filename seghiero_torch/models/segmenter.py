@@ -4,6 +4,9 @@
 Top-level submodules are named after the reference checkpoint's three
 state dicts: ``backbone``, ``aspp_head`` (whatever the decode head is)
 and ``aux_head``. A backbone gives its four stage widths as ``widths``.
+Registered here: the backbones ``resnet`` (ResNet-18 to 152), ``mit``
+(MiT-B0 to B5) and ``swin`` (Swin tiny to large), and the heads
+``sep_aspp_contrast``, ``segformer_mlp`` and ``upernet``.
 """
 
 from __future__ import annotations
@@ -15,7 +18,12 @@ from torch import nn
 
 from seghiero_torch import trace
 from seghiero_torch.config import SegHieroConfig
-from seghiero_torch.models.heads import AuxHead, SegFormerMLPHead, SepASPPContrastHead
+from seghiero_torch.models.heads import (
+    AuxHead,
+    SegFormerMLPHead,
+    SepASPPContrastHead,
+    UPerNetHead,
+)
 from seghiero_torch.models.mit import MiTBackbone
 from seghiero_torch.models.registry import (
     backbone_builder,
@@ -24,6 +32,7 @@ from seghiero_torch.models.registry import (
     register_head,
 )
 from seghiero_torch.models.resnet import ResNetBackbone
+from seghiero_torch.models.swin import SwinBackbone, WindowAttention
 
 ALL_OUTPUTS = ("logits", "embedding", "aux_logits")
 
@@ -78,6 +87,13 @@ def _build_mit(cfg: SegHieroConfig) -> nn.Module:
                        dw_kernel=cfg.model.depthwise_backend == "pallas")
 
 
+@register_backbone("swin")
+def _build_swin(cfg: SegHieroConfig) -> nn.Module:
+    opts = cfg.model.backbone_options or {}
+    return SwinBackbone(str(opts.get("variant", "tiny")), int(opts.get("window", 7)),
+                        float(opts.get("drop_path_rate", 0.0)))
+
+
 @register_head("sep_aspp_contrast")
 def _build_sep_aspp_contrast(cfg: SegHieroConfig, widths) -> nn.Module:
     m = cfg.model
@@ -107,11 +123,26 @@ def _build_segformer_mlp(cfg: SegHieroConfig, widths) -> nn.Module:
     )
 
 
+@register_head("upernet")
+def _build_upernet(cfg: SegHieroConfig, widths) -> nn.Module:
+    m, opts = cfg.model, cfg.model.head_options or {}
+    return UPerNetHead(
+        num_classes=cfg.hierarchy.total_classes,
+        widths=widths,
+        channels=int(opts.get("channels", 512)),
+        pool_scales=tuple(opts.get("pool_scales", (1, 2, 3, 6))),
+        dropout_rate=float(opts.get("dropout_rate", 0.1)),
+        proj_dim=m.proj_dim,
+        proj_type=m.proj_type,
+    )
+
+
 def seeded_init_(model: nn.Module, seed: int) -> nn.Module:
     """Initialize like the JAX package's flax modules, from ``seed``:
     conv and linear kernels lecun-normal (a normal truncated at ±2σ,
     rescaled so the standard deviation is 1/√fan_in), their biases 0,
-    BatchNorm and LayerNorm scale 1 and shift 0. (The draws differ from
+    BatchNorm and LayerNorm scale 1 and shift 0, Swin's relative-position
+    tables a normal of std 0.02 truncated at ±2σ. (The draws differ from
     JAX's: tests carry weights across.)"""
     gen = torch.Generator().manual_seed(int(seed))
     with torch.no_grad():
@@ -123,6 +154,9 @@ def seeded_init_(model: nn.Module, seed: int) -> nn.Module:
                     mod.bias.zero_()
             elif isinstance(mod, (nn.BatchNorm2d, nn.LayerNorm)):
                 mod.reset_parameters()
+            elif isinstance(mod, WindowAttention):
+                nn.init.trunc_normal_(mod.relative_position_bias_table, 0.0, 0.02, -0.04, 0.04,
+                                      generator=gen)
     return model
 
 

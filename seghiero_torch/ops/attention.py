@@ -1,6 +1,8 @@
 """Multi-head attention of MiT's blocks: full-resolution queries against
 the spatially reduced keys and values (the port of the two einsums and
-the softmax of ``seghiero_tpu/models/mit.py`` ``EfficientAttention``).
+the softmax of ``seghiero_tpu/models/mit.py`` ``EfficientAttention``);
+and Swin's window attention with an additive bias (``window_attention``,
+the port of ``seghiero_tpu/models/swin.py`` ``WindowAttention``'s).
 
 ``sr_attention(q, k, v)`` takes ``q [B, h, N, d]`` and ``k, v [B, h, M,
 d]`` of one dtype and returns ``softmax(q·kᵀ/√d)·v`` ``[B, h, N, d]``:
@@ -21,6 +23,21 @@ All take the softmax in f32. Any other device raises.
 ``sr_attention_lse`` and ``sr_attention_bwd_plain`` repeat the pair's own
 backward arithmetic in plain PyTorch (the saved log-sum-exp, D, the query
 splits summed in the kernel's order), for the CPU tests.
+
+``window_attention(q, k, v, bias)`` takes ``q, k, v [B·nW, h, N, d]`` (the
+``N = w²`` tokens of each of a batch's ``nW`` windows) and an additive
+``bias`` broadcastable to ``[B·nW, h, N, N]`` (Swin's gathered
+relative-position table, plus the shift's region mask) and returns
+``softmax(q·kᵀ/√d + bias)·v``, with the bias's gradient:
+
+* on the card: ``F.scaled_dot_product_attention`` with the bias as its
+  ``attn_mask`` in q's dtype, held to the memory-efficient backend
+  (``fmha_cutlassF`` / ``fmha_cutlassB``), the one backend that takes an
+  additive mask and returns its gradient; a call it does not take (f64)
+  raises instead of falling back to the math path;
+* on the CPU, the plain path: the scores in the operands' dtype, scaled
+  and biased in f32, their softmax in f32, rounded to the operands'
+  dtype, times v.
 """
 
 from __future__ import annotations
@@ -40,7 +57,11 @@ from seghiero_torch.ops import _build
 launches = 0
 bwd_launches = 0
 sdpa_launches = 0
-COUNTERS = ("launches", "bwd_launches", "sdpa_launches")
+# window_attention's forwards on the card and the backwards through them
+window_launches = 0
+window_bwd_launches = 0
+COUNTERS = ("launches", "bwd_launches", "sdpa_launches", "window_launches",
+            "window_bwd_launches")
 
 # the kernels' tile (kTile of csrc/sr_attention.cu): rows of a warpgroup,
 # and of the tiles a block streams (keys in the forward and dq, queries in
@@ -193,17 +214,18 @@ class _SrAttention(torch.autograd.Function):
 
 
 class _CountBackward(torch.autograd.Function):
-    """Identity on the attention's output whose backward counts once."""
+    """Identity on the attention's output whose backward adds one to the
+    module's counter ``counter``."""
 
     @staticmethod
-    def forward(ctx, out):
+    def forward(ctx, out, counter):
+        ctx.counter = counter
         return out.view_as(out)
 
     @staticmethod
     def backward(ctx, g):
-        global bwd_launches
-        bwd_launches += 1
-        return g
+        globals()[ctx.counter] += 1
+        return g, None
 
 
 def sr_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -224,5 +246,35 @@ def sr_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Ten
     launches += 1
     sdpa_launches += 1
     if out.requires_grad:
-        out = _CountBackward.apply(out)
+        out = _CountBackward.apply(out, "bwd_launches")
+    return out
+
+
+def window_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           bias: torch.Tensor) -> torch.Tensor:
+    """The scores ``q·kᵀ`` in the operands' dtype, scaled and biased in f32,
+    softmaxed in f32, rounded back, times v."""
+    scores = torch.matmul(q, k.transpose(-1, -2)).to(torch.float32) * q.shape[-1] ** -0.5
+    p = torch.softmax(scores + bias.to(torch.float32), dim=-1).to(q.dtype)
+    return torch.matmul(p, v)
+
+
+def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     bias: torch.Tensor) -> torch.Tensor:
+    """``softmax(q·kᵀ/√d + bias)·v`` for ``q, k, v [B·nW, h, N, d]`` and
+    ``bias`` broadcastable to ``[B·nW, h, N, N]``: SDPA's memory-efficient
+    kernels on the card, the plain path on the CPU."""
+    global window_launches
+    if not _build.on_card(q, "window_attention"):
+        return window_attention_plain(q, k, v, bias)
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    mask = bias.to(q.dtype)
+    if mask.stride(-1) != 1:  # the card's kernels read the mask's rows contiguous
+        mask = mask.contiguous()
+    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+        out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    window_launches += 1
+    if out.requires_grad:
+        out = _CountBackward.apply(out, "window_bwd_launches")
     return out

@@ -526,16 +526,100 @@ def test_sr_attention_raises_where_no_fused_kernel_takes_the_call():
         attention.sr_attention(q, q, q)
 
 
+# Swin's window attention: (B·nW, h, N, d, shifted) at Swin-L's stages 1 and
+# 3 of two 640² images, and Swin-T's window 3 (N = 9, the mask's rows not a
+# multiple of 16)
+WINDOW_SHAPES = ((392, 6, 144, 32, True), (32, 24, 144, 32, False), (8, 3, 9, 32, True))
+
+
+@pytest.mark.gpu
+def test_window_attention_takes_the_memory_efficient_kernels_and_counts():
+    """Card-only: ``window_attention`` in bf16 runs SDPA's memory-efficient
+    kernels (``fmha_cutlassF`` forward, ``fmha_cutlassB`` backward), never
+    the math path's softmax, with the bias broadcast over the windows
+    (an unshifted block's ``[1, h, N, N]``) or whole (a shifted block's
+    ``[B·nW, h, N, N]``); one forward and one backward count a call
+    (``window_launches``, ``window_bwd_launches``). Output and the q, k, v
+    and bias gradients match the plain path in f32 within 2e-2 of the
+    largest (bf16 operands and bias)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from seghiero_torch.models import swin
+    from seghiero_torch.ops import attention
+
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(6)
+    for Bw, h, N, d, shifted in WINDOW_SHAPES:
+        w = int(N ** 0.5)
+        q, k, v = (torch.randn((Bw, h, N, d), generator=gen, device=dev).to(torch.bfloat16)
+                   .requires_grad_() for _ in range(3))
+        table = torch.randn(((2 * w - 1) ** 2, h), generator=gen, device=dev).requires_grad_()
+        idx = swin.relative_position_index(w, dev).reshape(-1)
+
+        def biased():
+            bias = table[idx].view(N, N, h).permute(2, 0, 1)[None]
+            if shifted:
+                side = 2 * w
+                mask = swin.shift_mask(side, side, w, w // 2, dev)
+                bias = (bias + mask[:, None]).repeat(Bw // 4, 1, 1, 1)
+            return bias
+
+        g = torch.randn((Bw, h, N, d), generator=gen, device=dev).to(torch.bfloat16)
+        torch.autograd.grad(attention.window_attention(q, k, v, biased()), (q, k, v, table), g)
+        torch.cuda.synchronize()
+        before = (attention.window_launches, attention.window_bwd_launches,
+                  attention.launches, attention.sdpa_launches)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = attention.window_attention(q, k, v, biased())
+            grads = torch.autograd.grad(out, (q, k, v, table), g)
+            torch.cuda.synchronize()
+        assert (attention.window_launches, attention.window_bwd_launches, attention.launches,
+                attention.sdpa_launches) == (before[0] + 1, before[1] + 1, *before[2:])
+        names = {e.name for e in prof.events() if e.device_type.name == "CUDA"}
+        assert all(any(n.startswith(k) for n in names) for k in ("fmha_cutlassF",
+                                                                  "fmha_cutlassB")), \
+            sorted(names)[:20]
+        assert not any("softmax" in n.lower() for n in names), sorted(names)[:20]
+        q2, k2, v2 = (t.detach().float().requires_grad_() for t in (q, k, v))
+        t2 = table.detach().clone().requires_grad_()
+        bias2 = t2[idx].view(N, N, h).permute(2, 0, 1)[None]
+        if shifted:
+            bias2 = (bias2 + swin.shift_mask(2 * w, 2 * w, w, w // 2, dev)[:, None]).repeat(
+                Bw // 4, 1, 1, 1)
+        ref = attention.window_attention_plain(q2, k2, v2, bias2.to(torch.bfloat16))
+        ref.backward(g.float())
+        assert (out.float() - ref).abs().max() <= 2e-2 * ref.abs().max(), (Bw, h, N)
+        for got, t in zip(grads, (q2, k2, v2, t2)):
+            assert (got.float() - t.grad).abs().max() <= 2e-2 * t.grad.abs().max() + 1e-6, \
+                (Bw, h, N)
+
+
+@pytest.mark.gpu
+def test_window_attention_raises_where_the_memory_efficient_kernel_does_not_take_the_call():
+    """Card-only: f64, which the memory-efficient backend does not take,
+    raises instead of running the math path."""
+    from seghiero_torch.ops import attention
+
+    dev = _card()
+    q = torch.randn((4, 2, 144, 32), device=dev, dtype=torch.float64)
+    with pytest.raises(RuntimeError):
+        attention.window_attention(q, q, q, torch.zeros((1, 2, 144, 144), device=dev,
+                                                        dtype=torch.float64))
+
+
 # -- the train step as one CUDA graph (``train/steps.py``) -------------------
-# the benchmark's three training configurations at their CPU rehearsal's
-# tiny size (64², ResNet-50 / MiT-B0), with the harness's weights and scenes
-GRAPH_CELLS = ("r50-2level.train-files", "r101-3level.train-769", "mitb5-3level.train-1024")
+# the benchmark's four training configurations at their CPU rehearsal's
+# tiny size (64², ResNet-50 / MiT-B0 / Swin-T at window 3), with the
+# harness's weights and scenes
+GRAPH_CELLS = ("r50-2level.train-files", "r101-3level.train-769", "mitb5-3level.train-1024",
+               "swinl-2level.train-640")
 GRAPH_SEED = 3_000_000_019
 
 
-def _graph_setup(cell, drop_path_rate=None):
+def _graph_setup(cell, drop_path_rate=None, overrides=None):
     """(cfg, model, composite, optimizer, scheduler, batches, limits) of
-    ``cell`` on the card; ``drop_path_rate`` overrides."""
+    ``cell`` on the card; ``drop_path_rate`` overrides, and ``overrides``
+    stand in the rehearsal's."""
     from hbench.core import harness, scene, spec, weights
     from seghiero_torch.config import SegHieroConfig
     from seghiero_torch.models.segmenter import build_model
@@ -544,7 +628,8 @@ def _graph_setup(cell, drop_path_rate=None):
 
     dev = _card()
     bench = spec.Bench()
-    ctx = harness.context(bench, cell, GRAPH_SEED, "cuda", overrides=bench.rehearsal(cell))
+    ctx = harness.context(bench, cell, GRAPH_SEED, "cuda",
+                          overrides=bench.rehearsal(cell) if overrides is None else overrides)
     port = ctx.port_config("train")
     # the weights of the configuration as it is (the reference runs no drop path)
     sd = weights.make(ctx.reference.build(port["model"], ctx.tree), ctx.seed, dev,
@@ -648,6 +733,31 @@ def test_a_replayed_step_makes_no_host_sync(cell):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert torch.isfinite(out["loss"])
+
+
+@pytest.mark.gpu
+def test_a_replayed_swin_l_step_counts_24_window_attentions(monkeypatch):
+    """Card-only: Swin-L (the cell's configuration at 128², 24 blocks, 12
+    shifted) through two eager steps, the capture and two replays: every
+    step counts 24 window-attention forwards and 24 backwards, and no
+    other attention."""
+    from seghiero_torch import ops
+    from seghiero_torch.train import steps
+
+    monkeypatch.setattr(steps, "EAGER_CALLS", 2)
+    cfg, model, composite, optimizer, scheduler, batches, _ = _graph_setup(
+        "swinl-2level.train-640", overrides={"modes": {"train": {
+            "transform": {"resize": [128, 128]}, "training": {"batch_size": 2}}}})
+    attn = "seghiero_torch.ops.attention."
+    for i in range(5):
+        before = ops.launch_counts()
+        steps.train_step(model, composite, optimizer, cfg, batches[i % 4], i, 0, scheduler)
+        moved = {k[len(attn):]: n - before[k] for k, n in ops.launch_counts().items()
+                 if k.startswith(attn)}
+        assert moved == {"launches": 0, "bwd_launches": 0, "sdpa_launches": 0,
+                         "window_launches": 24, "window_bwd_launches": 24}, (i, moved)
+    torch.cuda.synchronize()
+    assert steps._steps[optimizer].graph is not None
 
 
 @pytest.mark.gpu

@@ -220,7 +220,7 @@ def test_tpu_only_options_raise(section, key, value):
 
 
 def test_unported_families_raise_not_implemented():
-    for model in ({"backbone": "swin"}, {"head": "upernet"}):
+    for model in ({"backbone": "convnext"}, {"head": "aspp"}):
         cfg = PortConfig.from_dict({"classes": CLASSES, "model": model})
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             port_build_model(cfg)
