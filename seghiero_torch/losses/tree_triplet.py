@@ -83,14 +83,26 @@ def _merged_first_k(idx_by_class, counts, member_rows: tuple, k: int, n: int):
     return torch.clamp(sel, max=n - 1)
 
 
+def _spread_padding(idx: torch.Tensor, lane_valid: torch.Tensor, n: int) -> torch.Tensor:
+    """``idx`` [C, k] with every lane outside ``lane_valid`` sent to row
+    ``(c·k + lane) mod n``, so that no row takes more than ``⌈C·k/n⌉``
+    of them."""
+    spread = torch.arange(idx.numel(), device=idx.device).view_as(idx) % n
+    return torch.where(lane_valid, idx, spread)
+
+
 def _triplet_from_indices(feats, idx_a, idx_p, idx_n, min_size, max_triplet: int,
                           margin: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    fa, fp, fn = feats[idx_a], feats[idx_p], feats[idx_n]  # [C, k, D]
+    lane = torch.arange(max_triplet, device=feats.device)[None, :]
+    lane_valid = lane < min_size[:, None]
+    # Lanes past min_size are masked out below, so their gradient is zero.
+    # The selections point most of them at one row, whose sorted accumulate
+    # in the gathers' backward would add them one after another: spread them.
+    fa, fp, fn = (feats[_spread_padding(i, lane_valid, feats.shape[0])]
+                  for i in (idx_a, idx_p, idx_n))  # [C, k, D]
     d_pos = 1.0 - (fa * fp).sum(-1)
     d_neg = 1.0 - (fa * fn).sum(-1)
     tl = torch.relu(d_pos - d_neg + margin)
-    lane = torch.arange(max_triplet, device=feats.device)[None, :]
-    lane_valid = lane < min_size[:, None]
     per_class = torch.where(lane_valid, tl, 0.0).sum(-1) / torch.clamp(
         min_size.to(torch.float32), min=1.0)
     has = min_size > 0

@@ -607,6 +607,76 @@ def test_window_attention_raises_where_the_memory_efficient_kernel_does_not_take
                                                         dtype=torch.float64))
 
 
+def _triplet_replay_ms(classes, shape, hw, monkeypatch, spread=True):
+    """(ms a replay, share of lanes past ``min_size``) of the range tree
+    triplet's forward and backward on an f32 embedding ``shape`` [B, D, h, w]
+    and the benchmark's seeded scenes of ``hw`` pixels, captured in a CUDA
+    graph as the train step captures it; ``spread=False`` gathers the
+    selections' own indices."""
+    import json
+
+    from hbench.core import scene
+    from seghiero_torch.losses import tree_triplet
+
+    dev = _card()
+    tree = Hierarchy.from_class_config(
+        json.loads((ROOT / "hbench" / "configs" / classes).read_text())["classes"])
+    gen = scene.generator(GRAPH_SEED, dev, stream=1)
+    lbl = scene.labels(gen, shape[0], hw, tree.n_fine)
+    emb = torch.nn.functional.normalize(torch.randn(shape, generator=gen, device=dev), dim=1)
+    emb.requires_grad_()
+    shares = []
+    spread_padding = tree_triplet._spread_padding
+
+    def recorded(idx, lane_valid, n):
+        shares.append((~lane_valid).float().mean())  # no sync: it is also captured
+        return spread_padding(idx, lane_valid, n) if spread else idx
+
+    monkeypatch.setattr(tree_triplet, "_spread_padding", recorded)
+
+    def step():
+        loss, _ = tree_triplet.tree_triplet_loss_range(emb.permute(0, 2, 3, 1), lbl, tree)
+        return torch.autograd.grad(loss, emb)[0]
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        step()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(20):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / 20, float(shares[0])
+
+
+@pytest.mark.gpu
+def test_triplet_forward_and_backward_take_under_2_ms(monkeypatch):
+    """Card-only: the tree triplet's forward and backward at the Swin-L
+    cell's shape (150 classes, a [2, 256, 20, 20] embedding, 2 x 640^2
+    scenes) take under 2 ms, its padded lanes on spread rows. Prints the
+    time with the selections' own indices, and the share of lanes sent to
+    spread rows there and at a 19-class Cityscapes shape (a [1, 256, 32, 32]
+    embedding, one 1024^2 scene)."""
+    ms, share = _triplet_replay_ms("swinl-2level.json", (2, 256, 20, 20), (640, 640),
+                                   monkeypatch)
+    piled_ms, _ = _triplet_replay_ms("swinl-2level.json", (2, 256, 20, 20), (640, 640),
+                                     monkeypatch, spread=False)
+    city_ms, city_share = _triplet_replay_ms("r50-2level.json", (1, 256, 32, 32),
+                                             (1024, 1024), monkeypatch)
+    print(f"triplet fwd+bwd, 150 classes [2, 256, 20, 20]: {ms:.4f} ms spread, "
+          f"{piled_ms:.4f} ms piled, {100 * share:.2f} % of lanes spread; "
+          f"19 classes [1, 256, 32, 32]: {city_ms:.4f} ms, {100 * city_share:.2f} % spread")
+    assert ms < 2.0, (ms, piled_ms)
+
+
 # -- the train step as one CUDA graph (``train/steps.py``) -------------------
 # the benchmark's four training configurations at their CPU rehearsal's
 # tiny size (64², ResNet-50 / MiT-B0 / Swin-T at window 3), with the

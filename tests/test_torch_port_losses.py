@@ -167,6 +167,75 @@ def test_triplet_selections_pick_the_same_pixels():
     assert int(a[1]) == int(b[1]) and float(a[0]) == float(b[0])
 
 
+# ADE20K's 150 classes in 15 coarse groups of 10 (the Swin-L cell's tree)
+ADE = {
+    "coarse_to_fine_map": [[10 * g, 10 * g + 9] for g in range(15)],
+    "coarse_names": {g: f"g{g}" for g in range(15)},
+    "fine_names": {i: f"c{i}" for i in range(150)},
+}
+
+
+@pytest.mark.parametrize("selection", ["mask", "sorted"])
+@pytest.mark.parametrize("variant", ["range", "groups"])
+def test_triplet_padded_lanes_go_to_spread_rows(variant, selection, monkeypatch):
+    """At Swin-L's shape (embeddings [2, 20, 20, 256], 150 classes in 15
+    groups of 10, a few classes present): the lanes past a class's
+    ``min_size`` are sent to spread rows, at most ``⌈C·k/n⌉`` to a row,
+    and are over 80 % of the lanes; the lanes below it keep their pixels;
+    the loss, the class count and the embedding gradient equal those of the
+    selections' own indices, bit for bit."""
+    h = PortHierarchy.from_class_config(ADE)
+    rng = np.random.default_rng(23)
+    emb = rng.standard_normal((2, 20, 20, 256)).astype(np.float32)
+    emb /= np.linalg.norm(emb, axis=-1, keepdims=True)
+    labels = np.zeros((2, 160, 160), np.int32)
+    for b in range(2):
+        for _ in range(8):
+            (y, x), (hh, ww) = rng.integers(0, 120, 2), rng.integers(16, 80, 2)
+            labels[b, y:y + hh, x:x + ww] = rng.integers(1, 150)
+    labels[rng.random(labels.shape) < 0.02] = 255
+    lbl = torch.from_numpy(labels)
+
+    def run():
+        e = torch.from_numpy(emb).requires_grad_()
+        if variant == "range":
+            loss, count = port_tt.tree_triplet_loss_range(e, lbl, h, selection=selection)
+        else:
+            upper, lower = h.split_upper_lower()
+            loss, count = port_tt.tree_triplet_loss_groups(e, lbl, upper, lower, 150,
+                                                           selection=selection)
+        loss.backward()
+        return loss.detach(), int(count), e.grad
+
+    gathers = []
+    spread = port_tt._spread_padding
+
+    def recorded(idx, lane_valid, n):
+        out = spread(idx, lane_valid, n)
+        gathers.append((idx, lane_valid, out))
+        return out
+
+    monkeypatch.setattr(port_tt, "_spread_padding", recorded)
+    loss, count, grad = run()
+    monkeypatch.setattr(port_tt, "_spread_padding", lambda idx, lane_valid, n: idx)
+    loss0, count0, grad0 = run()
+    assert count == count0 > 0
+    assert torch.equal(loss, loss0) and torch.equal(grad, grad0)
+
+    n = 2 * 20 * 20
+    assert len(gathers) == 3
+    C, k = gathers[0][0].shape
+    cap = -(-C * k // n)
+    for idx, lane_valid, out in gathers:
+        padded = ~lane_valid
+        assert torch.equal(out[lane_valid], idx[lane_valid])
+        assert padded.float().mean() > 0.8
+        assert int(torch.bincount(out[padded], minlength=n).max()) <= cap
+    if selection == "sorted":  # its selections pile the padded lanes on row n - 1
+        assert max(int(torch.bincount(idx[~lv], minlength=n)[n - 1])
+                   for idx, lv, _ in gathers) > 100 * cap
+
+
 def test_targets_schedule_and_label_downsampling_match_jax():
     rng = np.random.default_rng(10)
     labels = rng.integers(0, 9, (2, 21, 17)).astype(np.int32)
