@@ -364,14 +364,18 @@ def phase_kernels(seed: int):
     results["upsample_argmax"] = decode_checks(gen)
     results["config5"]["upsample_argmax"] = decode_checks(gen, *DECODE5)
 
-    # MiT's attention pair at MiT-B5's four stages
+    # the attention pair at MiT-B5's four stages and at ViT-L/16's blocks
     results.update(attention_checks(gen))
     return results
 
 
-# MiT-B5's four attention shapes of a 1024² image at batch 1 (B, h, N, M, d)
-ATTENTION_SHAPES = ((1, 1, 65536, 1024, 64), (1, 2, 16384, 1024, 64), (1, 5, 4096, 1024, 64),
-                    (1, 8, 1024, 1024, 64))
+# the attention pair's shapes of a 1024² image at batch 1 (B, h, N, M, d,
+# layout): MiT-B5's four stages, q and kv from two projections ("q,kv"), and
+# ViT-L/16's global attention over its 4 097 tokens, q, k and v from one
+# fused projection ("qkv"; 65 key tiles, the last ragged)
+ATTENTION_SHAPES = ((1, 1, 65536, 1024, 64, "q,kv"), (1, 2, 16384, 1024, 64, "q,kv"),
+                    (1, 5, 4096, 1024, 64, "q,kv"), (1, 8, 1024, 1024, 64, "q,kv"),
+                    (1, 16, 4097, 4097, 64, "qkv"))
 
 
 def _device_ms(fn, names, iters: int = 10):
@@ -399,7 +403,8 @@ def _device_ms(fn, names, iters: int = 10):
 
 def attention_checks(gen, shapes=ATTENTION_SHAPES):
     """The attention pair (#10 forward, #10b backward) in bf16 at ``shapes``,
-    on MiT's strided views: output and q, k, v gradients within 2e-2 of the
+    on the strided views of the models' projections (MiT's q and kv, ViT's
+    fused qkv): output and q, k, v gradients within 2e-2 of the
     largest against the plain path in f32; each half's device time
     (profiler: the kernels named ``flash_fwd`` / ``flash_bwd``, a forward
     and backward a call) beside SDPA's flash kernels' and the plain path's
@@ -413,11 +418,15 @@ def attention_checks(gen, shapes=ATTENTION_SHAPES):
 
     dev = torch.device("cuda")
     entries = {"sr_attention_fwd": [], "sr_attention_bwd": []}
-    for B, h, N, M, d in shapes:
-        q = torch.randn((B, N, h, d), generator=gen, device=dev).to(torch.bfloat16)
-        kv = torch.randn((B, M, 2, h, d), generator=gen, device=dev).to(torch.bfloat16)
-        q = q.requires_grad_().transpose(1, 2)
-        k, v = kv.requires_grad_().permute(2, 0, 3, 1, 4)
+    for B, h, N, M, d, layout in shapes:
+        if layout == "qkv":  # models/vit.py's views of one [B, N, 3, h, d] projection
+            qkv = torch.randn((B, N, 3, h, d), generator=gen, device=dev).to(torch.bfloat16)
+            q, k, v = qkv.requires_grad_().permute(2, 0, 3, 1, 4)
+        else:  # MiT's views of its q [B, N, h, d] and kv [B, M, 2, h, d] projections
+            q = torch.randn((B, N, h, d), generator=gen, device=dev).to(torch.bfloat16)
+            kv = torch.randn((B, M, 2, h, d), generator=gen, device=dev).to(torch.bfloat16)
+            q = q.requires_grad_().transpose(1, 2)
+            k, v = kv.requires_grad_().permute(2, 0, 3, 1, 4)
         g = torch.randn((B, h, N, d), generator=gen, device=dev).to(torch.bfloat16)
         out = attention.sr_attention(q, k, v)
         grads = torch.autograd.grad(out, (q, k, v), g)
@@ -427,7 +436,7 @@ def attention_checks(gen, shapes=ATTENTION_SHAPES):
         errs = [((a.float() - b).abs().max() / b.abs().max()).item()
                 for a, b in zip((out, *grads), (ref, *ref_grads))]
         if max(errs) > 2e-2:
-            raise AssertionError(f"sr_attention {(B, h, N, M, d)}: |kernel − plain| / max "
+            raise AssertionError(f"sr_attention {(B, h, N, M, d, layout)}: |kernel − plain| / max "
                                  f"(o, dq, dk, dv) = {errs} > 2e-2")
         del out, grads, ref, ref_grads
 
@@ -460,13 +469,13 @@ def attention_checks(gen, shapes=ATTENTION_SHAPES):
             t = {"ms": (ms[0] + ms[3]) / 2, "library_ms": (ms[1] + ms[2]) / 2,
                  "plain_ms": plain_ms[key]}
             b_ms, b_by = bound(nbytes, flops, flops_per_s=H100_BF16_FLOPS)
-            e = dict(t, shape=[B, h, N, M, d], max_abs_err=max(errs), bound_ms=b_ms,
-                     bound_by=b_by)
+            e = dict(t, shape=[B, h, N, M, d], layout=layout, max_abs_err=max(errs),
+                     bound_ms=b_ms, bound_by=b_by)
             say("kernels", kernel=name, dtype="bfloat16", rel_errs_o_dq_dk_dv=errs,
                 splits=attention.backward_splits(B, h, N, M), share_of_bound=b_ms / t["ms"],
                 kernel_over_library=t["ms"] / t["library_ms"], turns_ms=ms, **e)
             entries[name].append(e)
-        del q, k, v, kv, g, q2, k2, v2
+        del q, k, v, g, q2, k2, v2
     summed = {}
     for name, es in entries.items():
         e = summed[name] = _sum_entries(es)

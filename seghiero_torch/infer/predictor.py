@@ -123,13 +123,13 @@ def resolve_device(device: Union[str, torch.device, None] = None) -> torch.devic
 
 
 def prepare_model(model: nn.Module, dtype: torch.dtype, device: torch.device) -> nn.Module:
-    """Eval mode on ``device``: convolutions and linear layers in the
-    compute dtype, BatchNorm and LayerNorm parameters (and BN's statistics)
-    kept in f32 (both normalize in f32 and round their output to the input
-    dtype, as the JAX package does). On CUDA the convolutions' weights are
+    """Eval mode on ``device``: convolutions, deconvolutions and linear
+    layers in the compute dtype, BatchNorm and LayerNorm parameters (and
+    BN's statistics) kept in f32 (both normalize in f32 and round their
+    output to the input dtype, as the JAX package does). On CUDA the convolutions' weights are
     channels_last, the layout cuDNN and the depthwise kernel take."""
     for mod in model.modules():
-        if isinstance(mod, (nn.Conv2d, nn.Linear)):
+        if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
             mod.to(dtype)
     model.eval()
     if device.type == "cuda":

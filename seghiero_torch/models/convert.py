@@ -25,7 +25,14 @@ dense and LayerNorm rules, ``q``, ``k`` and ``v`` joined into the
 official release's fused ``qkv`` (in that order), ``rel_bias_table``
 renamed ``relative_position_bias_table``, each stage's ``merge{s}`` at
 the end of the stage before it (``layers.{s-1}.downsample``), and the
-head's BatchNorm statistics from the JAX ``batch_stats``.
+head's BatchNorm statistics from the JAX ``batch_stats``. A ViT backbone
+with UperNet (``backbone: vit``) goes through ``vit_backbone_state_dict``
+and the same head: the dense and LayerNorm rules, ``block{i}`` renamed
+``blocks.{i}`` with timm's ``mlp.fc1`` / ``mlp.fc2`` and ``ls{1,2}.gamma``,
+``reg_tokens`` renamed ``reg_token``, and the pyramid's deconvolution
+kernels ``[kh, kw, in, out]`` → ``[in, out, kh, kw]`` with both spatial
+axes flipped (flax's ``ConvTranspose`` does not flip the kernel; PyTorch's
+is the convolution's gradient, which does).
 
 ``load_reference_checkpoint`` loads such a dict into the port's model,
 each part with ``strict=True``.
@@ -45,7 +52,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from seghiero_torch.models import swin
+from seghiero_torch.models import swin, vit
 from seghiero_torch.models.mit import VARIANTS
 from seghiero_torch.models.resnet import BOTTLENECK_DEPTHS, STAGE_BLOCKS
 
@@ -217,6 +224,37 @@ def swin_backbone_state_dict(params: Mapping, variant: str) -> Dict:
     return sd
 
 
+def _deconv(sd: Dict, dst: str, params: Mapping) -> None:
+    sd[f"{dst}.weight"] = _t(np.asarray(params["kernel"])[::-1, ::-1].transpose(2, 3, 0, 1))
+    sd[f"{dst}.bias"] = _t(params["bias"])
+
+
+def vit_backbone_state_dict(params: Mapping, variant: str) -> Dict:
+    """A JAX ``ViTBackbone``'s params → the port's ``ViTBackbone`` state dict."""
+    sd: Dict = {"cls_token": _t(params["cls_token"])}
+    if "reg_tokens" in params:
+        sd["reg_token"] = _t(params["reg_tokens"])
+    sd["pos_embed"] = _t(params["pos_embed"])
+    _conv_bias(sd, "patch_embed.proj", params["patch_embed"])
+    for i in range(vit.VARIANTS[variant][1]):
+        src, dst = params[f"block{i}"], f"blocks.{i}"
+        _ln(sd, f"{dst}.norm1", src["norm1"])
+        _dense(sd, f"{dst}.attn.qkv", src["attn"]["qkv"])
+        _dense(sd, f"{dst}.attn.proj", src["attn"]["proj"])
+        _ln(sd, f"{dst}.norm2", src["norm2"])
+        _dense(sd, f"{dst}.mlp.fc1", src["mlp_fc1"])
+        _dense(sd, f"{dst}.mlp.fc2", src["mlp_fc2"])
+        for j in (1, 2):
+            if f"ls{j}_gamma" in src:
+                sd[f"{dst}.ls{j}.gamma"] = _t(src[f"ls{j}_gamma"])
+    _ln(sd, "norm", params["norm"])
+    _deconv(sd, "fpn1.0", params["fpn1_deconv1"])
+    _ln(sd, "fpn1.1", params["fpn1_norm"])
+    _deconv(sd, "fpn1.3", params["fpn1_deconv2"])
+    _deconv(sd, "fpn2.0", params["fpn2_deconv"])
+    return sd
+
+
 def _cbr(sd: Dict, dst: str, params: Mapping, stats: Mapping) -> None:
     """A JAX ``ConvBNReLU`` → the port's ``_conv_bn_relu`` (``.0`` conv, ``.1`` BN)."""
     sd[f"{dst}.0.weight"] = _conv(params["conv"]["kernel"])
@@ -244,13 +282,17 @@ def upernet_head_state_dict(params: Mapping, stats: Mapping,
 def export_reference_checkpoint(variables: Mapping, depth: int,
                                 proj_type: str = "convmlp",
                                 mit_variant: Optional[str] = None,
-                                swin_variant: Optional[str] = None) -> Dict:
+                                swin_variant: Optional[str] = None,
+                                vit_variant: Optional[str] = None) -> Dict:
     """JAX variables (numpy leaves) → reference-layout checkpoint dict: a
     ResNet of ``depth`` with the sep-ASPP head, with ``mit_variant`` a MiT
-    backbone with the SegFormer head, or with ``swin_variant`` a Swin
-    backbone with UperNet."""
+    backbone with the SegFormer head, or with ``swin_variant`` /
+    ``vit_variant`` a Swin / ViT backbone with UperNet."""
     params, stats = variables["params"], variables["batch_stats"]
-    if swin_variant is not None:
+    if vit_variant is not None:
+        parts = (vit_backbone_state_dict(params["backbone"], vit_variant),
+                 upernet_head_state_dict(params["head"], stats["head"], proj_type))
+    elif swin_variant is not None:
         parts = (swin_backbone_state_dict(params["backbone"], swin_variant),
                  upernet_head_state_dict(params["head"], stats["head"], proj_type))
     elif mit_variant is not None:

@@ -17,7 +17,7 @@ _BACKBONES: Dict[str, Callable] = {}
 _HEADS: Dict[str, Callable] = {}
 
 # families of the JAX package still to be ported (ROADMAP.md)
-NOT_PORTED_BACKBONES = ("convnext", "hrnet", "unet", "vit")
+NOT_PORTED_BACKBONES = ("convnext", "hrnet", "unet")
 NOT_PORTED_HEADS = ("aspp",)
 
 

@@ -39,18 +39,36 @@ class BatchNorm2d(nn.BatchNorm2d):
     the BIASED batch variance (torch uses the unbiased one). Train mode
     keeps cuDNN's fused kernel and corrects afterwards, in place:
     torch left ``rv = (1−m)·rv_old + m·var·n/(n−1)``; the flax update is
-    ``rv·(1 − 1/n) + rv_old·(1−m)/n`` with ``n`` = elements per channel."""
+    ``rv·(1 − 1/n) + rv_old·(1−m)/n`` with ``n`` = elements per channel.
+
+    One value a channel in train mode (UperNet's 1×1 pool on a batch of one
+    image), which PyTorch refuses, follows flax too: the value is its own
+    mean at variance 0, so the output is the shift, neither the input nor
+    the scale gets a gradient, and the running statistics move toward the
+    value and toward 0."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not (self.training and self.track_running_stats and self.momentum is not None):
             return super().forward(x)
+        n = x.numel() // x.shape[1]
+        if n == 1:
+            return self._one_value(x)
         rv_old = self.running_var.clone()
         out = super().forward(x)
-        n = x.numel() // x.shape[1]
         # through .data: the BN backward holds running_var and checks its
         # version counter, though training-mode gradients never read it
         self.running_var.data.mul_(1.0 - 1.0 / n).add_(rv_old, alpha=(1.0 - self.momentum) / n)
         return out
+
+    def _one_value(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        with torch.no_grad():
+            self.running_mean.mul_(1.0 - self.momentum).add_(xf.reshape(-1), alpha=self.momentum)
+            self.running_var.mul_(1.0 - self.momentum)
+            self.num_batches_tracked.add_(1)
+        xhat = (xf - xf) * self.eps ** -0.5
+        return (xhat * self.weight.view(shape) + self.bias.view(shape)).to(x.dtype)
 
 
 def batch_norm(channels: int) -> BatchNorm2d:

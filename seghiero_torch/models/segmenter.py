@@ -5,7 +5,8 @@ Top-level submodules are named after the reference checkpoint's three
 state dicts: ``backbone``, ``aspp_head`` (whatever the decode head is)
 and ``aux_head``. A backbone gives its four stage widths as ``widths``.
 Registered here: the backbones ``resnet`` (ResNet-18 to 152), ``mit``
-(MiT-B0 to B5) and ``swin`` (Swin tiny to large), and the heads
+(MiT-B0 to B5), ``swin`` (Swin tiny to large) and ``vit`` (ViT tiny to
+large with the simple feature pyramid), and the heads
 ``sep_aspp_contrast``, ``segformer_mlp`` and ``upernet``.
 """
 
@@ -33,6 +34,7 @@ from seghiero_torch.models.registry import (
 )
 from seghiero_torch.models.resnet import ResNetBackbone
 from seghiero_torch.models.swin import SwinBackbone, WindowAttention
+from seghiero_torch.models.vit import ViTBackbone
 
 ALL_OUTPUTS = ("logits", "embedding", "aux_logits")
 
@@ -94,6 +96,15 @@ def _build_swin(cfg: SegHieroConfig) -> nn.Module:
                         float(opts.get("drop_path_rate", 0.0)))
 
 
+@register_backbone("vit")
+def _build_vit(cfg: SegHieroConfig) -> nn.Module:
+    opts = cfg.model.backbone_options or {}
+    return ViTBackbone(str(opts.get("variant", "base")), int(opts.get("patch", 16)),
+                       int(opts.get("pos_grid", 0)), float(opts.get("drop_path_rate", 0.0)),
+                       float(opts.get("layer_scale_init", 0.0)), int(opts.get("n_register", 0)),
+                       float(opts.get("norm_eps", 1e-6)))
+
+
 @register_head("sep_aspp_contrast")
 def _build_sep_aspp_contrast(cfg: SegHieroConfig, widths) -> nn.Module:
     m = cfg.model
@@ -139,16 +150,20 @@ def _build_upernet(cfg: SegHieroConfig, widths) -> nn.Module:
 
 def seeded_init_(model: nn.Module, seed: int) -> nn.Module:
     """Initialize like the JAX package's flax modules, from ``seed``:
-    conv and linear kernels lecun-normal (a normal truncated at ±2σ,
-    rescaled so the standard deviation is 1/√fan_in), their biases 0,
-    BatchNorm and LayerNorm scale 1 and shift 0, Swin's relative-position
-    tables a normal of std 0.02 truncated at ±2σ. (The draws differ from
-    JAX's: tests carry weights across.)"""
+    conv, deconvolution and linear kernels lecun-normal (a normal truncated
+    at ±2σ, rescaled so the standard deviation is 1/√fan_in), their biases
+    0, BatchNorm and LayerNorm scale 1 and shift 0, Swin's
+    relative-position tables a normal of std 0.02 truncated at ±2σ, ViT's
+    CLS, register and position tokens a normal of std 0.02. (The draws
+    differ from JAX's: tests carry weights across.)"""
     gen = torch.Generator().manual_seed(int(seed))
     with torch.no_grad():
         for mod in model.modules():
-            if isinstance(mod, (nn.Conv2d, nn.Linear)):
-                std = (1.0 / mod.weight[0].numel()) ** 0.5 / 0.87962566103423978
+            if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+                fan_in = mod.weight[0].numel()
+                if isinstance(mod, nn.ConvTranspose2d):  # weight [in, out, kh, kw]
+                    fan_in = mod.weight.shape[0] * mod.weight[0, 0].numel()
+                std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
                 nn.init.trunc_normal_(mod.weight, 0.0, std, -2 * std, 2 * std, generator=gen)
                 if mod.bias is not None:
                     mod.bias.zero_()
@@ -157,6 +172,10 @@ def seeded_init_(model: nn.Module, seed: int) -> nn.Module:
             elif isinstance(mod, WindowAttention):
                 nn.init.trunc_normal_(mod.relative_position_bias_table, 0.0, 0.02, -0.04, 0.04,
                                       generator=gen)
+            elif isinstance(mod, ViTBackbone):
+                for p in (mod.cls_token, mod.reg_token, mod.pos_embed):
+                    if p is not None:
+                        nn.init.normal_(p, 0.0, 0.02, generator=gen)
     return model
 
 

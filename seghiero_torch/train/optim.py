@@ -18,9 +18,10 @@ The fine-tuning options of the JAX package's optax chain:
   own at ``lr · scale`` (the schedule multiplies every group alike); at
   ``0`` they are left out of the optimizer — no update, no decay, no
   momentum or moments, as ``optax.set_to_zero`` — and keep their bits.
-* ``wd_skip_norm_bias``: weight decay on conv and linear weights only
-  (flax's ``kernel`` leaves, ``_wd_mask``); BatchNorm and LayerNorm
-  affine parameters and every bias get none.
+* ``wd_skip_norm_bias``: weight decay on conv, deconvolution and linear
+  weights only (flax's ``kernel`` leaves, ``_wd_mask``); BatchNorm and
+  LayerNorm affine parameters, every bias and ViT's CLS, register and
+  position tokens get none.
 * ``grad_clip_norm``: ``clip_grad_global_norm_``, before weight decay and
   the optimizer's update, over every gradient.
 """
@@ -90,7 +91,8 @@ def param_groups(cfg: TrainingConfig, model: nn.Module) -> List[dict]:
     fine-tuning option is set)."""
     scale = cfg.backbone_lr_scale
     backbone = {id(p) for p in model.backbone.parameters()}
-    kernels = {id(m.weight) for m in model.modules() if isinstance(m, (nn.Conv2d, nn.Linear))}
+    kernels = {id(m.weight) for m in model.modules()
+               if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear))}
     groups: Dict[Tuple[float, float], list] = {}
     for p in model.parameters():
         in_backbone = id(p) in backbone

@@ -39,7 +39,7 @@ def _check_model_options(cfg: SegHieroConfig) -> None:
         raise NotImplementedError(
             f"model.pretrained for model.backbone: {cfg.model.backbone} is not yet ported to "
             "seghiero_torch (ROADMAP.md); the port loads torchvision ResNet files only, and "
-            "the import of MiT's and Swin's official releases waits")
+            "the import of MiT's, Swin's and ViT's official releases waits")
     if cfg.model.remat:
         raise not_yet_ported("model.remat")
 

@@ -7,6 +7,7 @@ without it; there, skip the JAX-pinning conftest:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_port_cuda.py
 """
 
+import json
 from pathlib import Path
 
 import numpy as np
@@ -526,6 +527,40 @@ def test_sr_attention_raises_where_no_fused_kernel_takes_the_call():
         attention.sr_attention(q, q, q)
 
 
+@pytest.mark.gpu
+def test_sr_attention_takes_the_pair_at_vit_l_global_attention():
+    """Card-only: at ViT-L/16's global attention of a 1024² image, ``[1,
+    16, 4097, 64]`` bf16 (65 key tiles, the last ragged) on the views of a
+    fused ``qkv`` projection's tokens, ``sr_attention`` takes the
+    hand-written pair #10 / #10b: one forward and one backward count, no
+    SDPA call, and no kernel but the pair's (no copy of the views). Its
+    output and gradients against the plain path, and its times beside SDPA
+    flash's, are ``chip_smoke.py``'s ``kernels`` lines at this shape."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from seghiero_torch.ops import attention
+
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(7)
+    B, h, N, d = 1, 16, 4097, 64
+    qkv = torch.randn((B, N, 3, h, d), generator=gen, device=dev).to(torch.bfloat16)
+    q, k, v = qkv.requires_grad_().permute(2, 0, 3, 1, 4)
+    g = torch.randn((B, h, N, d), generator=gen, device=dev).to(torch.bfloat16)
+    # a first call outside the profile: the kernel library's build
+    torch.autograd.grad(attention.sr_attention(q, k, v), (q, k, v), g)
+    torch.cuda.synchronize()
+    before = (attention.launches, attention.bwd_launches, attention.sdpa_launches)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.autograd.grad(attention.sr_attention(q, k, v), (q, k, v), g)
+        torch.cuda.synchronize()
+    assert (attention.launches, attention.bwd_launches, attention.sdpa_launches) == (
+        before[0] + 1, before[1] + 1, before[2])
+    names = {e.name for e in prof.events() if e.device_type.name == "CUDA"}
+    assert any("flash_fwd" in n for n in names) and any("flash_bwd" in n for n in names)
+    assert all("seghiero" in n and ("flash_fwd" in n or "flash_bwd" in n) for n in names), \
+        sorted(names)
+
+
 # Swin's window attention: (B·nW, h, N, d, shifted) at Swin-L's stages 1 and
 # 3 of two 640² images, and Swin-T's window 3 (N = 9, the mask's rows not a
 # multiple of 16)
@@ -678,11 +713,11 @@ def test_triplet_forward_and_backward_take_under_2_ms(monkeypatch):
 
 
 # -- the train step as one CUDA graph (``train/steps.py``) -------------------
-# the benchmark's four training configurations at their CPU rehearsal's
-# tiny size (64², ResNet-50 / MiT-B0 / Swin-T at window 3), with the
-# harness's weights and scenes
+# the benchmark's five training configurations at their CPU rehearsal's
+# tiny size (64², ResNet-50 / MiT-B0 / Swin-T at window 3 / ViT-tiny at
+# patch 16), with the harness's weights and scenes
 GRAPH_CELLS = ("r50-2level.train-files", "r101-3level.train-769", "mitb5-3level.train-1024",
-               "swinl-2level.train-640")
+               "swinl-2level.train-640", "vitl16-3level.train-1024")
 GRAPH_SEED = 3_000_000_019
 
 
@@ -766,7 +801,7 @@ def test_replayed_steps_equal_eager_steps(cell, monkeypatch):
     assert any(n > 0 for n in graph[2][-1].values())
     attn = "seghiero_torch.ops.attention."
     assert all(c[attn + "sdpa_launches"] == 0 for c in graph[2])
-    if cell.startswith("mitb5"):
+    if cell.startswith(("mitb5", "vitl16")):
         assert all(c[attn + "launches"] > 0 for c in graph[2])
     deterministic = eager_a[0] == eager_b[0] and all(
         torch.equal(eager_a[1][k], eager_b[1][k]) for k in eager_a[1])
@@ -826,6 +861,33 @@ def test_a_replayed_swin_l_step_counts_24_window_attentions(monkeypatch):
                  if k.startswith(attn)}
         assert moved == {"launches": 0, "bwd_launches": 0, "sdpa_launches": 0,
                          "window_launches": 24, "window_bwd_launches": 24}, (i, moved)
+    torch.cuda.synchronize()
+    assert steps._steps[optimizer].graph is not None
+
+
+@pytest.mark.gpu
+def test_a_replayed_vit_l_step_counts_24_global_attentions(monkeypatch):
+    """Card-only: ViT-L/16 (the cell's configuration at 128², 65 tokens,
+    one image a batch, so UperNet's 1×1 pool normalizes one value a
+    channel) through two eager steps, the capture and two replays: every
+    step counts 24 forwards and 24 backwards of the hand-written pair, no
+    SDPA call and no window attention, and its loss is finite."""
+    from seghiero_torch import ops
+    from seghiero_torch.train import steps
+
+    monkeypatch.setattr(steps, "EAGER_CALLS", 2)
+    cfg, model, composite, optimizer, scheduler, batches, _ = _graph_setup(
+        "vitl16-3level.train-1024", overrides={"modes": {"train": {
+            "transform": {"resize": [128, 128]}, "training": {"batch_size": 1}}}})
+    attn = "seghiero_torch.ops.attention."
+    for i in range(5):
+        before = ops.launch_counts()
+        out = steps.train_step(model, composite, optimizer, cfg, batches[i % 4], i, 0, scheduler)
+        moved = {k[len(attn):]: n - before[k] for k, n in ops.launch_counts().items()
+                 if k.startswith(attn)}
+        assert moved == {"launches": 24, "bwd_launches": 24, "sdpa_launches": 0,
+                         "window_launches": 0, "window_bwd_launches": 0}, (i, moved)
+        assert torch.isfinite(out["loss"])
     torch.cuda.synchronize()
     assert steps._steps[optimizer].graph is not None
 
